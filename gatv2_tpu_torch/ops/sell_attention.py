@@ -1,0 +1,645 @@
+"""SELL-128 GATv2 attention: host layout and the forward op (port of
+gatv2_tpu/ops/sell_attention.py).
+
+Layout (numpy, built once per graph, byte-equal to the JAX package's):
+destination nodes are sorted by in-degree and grouped into slices of 128
+rows; each slice's edges are stored column-major, padded to the slice's
+widest row. A 128-edge column then holds at most one edge per destination
+row, so the softmax and the aggregation accumulate per row. Rows whose
+degree exceeds the split cap become several virtual rows (power-law hubs);
+their partial softmax states are merged back per node with the
+online-softmax rescale.
+
+Padding semantics the op and its kernel keep:
+  - padding slots carry the opposite side's padded node count as gather
+    id, and a column's real slots are exactly its first `cnt` rows
+    (slices are length-descending);
+  - a padding slot's score is -1e30, so exp(clip(sc - m, -80, 0)) leaves
+    a row with edges unchanged;
+  - rows with no edges output exactly 0, with m = -1e30 (finite).
+
+The forward runs K1 (ops/sell_fwd.py) once per chunk of slices. The
+backward is the training slice's work: calling it raises.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from gatv2_tpu_torch.ops.segment import SOFTMAX_EPS, segment_max, segment_sum
+from gatv2_tpu_torch.ops.sell_fwd import (
+    MAX_HD,
+    NEG_INF,
+    TILE_N,
+    heads_per_launch,
+    sell_fwd,
+)
+
+_SIDE_ARRAYS = (
+    "perm", "inv", "vsort", "sids", "gather_ids", "cnt", "col_off",
+    "ids_grp", "cnt_grp", "rel_off",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class _SellSide:
+    """One SELL tiling direction (dst-sorted for the forward, src-sorted
+    for the backward's d_zs), optionally grouped into chunks. Leaves are
+    int32 numpy arrays on the host, or tensors after SellTiles.to(device).
+
+    perm        [rows_pad] — row j accumulates node perm[j] (repeats when
+                split; padding rows carry the node grid's padded count).
+    inv         [node_pad] — node n's row (unsplit sides; dummy [1] when
+                split).
+    vsort       [rows_pad] — row indices ordered by node id, pads last
+                (split sides; dummy [1] when unsplit).
+    sids        [rows_pad] — perm[vsort], the ascending node ids the
+                split merge keys on (dummy when unsplit).
+    gather_ids  [e_ell] — the opposite endpoint's node id per ELL slot;
+                padding slots carry the opposite side's padded node count.
+                Dummy [1] when num_chunks > 1.
+    cnt         [e_ell / 128] — valid-row count per 128-edge column.
+    col_off     [T+1] — cumulative column counts per slice.
+    ids_grp     [G, Ec] — per-chunk gather ids.
+    cnt_grp     [G, Ec / 128] — per-chunk column counts.
+    rel_off     [G, spc+1] — per-chunk chunk-relative column offsets.
+    split       whether any node was split across rows.
+    """
+
+    perm: np.ndarray
+    inv: np.ndarray
+    vsort: np.ndarray
+    sids: np.ndarray
+    gather_ids: np.ndarray
+    cnt: np.ndarray
+    col_off: np.ndarray
+    ids_grp: np.ndarray
+    cnt_grp: np.ndarray
+    rel_off: np.ndarray
+    split: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class SellTiles:
+    """Host-precomputed SELL-128 layout (static per graph).
+
+    dst       — in-degree-sorted slices over destination nodes (streams
+                src ids): the forward.
+    srcs      — out-degree-sorted slices over source nodes (streams dst
+                ids): the backward's d_zs.
+    ell_perm  [e2_ell] — src-ELL slot -> dst-ELL slot of the same edge;
+                padding -> e_ell (dummy when num_chunks > 1).
+    """
+
+    dst: _SellSide
+    srcs: _SellSide
+    ell_perm: np.ndarray
+    num_nodes: int  # real dst-node count
+    num_src_nodes: int  # real src-node count (== num_nodes if monopartite)
+    num_dst_tiles: int  # TOTAL dst row slices (num_chunks * spc_dst)
+    num_src_tiles: int
+    e_ell: int
+    e2_ell: int
+    num_edges: int
+    pad_overhead: float  # e_ell / max(num_edges, 1) — layout diagnostic
+    num_chunks: int = 1
+    spc_dst: int = 0  # slices per chunk, dst side
+    spc_src: int = 0
+    node_pad_dst: int = -1  # padded node grids; -1 -> num_*_tiles * TILE_N
+    node_pad_src: int = -1
+
+    @property
+    def padded_num_nodes(self) -> int:
+        return (
+            self.num_dst_tiles * TILE_N
+            if self.node_pad_dst < 0
+            else self.node_pad_dst
+        )
+
+    @property
+    def padded_src_nodes(self) -> int:
+        return (
+            self.num_src_tiles * TILE_N
+            if self.node_pad_src < 0
+            else self.node_pad_src
+        )
+
+    def to(self, device: str | torch.device) -> "SellTiles":
+        """The same layout with every leaf an int32 tensor on `device`
+        (a leaf already there is not copied)."""
+
+        def move(x):
+            return torch.as_tensor(x, device=device)
+
+        def side(s):
+            return dataclasses.replace(
+                s, **{f: move(getattr(s, f)) for f in _SIDE_ARRAYS}
+            )
+
+        return dataclasses.replace(
+            self, dst=side(self.dst), srcs=side(self.srcs),
+            ell_perm=move(self.ell_perm),
+        )
+
+
+def _vrow_lengths(deg: np.ndarray, split_cap: int | None):
+    """Virtual-row decomposition of a degree profile.
+
+    Returns (split, vnode [nvr], vlen [nvr], vbase [num_rows+1]): unsplit
+    sides get exactly one row per node (including empty nodes), split
+    sides get ceil(deg/cap) rows per NONEMPTY node."""
+    num_rows = len(deg)
+    split = split_cap is not None and (
+        num_rows > 0 and deg.size > 0 and int(deg.max(initial=0)) > split_cap
+    )
+    if not split:
+        vbase = np.arange(num_rows + 1, dtype=np.int64)
+        return False, np.arange(num_rows, dtype=np.int64), deg.astype(
+            np.int64
+        ), vbase
+    nvr_node = -(-deg // split_cap)
+    vbase = np.zeros(num_rows + 1, np.int64)
+    np.cumsum(nvr_node, out=vbase[1:])
+    nvr = int(vbase[-1])
+    vnode = np.repeat(np.arange(num_rows, dtype=np.int64), nvr_node)
+    k = np.arange(nvr, dtype=np.int64) - np.repeat(vbase[:-1], nvr_node)
+    vlen = np.minimum(deg[vnode] - k * split_cap, split_cap)
+    return True, vnode, vlen, vbase
+
+
+def _side_geometry(deg: np.ndarray, num_chunks: int, split_cap=None):
+    """(t2 total slices, spc slices/chunk, e_ell, g) for one side — exact,
+    without building the arrays (the balancing reorder never changes slice
+    widths, only their order). Both sides use the same chunk count."""
+    _, _, vlen, _ = _vrow_lengths(np.asarray(deg, np.int64), split_cap)
+    nvr = max(1, len(vlen))
+    t_real = max(1, -(-nvr // TILE_N))
+    g = max(1, num_chunks)
+    spc = -(-t_real // g)
+    t2 = g * spc
+    vlen_pad = np.zeros(t2 * TILE_N, np.int64)
+    vlen_pad[: len(vlen)] = vlen
+    widths = np.sort(vlen_pad)[::-1].reshape(t2, TILE_N).max(axis=1)
+    return t2, spc, max(int(widths.sum()) * TILE_N, TILE_N), g
+
+
+def _build_sell_side(ptr, opp_ids, num_rows, opp_pad_rows, num_chunks,
+                     split_cap=None):
+    """One side's SELL layout from its CSR view.
+
+    ptr [num_rows+1], opp_ids [E]: the opposite endpoint of each edge in
+    this side's sorted order. Returns (_SellSide, slot[E] int64 — each
+    edge's ELL slot, in this side's edge order, for cross-side permutes —
+    e_ell, t2 row slices, spc slices per chunk, node_pad)."""
+    ptr = np.asarray(ptr, np.int64)
+    deg = np.diff(ptr)
+    num_edges = int(ptr[-1])
+    split, vnode, vlen, vbase = _vrow_lengths(deg, split_cap)
+    nvr = len(vnode)
+    t_real = max(1, -(-max(nvr, 1) // TILE_N))
+    g = max(1, num_chunks)
+    spc = -(-t_real // g)
+    t2 = g * spc
+    rows_pad = t2 * TILE_N
+    vlen_pad = np.zeros(rows_pad, np.int64)
+    vlen_pad[:nvr] = vlen
+    order0 = np.argsort(-vlen_pad, kind="stable")
+    widths0 = vlen_pad[order0].reshape(t2, TILE_N).max(axis=1)
+    if g > 1:
+        # deal slices (already width-descending) greedily into g chunks of
+        # exactly spc slices each, lightest-loaded first
+        loads = np.zeros(g, np.int64)
+        fill = np.zeros(g, np.int64)
+        assign = np.empty(t2, np.int64)
+        for s in range(t2):
+            cands = np.nonzero(fill < spc)[0]
+            b = cands[np.argmin(loads[cands])]
+            assign[s] = b
+            loads[b] += widths0[s]
+            fill[b] += 1
+        slice_order = np.argsort(assign, kind="stable")
+    else:
+        slice_order = np.arange(t2)
+    # final row p holds (pre-sort) virtual row vorder[p]
+    vorder = order0.reshape(t2, TILE_N)[slice_order].reshape(-1)
+    vpos = np.empty(rows_pad, np.int64)
+    vpos[vorder] = np.arange(rows_pad, dtype=np.int64)
+    if split:
+        # decoupled node grid: rows are virtual; padding rows carry the
+        # node grid's appended-zero-row index
+        node_pad = max(TILE_N, -(-num_rows // TILE_N) * TILE_N)
+        vnode_ext = np.concatenate(
+            [vnode, np.full(rows_pad - nvr, node_pad, np.int64)]
+        )
+        perm = vnode_ext[vorder].astype(np.int32)
+        inv = np.zeros(1, np.int32)  # direct restore unavailable
+        vsort = np.argsort(perm, kind="stable").astype(np.int32)
+        sids = perm[vsort]
+    else:
+        # one row per padded-grid node id: perm is a permutation of the
+        # row grid and the node grid is the row grid
+        node_pad = rows_pad
+        perm = vorder.astype(np.int32)
+        inv = np.empty(rows_pad, np.int32)
+        inv[perm] = np.arange(rows_pad, dtype=np.int32)
+        vsort = np.zeros(1, np.int32)
+        sids = np.zeros(1, np.int32)
+    widths = widths0[slice_order]
+    col_off = np.zeros(t2 + 1, np.int64)
+    np.cumsum(widths, out=col_off[1:])
+    e_ell = max(int(col_off[-1]) * TILE_N, TILE_N)
+
+    gather = np.full(e_ell, opp_pad_rows, np.int32)
+    # per-column valid-row counts: column c of a slice holds real edges in
+    # exactly its first #{rows: vlen > c} rows
+    cnt = np.zeros(e_ell // TILE_N, np.int32)
+    if num_edges:
+        vlen_sl = vlen_pad[vorder].reshape(t2, TILE_N)
+        for s in range(t2):
+            w = int(widths[s])
+            if w:
+                asc = vlen_sl[s][::-1]
+                c0 = int(col_off[s])
+                cnt[c0 : c0 + w] = (
+                    TILE_N
+                    - np.searchsorted(
+                        asc, np.arange(w, dtype=np.int64), side="right"
+                    )
+                ).astype(np.int32)
+        own = np.repeat(np.arange(num_rows, dtype=np.int64), deg)
+        rank = np.arange(num_edges, dtype=np.int64) - np.repeat(ptr[:-1], deg)
+        cap = split_cap if split else (int(deg.max()) + 1 if len(deg) else 1)
+        vr0 = vbase[own] + rank // cap
+        within = rank % cap
+        pos = vpos[vr0]
+        slot = (col_off[pos // TILE_N] + within) * TILE_N + pos % TILE_N
+        gather[slot] = opp_ids
+    else:
+        slot = np.zeros(0, np.int64)
+
+    if g > 1:
+        bounds = col_off[::spc]  # [g+1] chunk column boundaries
+        ec = max(int(np.diff(bounds).max()), 1) * TILE_N
+        ids_grp = np.full((g, ec), opp_pad_rows, np.int32)
+        cnt_grp = np.zeros((g, ec // TILE_N), np.int32)
+        rel = np.zeros((g, spc + 1), np.int32)
+        for k in range(g):
+            lo, hi = int(bounds[k]) * TILE_N, int(bounds[k + 1]) * TILE_N
+            ids_grp[k, : hi - lo] = gather[lo:hi]
+            cnt_grp[k, : (hi - lo) // TILE_N] = cnt[
+                int(bounds[k]) : int(bounds[k + 1])
+            ]
+            rel[k] = (
+                col_off[k * spc : (k + 1) * spc + 1] - col_off[k * spc]
+            ).astype(np.int32)
+        # only the grouped layout is consumed when chunked
+        gather = np.zeros(1, np.int32)
+        cnt = np.zeros(1, np.int32)
+        col_flat = np.zeros(1, np.int32)
+    else:
+        ids_grp = gather[None]
+        cnt_grp = cnt[None]
+        rel = col_off[None].astype(np.int32)
+        col_flat = col_off.astype(np.int32)
+    side = _SellSide(
+        perm=np.asarray(perm, np.int32),
+        inv=np.asarray(inv, np.int32),
+        vsort=np.asarray(vsort, np.int32),
+        sids=np.asarray(sids, np.int32),
+        gather_ids=gather,
+        cnt=cnt,
+        col_off=np.asarray(col_flat, np.int32),
+        ids_grp=ids_grp,
+        cnt_grp=cnt_grp,
+        rel_off=rel,
+        split=split,
+    )
+    return side, slot, e_ell, t2, spc, node_pad
+
+
+def suggest_num_chunks_sell(
+    e_ell: int, e2_ell: int, max_hd: int, *, budget_bytes: int
+) -> int:
+    """Chunk count so SELL edge-space temporaries stay under budget_bytes.
+
+    The live set is the training backward's: unchunked, phase 1 holds zs
+    [E, hd] + the c1 packets [E, hd] and phase 2a the permuted packets
+    [E2, hd]; chunked, the widest per-chunk set is phase 2b's [zd | g]
+    stream [E2/G, 2hd] + sr [E2/G, 128]. The forward alone holds no
+    edge-space buffer here (K1 gathers zs rows itself)."""
+    if (2 * e_ell + e2_ell) * max_hd * 4 <= budget_bytes:
+        return 1
+    need = max(e_ell * max_hd, e2_ell * (2 * max_hd + 128)) * 4
+    return max(2, -(-need // budget_bytes))
+
+
+DEFAULT_SPLIT_CAP = 256
+
+# chunk budget when the layout is built for the CPU: the JAX package's
+# budget for graphs under 30M edges (gatv2_tpu/ops/pallas_attention.py
+# default_chunk_budget)
+CPU_CHUNK_BUDGET = 6 << 30
+
+
+def default_chunk_budget(device: str | torch.device) -> int:
+    """Edge-temporary budget for auto-chunking: a quarter of the CUDA
+    device's free memory (the rest holds features, projections and
+    activations), or CPU_CHUNK_BUDGET on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(dev)
+        return free // 4
+    return CPU_CHUNK_BUDGET
+
+
+def prepare_sell_tiles(
+    row_ptr: np.ndarray,
+    col_idx: np.ndarray,
+    num_nodes: int,
+    num_src_nodes: int | None = None,
+    num_chunks: int = 1,
+    split_cap: int | None = DEFAULT_SPLIT_CAP,
+) -> SellTiles:
+    """Build the two-sided SELL-128 layout from CSR (host side, once per
+    graph); every leaf is a numpy array. num_src_nodes: bipartite edge sets
+    (col_idx holds global source ids while row_ptr covers local
+    destinations); default monopartite. num_chunks=G groups each side's
+    slices into G balanced chunks. split_cap: rows above this degree split
+    into virtual rows (None disables)."""
+    row_ptr = np.asarray(row_ptr, np.int64)
+    col_idx = np.asarray(col_idx, np.int32)
+    ns = num_nodes if num_src_nodes is None else num_src_nodes
+    num_edges = int(row_ptr[-1])
+    deg_s = np.bincount(col_idx, minlength=ns) if num_edges else np.zeros(
+        ns, np.int64
+    )
+
+    # each side's padding slots point at the OTHER side's appended zero
+    # row, so both sides' padded node grids are fixed up front
+    node_pad_d = max(TILE_N, -(-num_nodes // TILE_N) * TILE_N)
+    node_pad_s = max(TILE_N, -(-ns // TILE_N) * TILE_N)
+    deg_d = np.diff(row_ptr)
+    split_d, _, _, _ = _vrow_lengths(deg_d, split_cap)
+    split_s, _, _, _ = _vrow_lengths(deg_s.astype(np.int64), split_cap)
+    if not split_d:
+        node_pad_d = _side_geometry(deg_d, num_chunks)[0] * TILE_N
+    if not split_s:
+        node_pad_s = _side_geometry(deg_s, num_chunks)[0] * TILE_N
+
+    dst_side, slot_d, e_ell, t2_d, spc_d, node_pad_d = _build_sell_side(
+        row_ptr, col_idx, num_nodes, node_pad_s, num_chunks,
+        split_cap=split_cap,
+    )
+
+    # CSC view: edges stably re-sorted by src
+    order = np.argsort(col_idx, kind="stable")
+    sptr = np.zeros(ns + 1, np.int64)
+    np.cumsum(deg_s, out=sptr[1:])
+    dst_all = np.repeat(
+        np.arange(num_nodes, dtype=np.int32), np.diff(row_ptr)
+    )
+    src_side, slot_s, e2_ell, t2_s, spc_s, node_pad_s = _build_sell_side(
+        sptr, dst_all[order], ns, node_pad_d, num_chunks,
+        split_cap=split_cap,
+    )
+    g = max(1, num_chunks)
+    if g > 1:
+        ell_perm = np.zeros(1, np.int32)  # packet path unused when chunked
+    else:
+        ell_perm = np.full(e2_ell, e_ell, np.int32)
+        if num_edges:
+            ell_perm[slot_s] = slot_d[order]
+
+    return SellTiles(
+        dst=dst_side,
+        srcs=src_side,
+        ell_perm=ell_perm,
+        num_nodes=num_nodes,
+        num_src_nodes=ns,
+        num_dst_tiles=t2_d,
+        num_src_tiles=t2_s,
+        e_ell=e_ell,
+        e2_ell=e2_ell,
+        num_edges=num_edges,
+        pad_overhead=e_ell / max(num_edges, 1),
+        num_chunks=g,
+        spc_dst=spc_d,
+        spc_src=spc_s,
+        node_pad_dst=node_pad_d,
+        node_pad_src=node_pad_s,
+    )
+
+
+def suggest_chunks_for_graph(
+    row_ptr, col_idx, num_nodes, heads, out_dims, *, budget_bytes
+) -> int:
+    """Chunk count for a CSR graph: exact e_ell/e2_ell pre-sizing plus the
+    live-set budget."""
+    # the widest head group one K1 launch takes (see sell_forward)
+    max_hd = max(
+        min(h, heads_per_launch(d)) * d for h, d in zip(heads, out_dims)
+    )
+    deg_d = np.diff(np.asarray(row_ptr, np.int64))
+    deg_s = np.bincount(np.asarray(col_idx, np.int64), minlength=num_nodes)
+    _, _, e_ell_est, _ = _side_geometry(
+        deg_d, 1, split_cap=DEFAULT_SPLIT_CAP
+    )
+    _, _, e2_ell_est, _ = _side_geometry(
+        deg_s, 1, split_cap=DEFAULT_SPLIT_CAP
+    )
+    return suggest_num_chunks_sell(
+        e_ell_est, e2_ell_est, max_hd, budget_bytes=budget_bytes
+    )
+
+
+def setup_full_graph_sell(
+    graph, heads, out_dims, *, device, budget_bytes=None
+):
+    """One-stop full-graph SELL setup: builds the two-sided layout —
+    auto-chunked so the edge-space temporaries fit budget_bytes (default:
+    default_chunk_budget(device)) — and pads features and labels to the
+    padded node grid once.
+
+    Returns (sell_tiles, features, labels, num_valid), all on the host;
+    num_valid is None when no padding row was added. Padding labels are
+    -1 (ignored by the loss)."""
+    if budget_bytes is None:
+        budget_bytes = default_chunk_budget(device)
+    num_chunks = suggest_chunks_for_graph(
+        graph.row_ptr, graph.col_idx, graph.num_nodes, heads, out_dims,
+        budget_bytes=budget_bytes,
+    )
+    st = prepare_sell_tiles(
+        graph.row_ptr, graph.col_idx, graph.num_nodes, num_chunks=num_chunks
+    )
+    feats, labels, num_valid = graph.features, graph.labels, None
+    n, n_pad = graph.num_nodes, st.padded_num_nodes
+    if n_pad != n:
+        feats = np.zeros((n_pad, graph.feature_dim), np.float32)
+        feats[:n] = graph.features
+        labels = np.full(n_pad, -1, np.int32)
+        labels[:n] = graph.labels
+        num_valid = n
+    return st, feats, labels, num_valid
+
+
+# ---------------------------------------------------------------------------
+# the op
+# ---------------------------------------------------------------------------
+
+
+def _merge_rows_dst(u_p, m_p, l_p, side, n_pad, head_dim):
+    """Virtual-row space (u, m, l) -> node space (out, sigma): the exact
+    online-softmax merge over each node's virtual rows."""
+    vs = side.vsort.long()
+    ids = side.sids.long()  # ascending node ids, pads last
+    m_s, l_s, u_s = m_p[vs], l_p[vs], u_p[vs]
+    # empty nodes keep a finite max, as in the JAX package
+    m_n = segment_max(m_s, ids, n_pad + 1)[:n_pad].clamp(min=NEG_INF)
+    m_z = torch.cat([m_n, m_n.new_zeros((1, m_n.shape[1]))])
+    c = torch.exp(m_s - m_z[ids])  # [rows, H]
+    u_n = segment_sum(
+        u_s * c.repeat_interleave(head_dim, dim=1), ids, n_pad + 1
+    )[:n_pad]
+    l_n = segment_sum(l_s * c, ids, n_pad + 1)[:n_pad]
+    out = u_n / (l_n.repeat_interleave(head_dim, dim=1) + SOFTMAX_EPS)
+    return out, m_n + torch.log(l_n + SOFTMAX_EPS)
+
+
+def _forward_heads(zs, zd, a, st, num_nodes, negative_slope):
+    """One head group: flat fp32 zs/zd [*, H*D] -> node-space
+    (out [num_nodes, H*D], sigma [num_nodes, H])."""
+    side = st.dst
+    rows_c = st.spc_dst * TILE_N
+    outs, ms, ls = [], [], []
+    for g in range(st.num_chunks):
+        o, m, l = sell_fwd(
+            zs, zd, a, side.perm[g * rows_c : (g + 1) * rows_c],
+            side.ids_grp[g], side.cnt_grp[g], side.rel_off[g],
+            negative_slope=negative_slope, normalize=not side.split,
+        )
+        outs.append(o)
+        ms.append(m)
+        ls.append(l)
+    out_p, m_p, l_p = (torch.cat(x) if len(x) > 1 else x[0]
+                       for x in (outs, ms, ls))
+    if side.split:
+        out, sigma = _merge_rows_dst(
+            out_p, m_p, l_p, side, st.padded_num_nodes, a.shape[1]
+        )
+        return out[:num_nodes], sigma[:num_nodes]
+    inv = side.inv[:num_nodes].long()
+    return out_p[inv], m_p[inv] + torch.log(l_p[inv] + SOFTMAX_EPS)
+
+
+def sell_forward(
+    zs: torch.Tensor,  # [N, H, D] or flat [N, H*D]
+    zd: torch.Tensor,  # same shape family as zs
+    a: torch.Tensor,  # [H, D]
+    num_nodes: int,
+    *,
+    negative_slope: float,
+    sell_tiles: SellTiles,
+    streams: str = "f32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """SELL attention forward. Returns (out, sigma): out in the shape of
+    zs restricted to num_nodes rows, sigma = m + log(l + 1e-8) per node and
+    head [num_nodes, H] (the statistic the backward will reuse).
+
+    Heads run in groups of heads_per_launch(D) per K1 launch (at most 32
+    heads and 512 lanes); heads are independent, so groups change nothing.
+    streams='bf16': zs and zd are rounded once to bfloat16 and carried as
+    fp32, so the result equals the exact path on rounded projections."""
+    if sell_tiles is None:
+        raise ValueError(
+            "impl='sell' requires sell_tiles "
+            "(ops.sell_attention.prepare_sell_tiles(row_ptr, col_idx, n))"
+        )
+    st = sell_tiles
+    if num_nodes not in (st.num_nodes, st.padded_num_nodes):
+        raise ValueError(
+            f"sell_tiles built for {st.num_nodes} "
+            f"(padded {st.padded_num_nodes}) dst nodes, got {num_nodes}"
+        )
+    if zs.shape[0] not in (st.num_src_nodes, st.padded_src_nodes):
+        raise ValueError(
+            f"zs has {zs.shape[0]} rows; sell_tiles src space is "
+            f"{st.num_src_nodes} (padded {st.padded_src_nodes})"
+        )
+    if zd.shape[0] not in (st.num_nodes, st.padded_num_nodes):
+        raise ValueError(
+            f"zd has {zd.shape[0]} rows; sell_tiles dst space is "
+            f"{st.num_nodes} (padded {st.padded_num_nodes})"
+        )
+    if streams not in ("f32", "bf16"):
+        raise ValueError(f"streams must be 'f32' or 'bf16', got {streams!r}")
+    num_heads, head_dim = a.shape
+    if head_dim > MAX_HD:
+        raise ValueError(
+            f"head dim {head_dim} exceeds the SELL kernel's {MAX_HD} lanes"
+        )
+    st = st.to(zs.device)
+    flat_io = zs.dim() == 2
+    zs2 = zs.reshape(zs.shape[0], num_heads * head_dim).float()
+    zd2 = zd.reshape(zd.shape[0], num_heads * head_dim).float()
+    if streams == "bf16":
+        zs2 = zs2.to(torch.bfloat16).float()
+        zd2 = zd2.to(torch.bfloat16).float()
+    group = heads_per_launch(head_dim)
+    outs, sigmas = [], []
+    for h0 in range(0, num_heads, group):
+        h1 = min(h0 + group, num_heads)
+        lanes = slice(h0 * head_dim, h1 * head_dim)
+        o, s = _forward_heads(
+            zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(),
+            a[h0:h1].float().contiguous(), st, num_nodes, negative_slope,
+        )
+        outs.append(o)
+        sigmas.append(s)
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    sigma = torch.cat(sigmas, dim=1) if len(sigmas) > 1 else sigmas[0]
+    if not flat_io:
+        out = out.reshape(num_nodes, num_heads, head_dim)
+    return out, sigma
+
+
+class _SellAttention(torch.autograd.Function):
+    """Forward through K1; the backward (K2/K3) belongs to the training
+    slice and raises until it lands."""
+
+    @staticmethod
+    def forward(ctx, zs, zd, a, num_nodes, negative_slope, sell_tiles,
+                streams):
+        out, _ = sell_forward(
+            zs, zd, a, num_nodes, negative_slope=negative_slope,
+            sell_tiles=sell_tiles, streams=streams,
+        )
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        raise NotImplementedError(
+            "sell_attention has no backward yet: the SELL backward kernels "
+            "K2/K3 are the training slice (ROADMAP.md); run inference under "
+            "torch.inference_mode(), or train with impl='torch'"
+        )
+
+
+def sell_attention(
+    zs: torch.Tensor,
+    zd: torch.Tensor,
+    a: torch.Tensor,
+    num_nodes: int,
+    *,
+    negative_slope: float,
+    sell_tiles: SellTiles,
+    streams: str = "f32",
+) -> torch.Tensor:
+    """Drop-in replacement for the 'torch' edge attention on the SELL
+    layout (see the module docstring). Returns out in the shape of zs."""
+    return _SellAttention.apply(
+        zs, zd, a, num_nodes, negative_slope, sell_tiles, streams
+    )

@@ -1,0 +1,90 @@
+"""Inference entry point: load trained weights, write per-node predictions
+(port of the root predict.py).
+
+Runs one full-graph forward and writes `predictions.txt` (one predicted
+label per node) and, with --save-probs, `probs.txt` (softmax rows).
+
+Example:
+    python -m gatv2_tpu_torch.predict --dataset citeseer --load-weights w/ \\
+        --num-layers 2 --heads 1,1 --outdims 16,16 --out preds/
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pathlib
+import sys
+
+import numpy as np
+import torch
+
+from gatv2_tpu_torch import cli
+from gatv2_tpu_torch.data.io import load_dataset
+from gatv2_tpu_torch.device import resolve_device
+from gatv2_tpu_torch.models.gatv2 import model_forward
+from gatv2_tpu_torch.models.params_io import load_params_txt
+from gatv2_tpu_torch.ops.sell_attention import setup_full_graph_sell
+from gatv2_tpu_torch.ops.sell_fwd import sell_fwd
+
+
+def main(argv: list[str] | None = None) -> int:
+    p = cli.build_parser()
+    p.add_argument("--out", type=str, default="predictions",
+                   help="output directory")
+    p.add_argument("--save-probs", action="store_true",
+                   help="also write softmax probabilities (N x C floats)")
+    model_config, train_config, args = cli.parse_args_from(p, argv)
+    device = resolve_device(args.device)
+
+    graph = load_dataset(train_config.dataset, train_config.data_root)
+    model_config = dataclasses.replace(
+        model_config, num_classes=graph.num_classes, in_dim=graph.feature_dim
+    )
+
+    if args.load_weights:
+        params = load_params_txt(args.load_weights, model_config)
+    elif args.checkpoint_dir:
+        raise SystemExit(
+            "Error: --checkpoint-dir is not yet ported (train/checkpoint.py "
+            "is queued in ROADMAP.md); use --load-weights"
+        )
+    else:
+        raise SystemExit("one of --load-weights / --checkpoint-dir is required")
+
+    num_nodes = graph.num_nodes
+    edge_tiles, src, dst = None, None, None
+    feats = graph.features
+    if train_config.impl == "sell":
+        edge_tiles, feats, _, _ = setup_full_graph_sell(
+            graph, model_config.heads, model_config.out_dims, device=device
+        )
+    else:
+        src, dst = graph.src, graph.dst
+
+    launches0 = sell_fwd.launches
+    with torch.inference_mode():
+        logits = model_forward(
+            params, feats, src, dst, model_config, impl=train_config.impl,
+            edge_tiles=edge_tiles, device=device,
+        )[:num_nodes]
+        preds = logits.argmax(dim=-1).cpu().numpy().astype(np.int64)
+        probs = torch.softmax(logits, dim=-1).cpu().numpy()
+    if train_config.impl == "sell":
+        print(f"K1 sell_fwd launches: {sell_fwd.launches - launches0}")
+
+    out = pathlib.Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    with open(out / "predictions.txt", "w") as f:
+        f.write(" ".join(map(str, preds)))
+    if args.save_probs:
+        np.savetxt(out / "probs.txt", probs, fmt="%.6g")
+    acc = float((preds == graph.labels).mean())
+    print(
+        f"Wrote {out}/predictions.txt ({num_nodes} nodes); "
+        f"accuracy vs labels: {acc * 100:.2f}%"
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
