@@ -4,8 +4,9 @@ defaults, validation messages and configuration echo.
 Reference surface: --num-layers, --heads, --outdims, --epochs, --optimizer,
 --beta1/--beta2, --lr, --clip, --dataset, --data-root (DATA_ROOT env
 fallback). Parsing is order-insensitive. Port-specific: --impl takes
-torch|sell|auto and --device cuda|cpu. Training flags parse as in the JAX
-package, so the training entry point can reuse this parser.
+torch|sell|auto and --device cuda|cpu. Every flag parses as in the JAX
+package; a flag whose code is not ported yet exits with an error naming its
+ROADMAP.md item, never ignored.
 """
 
 from __future__ import annotations
@@ -23,6 +24,30 @@ def _resolve_impl(args) -> str:
     if args.impl != "auto":
         return args.impl
     return "sell" if args.device == "cuda" else "torch"
+
+
+# flag -> (is it set?, its ROADMAP.md section 1 item)
+_UNPORTED = {
+    "--impl pallas": (lambda a: a.impl == "pallas",
+                      "item 3, the pallas family (K5-K8)"),
+    "--batch-size": (lambda a: a.batch_size > 0,
+                     "item 4, sampling and minibatch training"),
+    "--mesh": (lambda a: a.mesh > 0, "item 5, multi-GPU"),
+    "--overlap": (lambda a: a.overlap, "item 5, multi-GPU"),
+    "--profile": (lambda a: a.profile is not None,
+                  "item 6, the bench and its tooling"),
+    "--debug-nans": (lambda a: a.debug_nans,
+                     "item 6, the bench and its tooling"),
+}
+
+
+def _reject_unported(args) -> None:
+    for flag, (is_set, item) in _UNPORTED.items():
+        if is_set(args):
+            raise SystemExit(
+                f"Error: {flag} is not yet ported to gatv2_tpu_torch "
+                f"(ROADMAP.md section 1, {item})."
+            )
 
 
 def _int_list(s: str) -> list[int]:
@@ -49,12 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset", type=str, default="pubmed")
     p.add_argument("--data-root", type=str, default=None)
     # framework extensions
-    p.add_argument("--impl", choices=["torch", "sell", "auto"],
+    p.add_argument("--impl", choices=["torch", "sell", "auto", "pallas"],
                    default="auto",
                    help="attention implementation: torch (plain PyTorch), "
                         "sell (degree-sorted sliced-ELLPACK layout through "
-                        "the CUDA kernel), auto (sell on CUDA, torch with "
-                        "--device cpu)")
+                        "the CUDA kernels), auto (sell on CUDA, torch with "
+                        "--device cpu); pallas is not yet ported")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device to run on (default cuda; no CUDA device "
                         "is an error, never a silent CPU run)")
@@ -102,8 +127,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--overlap", action="store_true",
                    help="with --mesh: two-pass local/halo attention")
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize layers in the backward pass (no "
-                        "effect on inference)")
+                   help="rematerialize layers in the backward pass "
+                        "(torch.utils.checkpoint; no effect on inference)")
     p.add_argument("--debug-nans", action="store_true",
                    help="fail fast on NaN/Inf")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
@@ -127,6 +152,7 @@ def parse_args(argv: list[str] | None = None) -> tuple[ModelConfig, TrainConfig,
 
 
 def _finish(args: argparse.Namespace) -> tuple[ModelConfig, TrainConfig, argparse.Namespace]:
+    _reject_unported(args)
     if args.num_layers < 1:
         raise SystemExit(
             f"Error: --num-layers must be >= 1 (got {args.num_layers})."

@@ -32,8 +32,9 @@ class ModelConfig:
     # 'high' = TF32, 'default' = bf16 inputs with fp32 accumulation. The
     # attention kernel computes in fp32 at every tier.
     matmul_precision: str = "highest"
-    # accepted for CLI parity; inference keeps no activations for a
-    # backward pass, so it has nothing to rematerialize
+    # rematerialize each layer in the backward pass
+    # (torch.utils.checkpoint); inference keeps no activations, so it has
+    # nothing to rematerialize there
     remat: bool = False
     # SELL stream tier: 'f32' (exact) or 'bf16' — projections are rounded
     # once to bfloat16 and carried as fp32, so the kernel computes exactly
@@ -90,7 +91,7 @@ class TrainConfig:
     dataset: str = "pubmed"
     data_root: str = "./data"
     # attention implementation: 'torch' (plain PyTorch, the oracle) or
-    # 'sell' (the SELL layout through the hand-written CUDA kernel)
+    # 'sell' (the SELL layout through the hand-written CUDA kernels)
     impl: str = "torch"
     batch_size: int = 0
     fanouts: tuple = ()

@@ -67,6 +67,11 @@ class Graph:
         return int(self.labels.max()) + 1 if self.labels.size else 0
 
     @property
+    def max_degree(self) -> int:
+        """Max in-degree (the reference prints it at start-up)."""
+        return int(np.diff(self.row_ptr).max()) if self.num_nodes else 0
+
+    @property
     def src(self) -> np.ndarray:
         """COO source indices == col_idx."""
         return self.col_idx

@@ -20,6 +20,7 @@ import contextlib
 import math
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from gatv2_tpu_torch.config import ModelConfig
@@ -103,12 +104,20 @@ class GATv2(nn.Module):
 
     def forward(self, features, src, dst, config: ModelConfig, *,
                 impl: str = "torch", edge_tiles=None) -> torch.Tensor:
-        """Logits [N, C]. `--remat` has no effect here: inference keeps no
-        activations for a backward pass."""
+        """Logits [N, C]. With config.remat, and only while autograd
+        records, each layer runs under torch.utils.checkpoint: its
+        activations are recomputed in the backward pass instead of kept
+        (jax.checkpoint in the JAX package)."""
         x = features
+        remat = config.remat and torch.is_grad_enabled()
         for l, layer in enumerate(self.layers):
-            x = layer(x, src, dst, is_last=(l == len(self.layers) - 1),
-                      config=config, impl=impl, edge_tiles=edge_tiles)
+            kw = dict(is_last=(l == len(self.layers) - 1), config=config,
+                      impl=impl, edge_tiles=edge_tiles)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, src, dst, use_reentrant=False, **kw)
+            else:
+                x = layer(x, src, dst, **kw)
         return dense(x, self.w_o, config.precision)
 
 
@@ -133,6 +142,20 @@ def init_params(config: ModelConfig, generator: torch.Generator) -> GATv2:
             generator=generator,
         )
     return model
+
+
+def init_params_for_variant(
+    config: ModelConfig, generator: torch.Generator
+) -> GATv2:
+    """Init in the draw layout of the selected reference variant: 'edge'
+    draws each layer's W as one fused [H, D, 2F] tensor
+    (params_io.init_params_fused), 'node' draws W_src and W_dst apart
+    (init_params)."""
+    if config.variant == "edge":
+        from gatv2_tpu_torch.models.params_io import init_params_fused
+
+        return init_params_fused(config, generator)
+    return init_params(config, generator)
 
 
 def _as_tensor(x, device):
@@ -181,3 +204,22 @@ def loss_and_accuracy(
     denom = labels.shape[0] if num_valid is None else num_valid
     nll = torch.where(valid, nll, 0.0)
     return nll.sum() / denom, correct.sum() / denom
+
+
+def loss_fn(
+    params: GATv2,
+    features,
+    src,
+    dst,
+    labels,
+    config: ModelConfig,
+    *,
+    impl: str = "torch",
+    edge_tiles=None,
+    num_valid: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean cross-entropy, accuracy) of the model on features already on
+    the parameters' device; differentiable in params."""
+    logits = params(features, src, dst, config, impl=impl,
+                    edge_tiles=edge_tiles)
+    return loss_and_accuracy(logits, labels, num_valid)

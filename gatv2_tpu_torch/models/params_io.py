@@ -12,6 +12,7 @@ other.
 
 from __future__ import annotations
 
+import math
 import pathlib
 
 import numpy as np
@@ -32,6 +33,28 @@ def fused_to_split(w_fused: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if f2 % 2:
         raise ValueError(f"fused W last dim must be even, got {f2}")
     return w_fused[..., : f2 // 2], w_fused[..., f2 // 2 :]
+
+
+def init_params_fused(config: ModelConfig, generator: torch.Generator) -> GATv2:
+    """Xavier init drawing each layer's W as ONE fused [H, D, 2F] tensor,
+    U(-l, l) with l = sqrt(6 / (2*in + out)) — the edge variant's draw
+    layout — then a [H, D] from the same limit; W_o last. Draws come from
+    `generator` in that order, on the CPU. Returns the split layout."""
+    model = GATv2(config)
+    with torch.no_grad():
+        for layer in model.layers:
+            h, d, f = layer.w_src.shape
+            limit = math.sqrt(6.0 / (2 * f + d))
+            w = torch.empty(h, d, 2 * f).uniform_(-limit, limit,
+                                                 generator=generator)
+            w_src, w_dst = fused_to_split(w)
+            layer.w_src.copy_(w_src)
+            layer.w_dst.copy_(w_dst)
+            layer.a.uniform_(-limit, limit, generator=generator)
+        c, d_last = model.w_o.shape
+        limit_o = math.sqrt(6.0 / (c + d_last))
+        model.w_o.uniform_(-limit_o, limit_o, generator=generator)
+    return model
 
 
 def params_to_fused(params: GATv2) -> dict:

@@ -18,8 +18,11 @@ Padding semantics the op and its kernel keep:
     a row with edges unchanged;
   - rows with no edges output exactly 0, with m = -1e30 (finite).
 
-The forward runs K1 (ops/sell_fwd.py) once per chunk of slices. The
-backward is the training slice's work: calling it raises.
+The forward runs K1 (ops/sell_fwd.py) once per chunk of slices and head
+group. The backward (unchunked layouts) runs K2 (ops/sell_bwd_dst.py) over
+the dst rows, which writes one packet per edge, and K3 (ops/sell_segsum.py),
+which sums the packets per src row; a chunked layout's backward needs K4,
+which is not ported, and raises.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from gatv2_tpu_torch.ops.segment import SOFTMAX_EPS, segment_max, segment_sum
+from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst
 from gatv2_tpu_torch.ops.sell_fwd import (
     MAX_HD,
     NEG_INF,
@@ -37,6 +41,7 @@ from gatv2_tpu_torch.ops.sell_fwd import (
     heads_per_launch,
     sell_fwd,
 )
+from gatv2_tpu_torch.ops.sell_segsum import sell_segsum
 
 _SIDE_ARRAYS = (
     "perm", "inv", "vsort", "sids", "gather_ids", "cnt", "col_off",
@@ -456,12 +461,13 @@ def suggest_chunks_for_graph(
 
 
 def setup_full_graph_sell(
-    graph, heads, out_dims, *, device, budget_bytes=None
+    graph, heads, out_dims, *, device, labels=None, budget_bytes=None
 ):
     """One-stop full-graph SELL setup: builds the two-sided layout —
     auto-chunked so the edge-space temporaries fit budget_bytes (default:
-    default_chunk_budget(device)) — and pads features and labels to the
-    padded node grid once.
+    default_chunk_budget(device)) — and pads features and labels (default
+    graph.labels; a split-masked copy in training) to the padded node grid
+    once.
 
     Returns (sell_tiles, features, labels, num_valid), all on the host;
     num_valid is None when no padding row was added. Padding labels are
@@ -475,14 +481,15 @@ def setup_full_graph_sell(
     st = prepare_sell_tiles(
         graph.row_ptr, graph.col_idx, graph.num_nodes, num_chunks=num_chunks
     )
-    feats, labels, num_valid = graph.features, graph.labels, None
+    labels = graph.labels if labels is None else labels
+    feats, num_valid = graph.features, None
     n, n_pad = graph.num_nodes, st.padded_num_nodes
     if n_pad != n:
         feats = np.zeros((n_pad, graph.feature_dim), np.float32)
         feats[:n] = graph.features
-        labels = np.full(n_pad, -1, np.int32)
-        labels[:n] = graph.labels
-        num_valid = n
+        padded = np.full(n_pad, -1, np.int32)
+        padded[:n] = labels
+        labels, num_valid = padded, n
     return st, feats, labels, num_valid
 
 
@@ -535,24 +542,10 @@ def _forward_heads(zs, zd, a, st, num_nodes, negative_slope):
     return out_p[inv], m_p[inv] + torch.log(l_p[inv] + SOFTMAX_EPS)
 
 
-def sell_forward(
-    zs: torch.Tensor,  # [N, H, D] or flat [N, H*D]
-    zd: torch.Tensor,  # same shape family as zs
-    a: torch.Tensor,  # [H, D]
-    num_nodes: int,
-    *,
-    negative_slope: float,
-    sell_tiles: SellTiles,
-    streams: str = "f32",
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """SELL attention forward. Returns (out, sigma): out in the shape of
-    zs restricted to num_nodes rows, sigma = m + log(l + 1e-8) per node and
-    head [num_nodes, H] (the statistic the backward will reuse).
-
-    Heads run in groups of heads_per_launch(D) per K1 launch (at most 32
-    heads and 512 lanes); heads are independent, so groups change nothing.
-    streams='bf16': zs and zd are rounded once to bfloat16 and carried as
-    fp32, so the result equals the exact path on rounded projections."""
+def _prepare(zs, zd, a, num_nodes, sell_tiles, streams):
+    """Validate the op's inputs; returns (layout on zs's device, flat fp32
+    zs [Ns, H*D], flat fp32 zd [Nd, H*D]), rounded once to bfloat16 with
+    streams='bf16'."""
     if sell_tiles is None:
         raise ValueError(
             "impl='sell' requires sell_tiles "
@@ -581,17 +574,28 @@ def sell_forward(
         raise ValueError(
             f"head dim {head_dim} exceeds the SELL kernel's {MAX_HD} lanes"
         )
-    st = st.to(zs.device)
-    flat_io = zs.dim() == 2
     zs2 = zs.reshape(zs.shape[0], num_heads * head_dim).float()
     zd2 = zd.reshape(zd.shape[0], num_heads * head_dim).float()
     if streams == "bf16":
         zs2 = zs2.to(torch.bfloat16).float()
         zd2 = zd2.to(torch.bfloat16).float()
+    return st.to(zs.device), zs2, zd2
+
+
+def _head_groups(num_heads, head_dim):
+    """(h0, h1) head ranges of one kernel launch each: heads_per_launch(D)
+    heads at a time (heads are independent, so groups change nothing)."""
     group = heads_per_launch(head_dim)
+    return [(h0, min(h0 + group, num_heads))
+            for h0 in range(0, num_heads, group)]
+
+
+def _forward_flat(zs2, zd2, a, st, num_nodes, negative_slope):
+    """Flat fp32 zs/zd -> node-space (out [num_nodes, H*D], sigma
+    [num_nodes, H]), one K1 launch per chunk and head group."""
+    num_heads, head_dim = a.shape
     outs, sigmas = [], []
-    for h0 in range(0, num_heads, group):
-        h1 = min(h0 + group, num_heads)
+    for h0, h1 in _head_groups(num_heads, head_dim):
         lanes = slice(h0 * head_dim, h1 * head_dim)
         o, s = _forward_heads(
             zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(),
@@ -601,31 +605,127 @@ def sell_forward(
         sigmas.append(s)
     out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
     sigma = torch.cat(sigmas, dim=1) if len(sigmas) > 1 else sigmas[0]
-    if not flat_io:
-        out = out.reshape(num_nodes, num_heads, head_dim)
     return out, sigma
 
 
+def sell_forward(
+    zs: torch.Tensor,  # [N, H, D] or flat [N, H*D]
+    zd: torch.Tensor,  # same shape family as zs
+    a: torch.Tensor,  # [H, D]
+    num_nodes: int,
+    *,
+    negative_slope: float,
+    sell_tiles: SellTiles,
+    streams: str = "f32",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """SELL attention forward. Returns (out, sigma): out in the shape of
+    zs restricted to num_nodes rows, sigma = m + log(l + 1e-8) per node and
+    head [num_nodes, H] (the statistic the backward reuses).
+
+    Heads run in groups of heads_per_launch(D) per K1 launch (at most 32
+    heads and 512 lanes); heads are independent, so groups change nothing.
+    streams='bf16': zs and zd are rounded once to bfloat16 and carried as
+    fp32, so the result equals the exact path on rounded projections."""
+    st, zs2, zd2 = _prepare(zs, zd, a, num_nodes, sell_tiles, streams)
+    out, sigma = _forward_flat(zs2, zd2, a, st, num_nodes, negative_slope)
+    if zs.dim() != 2:
+        out = out.reshape(num_nodes, *a.shape)
+    return out, sigma
+
+
+def _rows_to_nodes_sum(x_rows, side, node_pad, n_rows):
+    """Row-space gradients -> the first n_rows nodes: a direct inverse take
+    (unsplit side) or a sorted segment sum over each node's virtual rows
+    (split side; padding rows carry node_pad and are dropped)."""
+    if not side.split:
+        return x_rows[side.inv[:n_rows].long()]
+    return segment_sum(
+        x_rows[side.vsort.long()], side.sids, node_pad + 1
+    )[:n_rows]
+
+
+def _fit_rows(x, n):
+    """x [m, ...] cut or zero-padded to n rows. Rows past the real node
+    count have no edge, so no kernel reads what they hold."""
+    if x.shape[0] >= n:
+        return x[:n]
+    return torch.cat([x, x.new_zeros((n - x.shape[0], *x.shape[1:]))])
+
+
+def sell_backward(zs2, zd2, a, out2, sigma, g2, st, negative_slope):
+    """The op's backward on the unchunked layout `st` (on g2's device):
+    flat fp32 zs2 [Ns, H*D], zd2 [Nd, H*D] (the forward's rounded values),
+    out2 and the upstream gradient g2 [n, H*D], sigma [n, H], n the op's
+    num_nodes -> (dzs [Ns, H*D], dzd [Nd, H*D], da [H, D]).
+
+    Per head group: r = <g, out> per node and head (the softmax Jacobian's
+    segment term), K2 over the dst rows (dzd rows, d_a, the c1 packets), K3
+    over the src rows (dzs rows from the packets), then rows -> nodes."""
+    num_heads, head_dim = a.shape
+    # K2 reads g, sigma and r in zd's node space
+    nd = zd2.shape[0]
+    g2, out2, sigma = (_fit_rows(x, nd) for x in (g2, out2, sigma))
+    dzs, dzd, da = [], [], []
+    for h0, h1 in _head_groups(num_heads, head_dim):
+        lanes = slice(h0 * head_dim, h1 * head_dim)
+        g_g = g2[:, lanes].contiguous()
+        r = (g_g * out2[:, lanes]).view(nd, h1 - h0, head_dim).sum(-1)
+        dzd_rows, da_g, c1 = sell_bwd_dst(
+            zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(), g_g,
+            sigma[:, h0:h1].contiguous(), r, a[h0:h1].float().contiguous(),
+            st.dst.perm, st.dst.gather_ids, st.dst.cnt, st.dst.col_off,
+            negative_slope=negative_slope,
+        )
+        dzs_rows = sell_segsum(c1, st.ell_perm, st.srcs.cnt, st.srcs.col_off)
+        del c1
+        dzd.append(_rows_to_nodes_sum(
+            dzd_rows, st.dst, st.padded_num_nodes, zd2.shape[0]))
+        dzs.append(_rows_to_nodes_sum(
+            dzs_rows, st.srcs, st.padded_src_nodes, zs2.shape[0]))
+        da.append(da_g)
+    return (torch.cat(dzs, 1) if len(dzs) > 1 else dzs[0],
+            torch.cat(dzd, 1) if len(dzd) > 1 else dzd[0],
+            torch.cat(da, 0) if len(da) > 1 else da[0])
+
+
+K4_MISSING = (
+    "sell_attention has no backward on a chunked layout (num_chunks > 1): "
+    "that needs K4, gatv2_tpu/ops/sell_attention.py:_sell_bwd_src_kernel, "
+    "queued in ROADMAP.md (section 1, item 2). Raise the chunk budget "
+    "(setup_full_graph_sell(budget_bytes=...)), run inference under "
+    "torch.inference_mode(), or train with impl='torch'"
+)
+
+
 class _SellAttention(torch.autograd.Function):
-    """Forward through K1; the backward (K2/K3) belongs to the training
-    slice and raises until it lands."""
+    """Forward through K1; backward through K2 and K3. The saved tensors
+    are the forward's (rounded) zs/zd in the stream dtype, a, the output
+    and sigma, as the JAX custom VJP saves them; the gradient passes
+    straight through the bf16 rounding to the unrounded input."""
 
     @staticmethod
     def forward(ctx, zs, zd, a, num_nodes, negative_slope, sell_tiles,
                 streams):
-        out, _ = sell_forward(
-            zs, zd, a, num_nodes, negative_slope=negative_slope,
-            sell_tiles=sell_tiles, streams=streams,
-        )
-        return out
+        st, zs2, zd2 = _prepare(zs, zd, a, num_nodes, sell_tiles, streams)
+        out2, sigma = _forward_flat(zs2, zd2, a, st, num_nodes,
+                                    negative_slope)
+        sdt = torch.bfloat16 if streams == "bf16" else torch.float32
+        ctx.save_for_backward(zs2.to(sdt), zd2.to(sdt), a, out2, sigma)
+        ctx.st, ctx.slope = st, negative_slope
+        ctx.shapes = (zs.shape, zd.shape, zs.dtype, zd.dtype)
+        return out2 if zs.dim() == 2 else out2.reshape(num_nodes, *a.shape)
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "sell_attention has no backward yet: the SELL backward kernels "
-            "K2/K3 are the training slice (ROADMAP.md); run inference under "
-            "torch.inference_mode(), or train with impl='torch'"
+        zs2, zd2, a, out2, sigma = ctx.saved_tensors
+        zs_shape, zd_shape, zs_dtype, zd_dtype = ctx.shapes
+        g2 = grad_out.reshape(out2.shape).float().contiguous()
+        dzs, dzd, da = sell_backward(
+            zs2.float(), zd2.float(), a, out2, sigma, g2, ctx.st, ctx.slope,
         )
+        return (dzs.reshape(zs_shape).to(zs_dtype),
+                dzd.reshape(zd_shape).to(zd_dtype), da.to(a.dtype),
+                None, None, None, None)
 
 
 def sell_attention(
@@ -639,7 +739,13 @@ def sell_attention(
     streams: str = "f32",
 ) -> torch.Tensor:
     """Drop-in replacement for the 'torch' edge attention on the SELL
-    layout (see the module docstring). Returns out in the shape of zs."""
+    layout (see the module docstring). Returns out in the shape of zs.
+    Differentiable on an unchunked layout; on a chunked one a call that
+    autograd would record raises (K4 is not ported)."""
+    if (sell_tiles is not None and sell_tiles.num_chunks > 1
+            and torch.is_grad_enabled()
+            and any(t.requires_grad for t in (zs, zd, a))):
+        raise NotImplementedError(K4_MISSING)
     return _SellAttention.apply(
         zs, zd, a, num_nodes, negative_slope, sell_tiles, streams
     )

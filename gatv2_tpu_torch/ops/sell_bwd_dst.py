@@ -1,0 +1,184 @@
+"""K2 — the SELL backward kernel over destination rows: its wrapper, its
+plain PyTorch twin and its ctypes binding.
+
+Replaces gatv2_tpu/ops/sell_attention.py:_sell_bwd_dst_kernel (launched by
+_sell_bwd_dst) with emit_c1=True, the unchunked path. The CUDA source is
+csrc/sell_bwd_dst.cu, whose header note says what bounds the kernel on the
+card and what its design does about that.
+
+Both versions take the same inputs and give the same outputs, so they can
+be compared element for element:
+
+  zs          [Ns, H*D] fp32 — src projections, node order
+  zd          [Nd, H*D] fp32 — dst projections, node order
+  g           [Nd, H*D] fp32 — upstream gradient of the op's output
+  sigma       [Nd, H] fp32 — the forward's m + log(l + 1e-8), per node
+  r           [Nd, H] fp32 — <g, out> per node and head
+  a           [H, D] fp32
+  perm, gather_ids, cnt, col_off — the dst side's layout (as for K1)
+  -> dzd [T*128, H*D] fp32 in row order,
+     da [H, D] fp32,
+     c1 [Ec, H*D] fp32 packets in ELL slot order. Only the real slots are
+     defined: the kernel leaves padding slots unwritten.
+
+Node-order tables are read through perm only on rows that have an edge, and
+zs only on real slots, so the ids of padding rows and slots (the padded
+node counts) are never read.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from gatv2_tpu_torch.ops.segment import EXP_CLAMP
+from gatv2_tpu_torch.ops.sell_fwd import MAX_HD, MAX_HEADS, NEG_INF, TILE_N
+
+WARPS = 8  # rows in flight per thread block (csrc/sell_bwd_dst.cu kWarps)
+# thread blocks per launch at most; blocks stride over the rows, so the d_a
+# partials (one per block) stay at most MAX_BLOCKS x H*D
+MAX_BLOCKS = 4096
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def sell_bwd_dst_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
+                       col_off, *, negative_slope: float):
+    """K2's plain PyTorch twin: the masked column-by-column algebra of the
+    TPU kernel, every slice at once. Padding slots keep their masked terms
+    (alpha = exp(-80) on rows with edges). Runs on any device."""
+    num_heads, head_dim = a.shape
+    hd = num_heads * head_dim
+    col_off, cnt, ids = col_off.long(), cnt.long(), gather_ids.long()
+    rows = (col_off.numel() - 1) * TILE_N
+    dzd = zs.new_zeros((rows, hd))
+    da = zs.new_zeros(hd)
+    c1 = zs.new_zeros((ids.numel(), hd))
+    widths = col_off[1:] - col_off[:-1]
+    lane = torch.arange(TILE_N, device=zs.device)
+    rows_idx = perm.long()
+
+    def by_row(t):
+        # node-order table -> row order; a padding row's node id lies past
+        # the table and reads an appended zero row, as in the TPU path
+        t_z = torch.cat([t, t.new_zeros((1, t.shape[1]))])
+        return t_z[rows_idx.clamp(max=t.shape[0])]
+
+    zd_p, g_p, sig_p, r_p = by_row(zd), by_row(g), by_row(sigma), by_row(r)
+    zs_z = torch.cat([zs, zs.new_zeros((1, hd))])  # pad slots -> 0
+    a_flat = a.reshape(hd)
+    for k in range(int(widths.max()) if widths.numel() else 0):
+        act = torch.nonzero(widths > k).squeeze(1)  # slices with column k
+        col = col_off[act] + k
+        rr = (act[:, None] * TILE_N + lane).reshape(-1)
+        slot = (col[:, None] * TILE_N + lane).reshape(-1)
+        valid = (lane[None, :] < cnt[col][:, None]).reshape(-1)
+        z = zs_z[torch.where(valid, ids[slot], zs.shape[0])]
+        gg = g_p[rr]
+        s = z + zd_p[rr]
+        s_act = torch.where(s > 0, s, negative_slope * s)
+        sc = (s_act.view(-1, num_heads, head_dim) * a).sum(-1)
+        sc = sc + torch.where(valid, 0.0, NEG_INF)[:, None]
+        alpha = torch.exp(torch.clamp(sc - sig_p[rr], EXP_CLAMP, 0.0))
+        dalpha = (gg * z).view(-1, num_heads, head_dim).sum(-1)
+        de = (alpha * (dalpha - r_p[rr])).repeat_interleave(head_dim, 1)
+        ds = de * a_flat * torch.where(s > 0, 1.0, negative_slope)
+        dzd[rr] = dzd[rr] + ds
+        da = da + (de * s_act).sum(0)
+        c1[slot] = alpha.repeat_interleave(head_dim, 1) * gg + ds
+    return dzd, da.view(num_heads, head_dim), c1
+
+
+def _check(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off):
+    dev = zs.device
+    for name, t, dt in (
+        ("zs", zs, torch.float32), ("zd", zd, torch.float32),
+        ("g", g, torch.float32), ("sigma", sigma, torch.float32),
+        ("r", r, torch.float32), ("a", a, torch.float32),
+        ("perm", perm, torch.int32), ("gather_ids", gather_ids, torch.int32),
+        ("cnt", cnt, torch.int32), ("col_off", col_off, torch.int32),
+    ):
+        if t.device != dev:
+            raise ValueError(
+                f"sell_bwd_dst: {name} is on {t.device}, zs on {dev}")
+        if t.dtype != dt:
+            raise ValueError(f"sell_bwd_dst: {name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"sell_bwd_dst: {name} must be contiguous")
+    num_heads, head_dim = a.shape
+    hd = num_heads * head_dim
+    if hd > MAX_HD or num_heads > MAX_HEADS:
+        raise ValueError(
+            f"sell_bwd_dst: H={num_heads}, H*D={hd} exceed {MAX_HEADS} heads "
+            f"or {MAX_HD} lanes per launch; split heads (heads_per_launch)"
+        )
+    for name, t in (("zs", zs), ("zd", zd), ("g", g)):
+        if t.dim() != 2 or t.shape[1] != hd:
+            raise ValueError(
+                f"sell_bwd_dst: {name} {tuple(t.shape)} must be [N, {hd}]")
+    if g.shape[0] != zd.shape[0] or sigma.shape != (zd.shape[0], num_heads) \
+            or r.shape != sigma.shape:
+        raise ValueError(
+            f"sell_bwd_dst: g {tuple(g.shape)}, sigma {tuple(sigma.shape)} "
+            f"and r {tuple(r.shape)} must cover zd's {zd.shape[0]} nodes "
+            f"and {num_heads} heads"
+        )
+    rows = (col_off.numel() - 1) * TILE_N
+    if perm.numel() != rows or gather_ids.numel() != cnt.numel() * TILE_N:
+        raise ValueError(
+            f"sell_bwd_dst: layout sizes disagree: perm {perm.numel()} vs "
+            f"{rows} rows, gather_ids {gather_ids.numel()} vs "
+            f"{cnt.numel()} columns"
+        )
+
+
+def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
+                 negative_slope: float):
+    """K2. On CUDA tensors it launches csrc/sell_bwd_dst.cu (building it at
+    the first call) or raises; on CPU tensors it runs sell_bwd_dst_plain.
+    Returns (dzd, da, c1) as described in the module docstring."""
+    if zs.device.type == "cpu":
+        return sell_bwd_dst_plain(
+            zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
+            negative_slope=negative_slope,
+        )
+    if zs.device.type != "cuda":
+        raise ValueError(f"sell_bwd_dst: unsupported device {zs.device}")
+    _check(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off)
+    num_heads, head_dim = a.shape
+    hd = num_heads * head_dim
+    rows = perm.numel()
+    dzd = zs.new_empty((rows, hd))
+    c1 = zs.new_empty((gather_ids.numel(), hd))
+    if rows == 0:  # a grid of zero blocks is an invalid launch
+        return dzd, a.new_zeros(a.shape), c1
+    from gatv2_tpu_torch.ops.build import load_library
+
+    lib = load_library("sell_bwd_dst")
+    fn = lib.gatv2_sell_bwd_dst
+    fn.argtypes = [_P] * 10 + [_I] * 3 + [ctypes.c_float, _I] + [_P] * 4
+    fn.restype = _I
+    blocks = min(-(-rows // WARPS), MAX_BLOCKS)
+    da_part = zs.new_empty((blocks, hd))
+    with torch.cuda.device(zs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            zs.data_ptr(), zd.data_ptr(), g.data_ptr(), sigma.data_ptr(),
+            r.data_ptr(), a.data_ptr(), perm.data_ptr(), gather_ids.data_ptr(),
+            cnt.data_ptr(), col_off.data_ptr(), rows, num_heads, head_dim,
+            float(negative_slope), blocks, dzd.data_ptr(), da_part.data_ptr(),
+            c1.data_ptr(), stream,
+        )
+    if err != 0:
+        lib.gatv2_cuda_error_string.restype = ctypes.c_char_p
+        lib.gatv2_cuda_error_string.argtypes = [_I]
+        msg = lib.gatv2_cuda_error_string(err).decode()
+        raise RuntimeError(
+            f"sell_bwd_dst launch failed: CUDA error {err} ({msg})")
+    sell_bwd_dst.launches += 1
+    # the per-block partials summed in a fixed order: deterministic
+    return dzd, da_part.sum(0).view(num_heads, head_dim), c1
+
+
+sell_bwd_dst.launches = 0  # K2 launches since the last reset

@@ -2,7 +2,9 @@
 (port of the root predict.py).
 
 Runs one full-graph forward and writes `predictions.txt` (one predicted
-label per node) and, with --save-probs, `probs.txt` (softmax rows).
+label per node) and, with --save-probs, `probs.txt` (softmax rows), from a
+text weight dump (--load-weights) or the newest checkpoint of a training
+run (--checkpoint-dir; either package's).
 
 Example:
     python -m gatv2_tpu_torch.predict --dataset citeseer --load-weights w/ \\
@@ -21,10 +23,11 @@ import torch
 from gatv2_tpu_torch import cli
 from gatv2_tpu_torch.data.io import load_dataset
 from gatv2_tpu_torch.device import resolve_device
-from gatv2_tpu_torch.models.gatv2 import model_forward
+from gatv2_tpu_torch.models.gatv2 import GATv2, model_forward
 from gatv2_tpu_torch.models.params_io import load_params_txt
 from gatv2_tpu_torch.ops.sell_attention import setup_full_graph_sell
 from gatv2_tpu_torch.ops.sell_fwd import sell_fwd
+from gatv2_tpu_torch.train import checkpoint as ckpt
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -44,10 +47,23 @@ def main(argv: list[str] | None = None) -> int:
     if args.load_weights:
         params = load_params_txt(args.load_weights, model_config)
     elif args.checkpoint_dir:
-        raise SystemExit(
-            "Error: --checkpoint-dir is not yet ported (train/checkpoint.py "
-            "is queued in ROADMAP.md); use --load-weights"
-        )
+        path = ckpt.latest_path(args.checkpoint_dir)
+        if path is None:
+            raise SystemExit(f"no checkpoint found in {args.checkpoint_dir}")
+        # shapes can coincide while semantics differ (edge vs node variant
+        # have identical params): compare the stored model fingerprint
+        stored = ckpt.read_meta(path)
+        if "model_config" in stored:
+            diffs = ckpt.config_diffs(stored, ckpt.run_meta(model_config),
+                                      groups=("model_config",))
+            if diffs:
+                raise SystemExit(
+                    "Error: checkpoint was trained with a different model "
+                    "configuration:\n  " + "\n  ".join(diffs)
+                )
+        params = GATv2(model_config)
+        epoch = ckpt.restore(path, params)
+        print(f"Loaded checkpoint at epoch {epoch}")
     else:
         raise SystemExit("one of --load-weights / --checkpoint-dir is required")
 

@@ -1,23 +1,30 @@
-"""Card-only tests of the port: the CUDA kernel K1 against its plain twin,
-and a model forward that goes through it. They carry the `gpu` marker and
-skip without a CUDA device. Run them on the machine with the card:
+"""Card-only tests of the port: the CUDA kernels K1, K2 and K3 against
+their plain twins, a model forward and a training step that go through
+them. They carry the `gpu` marker and skip without a CUDA device. Run them
+on the machine with the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
-The kernel is held against the port's twin, which the CPU tests hold
+Each kernel is held against the port's twin, which the CPU tests hold
 against JAX.
 """
+
+import copy
 
 import jax  # noqa: F401  (test files import both packages)
 import numpy as np
 import pytest
 import torch
 
-from gatv2_tpu_torch.config import ModelConfig
+from gatv2_tpu_torch.config import ModelConfig, TrainConfig
 from gatv2_tpu_torch.data.synthetic import powerlaw_graph, random_graph
 from gatv2_tpu_torch.models.gatv2 import init_params, model_forward
 from gatv2_tpu_torch.ops import sell_attention as tsa
-from gatv2_tpu_torch.ops.sell_fwd import sell_fwd, sell_fwd_plain
+from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst, sell_bwd_dst_plain
+from gatv2_tpu_torch.ops.sell_fwd import TILE_N, sell_fwd, sell_fwd_plain
+from gatv2_tpu_torch.ops.sell_segsum import sell_segsum, sell_segsum_plain
+from gatv2_tpu_torch.train import optim
+from gatv2_tpu_torch.train.loop import Trainer
 
 SLOPE = 0.2
 
@@ -51,12 +58,36 @@ def _layout(case):
     return g.row_ptr, g.col_idx, g.num_nodes
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case,h,d", [
+LAYOUT_CASES = [
     ("uniform", 4, 64), ("uniform", 1, 32), ("uniform", 1, 16),
     ("uniform", 20, 8), ("zipf-split", 4, 64), ("zipf-split", 3, 24),
     ("isolated", 2, 16), ("zero-edge", 3, 24),
-])
+]
+
+
+def _close_by_row(x, y, rtol=1e-5, atol=1e-5):
+    """Within atol + rtol * the row's largest |y| (see chip_smoke)."""
+    scale = y.abs().amax(dim=-1, keepdim=True)
+    return bool(((x - y).abs() <= atol + rtol * scale).all())
+
+
+def _close_f64(x, twin, ref64, factor=10.0, floor=1e-6):
+    """x (a kernel's fp32 result) at most `factor` times further from the
+    float64 evaluation ref64 than the fp32 twin is, or within `floor` times
+    ref64's largest |value| (see chip_smoke's F64_FACTOR)."""
+    e_x = float((x.double() - ref64).abs().max())
+    e_twin = float((twin.double() - ref64).abs().max())
+    return e_x <= max(factor * e_twin, floor * float(ref64.abs().max()))
+
+
+def _real_slots(cnt):
+    """[Ec] bool: the ELL slots that hold an edge (row < the column's cnt)."""
+    lane = torch.arange(TILE_N, device=cnt.device)
+    return (lane[None, :] < cnt[:, None].long()).reshape(-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,h,d", LAYOUT_CASES)
 def test_k1_kernel_matches_twin(cuda, case, h, d):
     row_ptr, col_idx, n = _layout(case)
     st = tsa.prepare_sell_tiles(row_ptr, col_idx, n).to(cuda)
@@ -72,9 +103,7 @@ def test_k1_kernel_matches_twin(cuda, case, h, d):
     torch.cuda.synchronize()
     assert sell_fwd.launches == before + 1
     for x, y in zip(got, sell_fwd_plain(*args, **kw)):
-        # rounding relative to each row's largest value (see chip_smoke)
-        scale = y.abs().amax(dim=-1, keepdim=True)
-        assert bool(((x - y).abs() <= 1e-5 + 1e-5 * scale).all())
+        assert _close_by_row(x, y)
     empty = torch.as_tensor(np.diff(row_ptr) == 0, device=cuda)
     out, _ = tsa.sell_forward(zs, zd, a, n, negative_slope=SLOPE,
                               sell_tiles=st)
@@ -97,3 +126,78 @@ def test_model_forward_uses_kernel(cuda):
                              impl="torch", device=cuda)
     assert sell_fwd.launches - before == 2
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+def _bwd_inputs(cuda, case, h, d):
+    """A layout on the card and K2's inputs: random zs, zd, g, a; sigma
+    and r as the op computes them from K1's forward."""
+    row_ptr, col_idx, n = _layout(case)
+    st = tsa.prepare_sell_tiles(row_ptr, col_idx, n).to(cuda)
+    rng = np.random.default_rng(5)
+    zs, zd, g = (torch.from_numpy(rng.normal(size=(n, h * d))
+                                  .astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    a = torch.from_numpy(rng.normal(size=(h, d)).astype(np.float32)).to(cuda)
+    out, sigma = tsa.sell_forward(zs, zd, a, n, negative_slope=SLOPE,
+                                  sell_tiles=st)
+    r = (g * out).view(n, h, d).sum(-1)
+    return st, (zs, zd, g, sigma, r, a)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,h,d", LAYOUT_CASES)
+def test_k2_k3_kernels_match_twins(cuda, case, h, d):
+    st, tensors = _bwd_inputs(cuda, case, h, d)
+    side = st.dst
+    args = (*tensors, side.perm, side.gather_ids, side.cnt, side.col_off)
+    before = (sell_bwd_dst.launches, sell_segsum.launches)
+    dzd, da, c1 = sell_bwd_dst(*args, negative_slope=SLOPE)
+    torch.cuda.synchronize()
+    w_dzd, w_da, w_c1 = sell_bwd_dst_plain(*args, negative_slope=SLOPE)
+    w64 = sell_bwd_dst_plain(*(t.double() for t in args[:6]), *args[6:],
+                             negative_slope=SLOPE)
+    real = _real_slots(side.cnt)
+    # c1 is per edge, like K1's output. dzd and d_a sum terms
+    # de = alpha * (dalpha - r) that cancel (over a node's edges sum(de) = 0
+    # per head), so their fp32 rounding can be as large as the result: they
+    # are held against float64, as chip_smoke holds them
+    assert _close_by_row(c1[real], w_c1[real])
+    assert _close_f64(dzd, w_dzd, w64[0])
+    assert _close_f64(da, w_da, w64[1])
+    # K3 skips padding slots by count: NaN there must not reach dzs
+    c1[~real] = float("nan")
+    k3_args = (c1, st.ell_perm, st.srcs.cnt, st.srcs.col_off)
+    dzs = sell_segsum(*k3_args)
+    torch.cuda.synchronize()
+    assert (sell_bwd_dst.launches, sell_segsum.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert bool(torch.isfinite(dzs).all())
+    assert _close_f64(dzs, sell_segsum_plain(*k3_args),
+                      sell_segsum_plain(c1.double(), *k3_args[1:]))
+
+
+@pytest.mark.gpu
+def test_sell_training_step_matches_torch_path(cuda):
+    """One SGD step with clipping through K1-K3 against the torch path,
+    from the same weights: loss and updated weights. (SGD moves each weight
+    by lr * its gradient; Adam's first step moves it by about lr * the
+    gradient's sign, which flips on gradients near 0.)"""
+    g = random_graph(1500, 9000, 16, 4, seed=3)
+    mc = ModelConfig(num_layers=2, heads=(4, 1), out_dims=(16, 8),
+                     num_classes=g.num_classes, in_dim=g.feature_dim)
+    tc = dict(epochs=1, optimizer="sgd", lr=0.5, clip=True, seed=0)
+    start = init_params(mc, torch.Generator().manual_seed(2))
+    counters = (sell_fwd, sell_bwd_dst, sell_segsum)
+    before = [k.launches for k in counters]
+    runs = {}
+    for impl in ("sell", "torch"):
+        tr = Trainer(g, mc, TrainConfig(impl=impl, **tc), log_fn=lambda _: None,
+                     device=cuda)
+        tr.params = copy.deepcopy(start)
+        runs[impl] = (tr.run()["loss"], optim.param_leaves(tr.params))
+    torch.cuda.synchronize()
+    launched = [k.launches - b for k, b in zip(counters, before)]
+    assert launched == [2, 2, 2]  # one launch per layer each
+    assert abs(runs["sell"][0] - runs["torch"][0]) < 1e-5
+    for p, q in zip(runs["sell"][1], runs["torch"][1]):
+        torch.testing.assert_close(p, q, rtol=1e-4, atol=1e-5)

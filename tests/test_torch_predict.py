@@ -67,7 +67,10 @@ def test_predict_matches_jax(impl, karate_weights, tmp_path, capsys):
 
 
 def test_predict_checkpoint_dir_not_ported(tmp_path):
-    with pytest.raises(SystemExit, match="not yet ported"):
+    """--checkpoint-dir restores now (tests/test_torch_train.py predicts
+    from a trained checkpoint); a directory without one is an error, and so
+    is giving neither weight source."""
+    with pytest.raises(SystemExit, match="no checkpoint found"):
         tpredict.main(["--dataset", "karate", "--data-root", DATA,
                        "--checkpoint-dir", str(tmp_path), "--device", "cpu"])
     with pytest.raises(SystemExit, match="required"):

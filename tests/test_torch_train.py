@@ -1,0 +1,369 @@
+"""The port's training slice against the JAX package's, on the CPU: the
+optimizer step, the Trainer's losses and console lines on karate and digits
+(from the same parameters, carried across as numpy), the SELL path through
+the twins of K1-K3, checkpoints that either package restores, resume, and
+`python -m gatv2_tpu_torch.train`.
+
+Tolerance: per-epoch losses equal to 1e-6 (absolute), as the JAX suite holds
+its implementations to each other; one optimizer step to fp32 allclose with
+rtol = atol = 1e-6."""
+
+import dataclasses
+import json
+import re
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gatv2_tpu import config as jconfig
+from gatv2_tpu.data import io as jio
+from gatv2_tpu.data import splits as jsplits
+from gatv2_tpu.models import gatv2 as jmodel
+from gatv2_tpu.train import checkpoint as jckpt
+from gatv2_tpu.train import loop as jloop
+from gatv2_tpu.train import optim as joptim
+from gatv2_tpu_torch import config as tconfig
+from gatv2_tpu_torch.data import io as tio
+from gatv2_tpu_torch.data import splits as tsplits
+from gatv2_tpu_torch.models import gatv2 as tmodel
+from gatv2_tpu_torch.models import params_io as tpio
+from gatv2_tpu_torch.ops import sell_attention as tsa
+from gatv2_tpu_torch.train import __main__ as tmain
+from gatv2_tpu_torch.train import checkpoint as tckpt
+from gatv2_tpu_torch.train import loop as tloop
+from gatv2_tpu_torch.train import optim as toptim
+from test_torch_predict import DATA, ROOT
+
+LOSS_ATOL = 1e-6
+ARCH = dict(num_layers=2, heads=(2, 1), out_dims=(8, 4))
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _leaves_np(params):
+    return [t.detach().numpy().copy() for t in toptim.param_leaves(params)]
+
+
+# ---------------------------------------------------------------------------
+# the optimizer step
+# ---------------------------------------------------------------------------
+
+
+def _random_tree(rng, scale):
+    def arr(*shape):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    return {"layers": ({"a": arr(2, 8), "w_dst": arr(2, 8, 12),
+                        "w_src": arr(2, 8, 12)},
+                       {"a": arr(1, 4), "w_dst": arr(1, 4, 16),
+                        "w_src": arr(1, 4, 16)}),
+            "w_o": arr(3, 4)}
+
+
+@pytest.mark.parametrize("optimizer,t,clip", [
+    ("sgd", 1, False), ("sgd", 1, True), ("adam", 1, False),
+    ("adam", 1, True), ("adam", 7, True),
+])
+def test_optimizer_step_matches_jax(optimizer, t, clip):
+    rng = np.random.default_rng(t)
+    params = _random_tree(rng, 0.3)
+    # large enough that the W group clips and the a group does not
+    grads = _random_tree(rng, 1.0)
+    grads["layers"] = tuple(dict(l, a=l["a"] * 0.1) for l in grads["layers"])
+    cfg_kw = dict(optimizer=optimizer, lr=0.01, clip=clip)
+    jcfg, tcfg = jconfig.TrainConfig(**cfg_kw), tconfig.TrainConfig(**cfg_kw)
+    if optimizer == "adam":
+        opt = {"m": _random_tree(rng, 0.1),
+               "v": jax.tree_util.tree_map(np.abs, _random_tree(rng, 0.1))}
+    else:
+        opt = {}
+    want_p, want_o = joptim.apply_updates(
+        jax.tree_util.tree_map(jnp.asarray, params),
+        jax.tree_util.tree_map(jnp.asarray, grads),
+        jax.tree_util.tree_map(jnp.asarray, opt), jnp.asarray(t, jnp.int32),
+        jcfg)
+
+    model = tpio.params_from_numpy(params)
+    leaves = toptim.param_leaves(model)
+    t_grads = [torch.from_numpy(g.copy()) for g in jax.tree.leaves(grads)]
+    t_opt = {k: [torch.from_numpy(x.copy()) for x in jax.tree.leaves(v)]
+             for k, v in opt.items()}
+    toptim.apply_updates(leaves, t_grads, t_opt, t, tcfg)
+    for p, q in zip(leaves, jax.tree.leaves(want_p)):
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(q),
+                                   rtol=1e-6, atol=1e-6)
+    for p, q in zip(tckpt.opt_leaves(t_opt), jax.tree.leaves(want_o)):
+        np.testing.assert_allclose(p.numpy(), np.asarray(q), rtol=1e-6,
+                                   atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the Trainer
+# ---------------------------------------------------------------------------
+
+
+class _Records(list):
+    """A Trainer metrics sink: keeps each epoch's record (unrounded loss)."""
+
+    def write(self, record):
+        self.append(record)
+
+
+def _losses(trainer):
+    return [r["loss"] for r in trainer.metrics_sink]
+
+
+def _trainers(dataset, impl, jax_impl, epochs, **train_kw):
+    """The port's and the JAX package's Trainers on `dataset` (with its
+    split masks), from the same JAX-initialised parameters, each logging
+    into a list."""
+    tg, jg = tio.load_dataset(dataset, DATA), jio.load_dataset(dataset, DATA)
+    ddir = jio.resolve_dataset_dir(dataset, DATA)
+    model_kw = dict(ARCH, num_classes=tg.num_classes, in_dim=tg.feature_dim)
+    train_kw = dict(dict(epochs=epochs, optimizer="adam", lr=0.01,
+                         clip=True, seed=0), **train_kw)
+    jcfg = jconfig.ModelConfig(**model_kw)
+    start = jmodel.init_params_for_variant(jcfg, jax.random.PRNGKey(7))
+    logs = {"port": [], "jax": []}
+    jt = jloop.Trainer(
+        jg, jcfg, jconfig.TrainConfig(impl=jax_impl, **train_kw),
+        log_fn=logs["jax"].append, metrics_sink=_Records(),
+        splits=jsplits.load_split_files(ddir, jg.num_nodes))
+    jt.params = start
+    tt = tloop.Trainer(
+        tg, tconfig.ModelConfig(**model_kw),
+        tconfig.TrainConfig(impl=impl, **train_kw), log_fn=logs["port"].append,
+        metrics_sink=_Records(),
+        splits=tsplits.load_split_files(ddir, tg.num_nodes), device="cpu")
+    tt.params = tpio.params_from_numpy(_np_tree(start))
+    return tt, jt, logs
+
+
+def _no_ms(lines):
+    return [re.sub(r"total time: [0-9.]+ ms", "total time: <ms> ms", l)
+            for l in lines]
+
+
+@pytest.mark.parametrize("dataset", ["karate", "digits"])
+def test_trainer_matches_jax(dataset):
+    """20 epochs of Adam with clipping: per-epoch losses to 1e-6, the
+    console lines character for character apart from the epoch time, and
+    the final parameters."""
+    tt, jt, logs = _trainers(dataset, "torch", "xla", 20)
+    tt.run()
+    jt.run()
+    got, want = _losses(tt), _losses(jt)
+    assert len(got) == 20
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOSS_ATOL)
+    # the 6-decimal print rounds each loss; a tie can flip the last digit,
+    # so the lines are compared with the losses taken out
+    def strip(lines):
+        return [re.sub(r"Avg Loss: [0-9.]+", "Avg Loss: <loss>", l)
+                for l in _no_ms(lines)]
+
+    assert strip(logs["port"]) == strip(logs["jax"])
+    assert any(l.startswith("Train/Val/Test Accuracy: ") for l in logs["port"])
+    # Adam moves a weight by about lr * m / sqrt(v): where the gradient is
+    # near 0 that ratio carries the gradient's rounding at full size, so a
+    # few weights differ by up to ~1e-4 after 20 steps of lr 0.01
+    for p, q in zip(_leaves_np(tt.params), jax.tree.leaves(jt.params)):
+        np.testing.assert_allclose(p, np.asarray(q), rtol=1e-4, atol=1e-4)
+
+
+def test_sell_trainer_matches_jax_sell():
+    """impl='sell' through the twins of K1, K2 and K3 against the JAX
+    package's impl='sell' (Pallas interpret mode) on karate."""
+    tt, jt, logs = _trainers("karate", "sell", "sell", 5)
+    tt.run()
+    jt.run()
+    got, want = _losses(tt), _losses(jt)
+    assert len(got) == 5
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOSS_ATOL)
+
+
+def test_console_lines_format():
+    lines = []
+    g = tio.load_dataset("karate", DATA)
+    tr = tloop.Trainer(
+        g, tconfig.ModelConfig(**ARCH, num_classes=g.num_classes,
+                               in_dim=g.feature_dim),
+        tconfig.TrainConfig(epochs=2, seed=1), log_fn=lines.append,
+        device="cpu")
+    tr.run()
+    assert lines[0::2] == ["Epoch 1", "Epoch 2"]
+    for l in lines[1::2]:
+        assert re.fullmatch(
+            r"Avg Loss: \d+\.\d{6}, Accuracy: \d+\.\d{2}%  total time: "
+            r"\d+\.\d{2} ms", l), l
+
+
+# ---------------------------------------------------------------------------
+# checkpoints and resume
+# ---------------------------------------------------------------------------
+
+
+def test_checkpoints_cross_restore(tmp_path):
+    """A checkpoint the port saves restores in JAX, and one JAX saves
+    restores in the port: every parameter and Adam moment, and the epoch."""
+    tt, jt, _ = _trainers("karate", "torch", "xla", 3)
+    tt.run()
+    jt.run()
+    meta = tckpt.run_meta(tt.model_config, tt.train_config)
+    tckpt.save(tmp_path / "port", tt.params, tt.opt_state, tt.epoch,
+               meta=meta)
+    # the same fingerprint as the JAX package's for the same configs
+    assert meta["config_hash"] == jckpt.run_meta(
+        jt.model_config, jt.train_config)["config_hash"]
+    jp, jo, epoch = jckpt.restore(jckpt.latest_path(tmp_path / "port"),
+                                  jt.params, jt.opt_state)
+    assert epoch == 3
+    for p, q in zip(_leaves_np(tt.params), jax.tree.leaves(jp)):
+        assert np.array_equal(p, np.asarray(q))
+    for p, q in zip(tckpt.opt_leaves(tt.opt_state), jax.tree.leaves(jo)):
+        assert np.array_equal(p.numpy(), np.asarray(q))
+
+    jckpt.save(tmp_path / "jax", jt.params, jt.opt_state, jt.epoch)
+    tt2, _, _ = _trainers("karate", "torch", "xla", 3)
+    assert tckpt.restore_into(tmp_path / "jax", tt2)
+    assert tt2.epoch == 3
+    for p, q in zip(_leaves_np(tt2.params), jax.tree.leaves(jt.params)):
+        assert np.array_equal(p, np.asarray(q))
+    for p, q in zip(tckpt.opt_leaves(tt2.opt_state),
+                    jax.tree.leaves(jt.opt_state)):
+        assert np.array_equal(p.numpy(), np.asarray(q))
+
+
+def test_resume_continues_adam_t(tmp_path):
+    """3 epochs, a checkpoint, 3 more after a restore: the same losses as 6
+    epochs in one run (Adam's bias correction continues at t = 4)."""
+    whole, _, _ = _trainers("karate", "torch", "xla", 6)
+    whole.run()
+    first, _, _ = _trainers("karate", "torch", "xla", 6)
+    first.run(3)
+    meta = tckpt.run_meta(first.model_config, first.train_config)
+    tckpt.save(tmp_path, first.params, first.opt_state, first.epoch,
+               meta=meta)
+    second, _, _ = _trainers("karate", "torch", "xla", 6)
+    assert tckpt.restore_into(tmp_path, second, expect_meta=meta)
+    assert second.epoch == 3
+    second.run(3)
+    assert _losses(first) + _losses(second) == _losses(whole)
+    other = tckpt.run_meta(first.model_config, dataclasses.replace(
+        first.train_config, optimizer="sgd"))
+    with pytest.raises(tckpt.CheckpointMismatch, match="optimizer"):
+        tckpt.restore_into(tmp_path, second, expect_meta=other)
+
+
+# ---------------------------------------------------------------------------
+# the entry point
+# ---------------------------------------------------------------------------
+
+
+def test_train_entry_point_cpu(tmp_path):
+    """python -m gatv2_tpu_torch.train --device cpu on karate: the JAX
+    package's console lines, a checkpoint, then predict from it; unported
+    flags exit naming their ROADMAP.md item."""
+    common = ["--dataset", "karate", "--data-root", DATA, "--num-layers", "2",
+              "--heads", "2,1", "--outdims", "8,4", "--device", "cpu"]
+    ck = tmp_path / "ck"
+    r = subprocess.run(
+        [sys.executable, "-m", "gatv2_tpu_torch.train", *common, "--epochs",
+         "3", "--optimizer", "adam", "--lr", "0.01", "--clip", "--seed", "2",
+         "--impl", "sell", "--checkpoint-dir", str(ck), "--log-file",
+         str(tmp_path / "m.jsonl")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = r.stdout.splitlines()
+    assert "Using split masks from dataset directory" in lines
+    assert sum(l.startswith("Avg Loss: ") for l in lines) == 3
+    assert any(l.startswith("Final Test Accuracy: ") for l in lines)
+    # the CPU runs the twins: no kernel is launched
+    assert "K1 sell_fwd launches: 0, K2 sell_bwd_dst launches: 0, " \
+        "K3 sell_segsum launches: 0" in lines
+    assert tckpt.latest_path(ck).name == "ckpt_00000003.npz"
+    records = [json.loads(l) for l in
+               (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert [r["epoch"] for r in records] == [1, 2, 3]
+    assert all({"loss", "accuracy", "ms", "ts", "test_accuracy"} <= set(r)
+               for r in records)
+    r = subprocess.run(
+        [sys.executable, "-m", "gatv2_tpu_torch.predict", *common,
+         "--checkpoint-dir", str(ck), "--out", str(tmp_path / "p")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "Loaded checkpoint at epoch 3" in r.stdout
+    assert np.loadtxt(tmp_path / "p" / "predictions.txt").shape == (34,)
+    for flag in (["--mesh", "2"], ["--batch-size", "8"], ["--overlap"],
+                 ["--profile", str(tmp_path)], ["--debug-nans"],
+                 ["--impl", "pallas"]):
+        with pytest.raises(SystemExit, match="ROADMAP.md"):
+            tmain.main([*common, *flag])
+
+
+@pytest.mark.parametrize("impl", ["torch", "sell"])
+def test_remat_gives_the_same_gradients(impl):
+    """--remat recomputes each layer in the backward pass
+    (torch.utils.checkpoint): the gradients are the same numbers."""
+    g = tio.load_dataset("karate", DATA)
+    cfg = tconfig.ModelConfig(**ARCH, num_classes=g.num_classes,
+                              in_dim=g.feature_dim)
+    model = tmodel.init_params(cfg, torch.Generator().manual_seed(3))
+    feats, labels, src, dst, st, num_valid = (
+        g.features, g.labels, torch.as_tensor(g.src), torch.as_tensor(g.dst),
+        None, None)
+    if impl == "sell":
+        st, feats, labels, num_valid = tsa.setup_full_graph_sell(
+            g, cfg.heads, cfg.out_dims, device="cpu")
+        src = dst = None
+    grads = []
+    for remat in (False, True):
+        loss, _ = tmodel.loss_fn(
+            model, torch.as_tensor(feats), src, dst, torch.as_tensor(labels),
+            dataclasses.replace(cfg, remat=remat), impl=impl, edge_tiles=st,
+            num_valid=num_valid)
+        grads.append(torch.autograd.grad(loss, toptim.param_leaves(model)))
+    for p, q in zip(*grads):
+        assert torch.equal(p, q)
+
+
+def test_metrics_utils(tmp_path):
+    """JsonlSink writes the JAX package's records (with a timestamp); the
+    memory report is empty without a CUDA device; StepTimer keeps times."""
+    from gatv2_tpu.utils.metrics import JsonlSink as JaxSink
+    from gatv2_tpu_torch.utils.metrics import (
+        JsonlSink,
+        StepTimer,
+        device_memory_report,
+    )
+
+    for cls, name in ((JsonlSink, "port"), (JaxSink, "jax")):
+        sink = cls(str(tmp_path / name))
+        sink.write({"epoch": 1, "loss": 0.5})
+        sink.close()
+        with pytest.raises(ValueError, match="closed"):
+            sink.write({})
+    port, jax_ = ([json.loads(l) for l in (tmp_path / n).read_text()
+                   .splitlines()] for n in ("port", "jax"))
+    assert [set(r) for r in port] == [set(r) for r in jax_]
+    assert device_memory_report() == {}
+    timer = StepTimer()
+    assert timer.time(lambda x: x + 1, 1) == 2
+    timer.time(lambda: None)
+    assert len(timer.times_ms) == 2 and timer.best_ms <= timer.mean_ms
+
+
+def test_train_needs_cuda_unless_cpu(monkeypatch, tmp_path):
+    """With no CUDA device and no explicit CPU request, training raises
+    before it reads the dataset: never a silent CPU run."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmain.main(["--dataset", "karate", "--data-root", DATA, "--epochs",
+                    "1", "--checkpoint-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())
