@@ -27,7 +27,26 @@ Phases (any failure exits non-zero):
   7. forward and epoch times, peak memory, profiler tables;
   8. the entry points end to end, as subprocesses: predict on data/digits;
      train on data/karate with a checkpoint, then predict from it;
-  9. one JSON line listing every kernel, the nvidia-smi line, then the
+  9. sampled-minibatch training, the third main path: the headline model at
+     full width on bench.py's products-sub graph (500k nodes, 8M edges,
+     batch 1024, fanouts 10,10,10, native sampler, device-resident
+     features, Adam lr 0.01 with clipping, weights from a seeded
+     torch.Generator) through MinibatchTrainer(impl='pallas'); the K5/K6/K7
+     counters are zeroed just before 3 warm-up and 30 timed batches and
+     read just after; then one exact full-graph evaluation (K5 per chunk);
+ 10. its correctness on the card: the first sampled batches through
+     impl='pallas' and impl='torch' from the same weights (losses), one
+     batch's gradients against float64, K5/K6/K7 against their twins at
+     every layer's shapes (padding packets poisoned with NaN before K7) and
+     on extra layouts (20 heads, a hub beside isolated nodes, a batch with
+     empty node tiles, no edges), and full-graph Trainer(impl='pallas') on
+     'arxiv' and 'arxiv-pl' against the torch path;
+ 11. its times: device step, host sample + tile, the pipeline ratio of
+     tools/bench_minibatch.py, each kernel beside its bound, its twin and,
+     for K7, index_add_; a profiler table; peak memory; and the minibatch
+     entry point (train --batch-size on karate, then predict --impl pallas
+     from its checkpoint);
+ 12. one JSON line listing every kernel, the nvidia-smi line, then the
      result line {"ok": true, "device": {...}}.
 
 Every time is measured with CUDA events and printed with the card's name
@@ -39,6 +58,7 @@ from __future__ import annotations
 import concurrent.futures
 import copy
 import json
+import os
 import pathlib
 import re
 import subprocess
@@ -52,11 +72,20 @@ import torch
 from gatv2_tpu_torch.config import ModelConfig, TrainConfig
 from gatv2_tpu_torch.data.graph import Graph
 from gatv2_tpu_torch.data.io import load_dataset
+from gatv2_tpu_torch.data.sampling import prefetch
+from gatv2_tpu_torch.data.splits import random_splits
 from gatv2_tpu_torch.data.synthetic import powerlaw_graph, random_graph
 from gatv2_tpu_torch.models.gatv2 import init_params, loss_fn, model_forward
 from gatv2_tpu_torch.models.params_io import save_params_txt
 from gatv2_tpu_torch.ops import build
+from gatv2_tpu_torch.ops import pallas_attention as tpa
 from gatv2_tpu_torch.ops.attention import edge_attention
+from gatv2_tpu_torch.ops.pallas_bwd_dst import (
+    pallas_bwd_dst,
+    pallas_bwd_dst_plain,
+)
+from gatv2_tpu_torch.ops.pallas_fwd import pallas_fwd, pallas_fwd_plain
+from gatv2_tpu_torch.ops.pallas_segsum import pallas_segsum, pallas_segsum_plain
 from gatv2_tpu_torch.ops.sell_attention import (
     TILE_N,
     prepare_sell_tiles,
@@ -69,6 +98,8 @@ from gatv2_tpu_torch.ops.sell_fwd import sell_fwd, sell_fwd_plain
 from gatv2_tpu_torch.ops.sell_segsum import sell_segsum, sell_segsum_plain
 from gatv2_tpu_torch.train import optim
 from gatv2_tpu_torch.train.loop import Trainer
+from gatv2_tpu_torch.train.minibatch import MinibatchTrainer, gather_rows_clip
+from gatv2_tpu_torch.utils import native_loader
 
 ROOT = pathlib.Path(__file__).resolve().parent
 
@@ -125,6 +156,27 @@ LOSS_RTOL = 1e-4
 GRAD_FACTOR, GRAD_FLOOR = 10.0, 1e-5
 TRAIN_EPOCHS = 3
 
+# bench.py's 'products-sub' graph (random_graph(500000, 8000000, 100, 47)),
+# trained by sampled minibatch at tools/bench_minibatch.py's batch and
+# fanouts, with the headline model
+PRODUCTS_SUB = dict(num_nodes=500_000, num_edges=8_000_000, feature_dim=100,
+                    num_classes=47, seed=0)
+MB_BATCH, MB_FANOUTS = 1024, (10, 10, 10)
+# the static budget the sampler must derive: the analytic worst case capped
+# at the graph's node count, padded to the 128-node tile grid
+MB_MAX_NODES, MB_MAX_EDGES = 500_096, 1_136_640
+MB_WARMUP, MB_TIMED = 3, 30
+# the first sampled batches, replayed through impl='pallas' and 'torch' from
+# the same weights; Adam moves a weight whose gradient is rounding noise by
+# about lr either way, so the two paths drift apart step by step
+MB_CHECK = 5
+# K5, K6 and K7 do K1's, K2's and K3's arithmetic per real edge
+K5_OPS_PER_FEATURE = K1_OPS_PER_FEATURE
+K6_OPS_PER_FEATURE = K2_OPS_PER_FEATURE
+K7_OPS_PER_FEATURE = K3_OPS_PER_FEATURE
+SELL_KERNELS = ("sell_fwd", "sell_bwd_dst", "sell_segsum")
+PALLAS_KERNELS = ("pallas_fwd", "pallas_bwd_dst", "pallas_segsum")
+
 KERNELS = {
     "sell_fwd": dict(
         fn=sell_fwd, route="cuda", source="gatv2_tpu_torch/csrc/sell_fwd.cu",
@@ -139,6 +191,21 @@ KERNELS = {
         fn=sell_segsum, route="cuda",
         source="gatv2_tpu_torch/csrc/sell_segsum.cu",
         replaces="gatv2_tpu/ops/sell_attention.py:1334",
+    ),
+    "pallas_fwd": dict(
+        fn=pallas_fwd, route="cuda",
+        source="gatv2_tpu_torch/csrc/pallas_fwd.cu",
+        replaces="gatv2_tpu/ops/pallas_attention.py:680",
+    ),
+    "pallas_bwd_dst": dict(
+        fn=pallas_bwd_dst, route="cuda",
+        source="gatv2_tpu_torch/csrc/pallas_bwd_dst.cu",
+        replaces="gatv2_tpu/ops/pallas_attention.py:942",
+    ),
+    "pallas_segsum": dict(
+        fn=pallas_segsum, route="cuda",
+        source="gatv2_tpu_torch/csrc/pallas_segsum.cu",
+        replaces="gatv2_tpu/ops/pallas_attention.py:1150",
     ),
 }
 
@@ -301,12 +368,18 @@ def phase_device():
 
 
 def phase_build():
+    """Every CUDA source (one nvcc each) and the native sampler library
+    (g++), all started together."""
     names = sorted(p.stem for p in build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+    with concurrent.futures.ThreadPoolExecutor(len(names) + 1) as ex:
+        native = ex.submit(native_loader.build)
         libs = dict(zip(names, ex.map(build.build, names)))
-    print(f"built {', '.join(names)} in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+        native_so = native.result()
+    print(f"built {', '.join(names)} and {native_so.name} in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc "
+          f"{' '.join(build.NVCC_FLAGS)}; g++ "
+          f"{' '.join(native_loader.CXX_FLAGS)})")
     for name, so in libs.items():
         log = so.with_suffix(".log")
         for line in (log.read_text().splitlines() if log.exists() else []):
@@ -580,8 +653,8 @@ def phase_train_main_path(model, config, runs, dev):
     launches = read_counters()
     print(f"training main path launches ({TRAIN_EPOCHS} epochs x "
           f"{len(trainers)} graphs): {launches}")
-    for name, k in launches.items():
-        if k == 0:
+    for name in SELL_KERNELS:
+        if launches[name] == 0:
             fail(f"kernel {name} was not launched on the training main path")
     for name, r in runs.items():
         ref = make_trainer(r["graph"], config, "torch", model, dev)
@@ -899,6 +972,573 @@ def phase_predict(dev):
             fail("predict did not show its K1 launches")
 
 
+# ---------------------------------------------------------------------------
+# the third main path: sampled-minibatch training through K5, K6 and K7
+# ---------------------------------------------------------------------------
+
+
+def minibatch_trainer(graph, config, splits, impl, dev):
+    """A MinibatchTrainer as `python -m gatv2_tpu_torch.train --batch-size
+    1024 --fanouts 10,10,10 --optimizer adam --lr 0.01 --clip` builds it
+    (native sampler, budget auto, device-resident features), printing
+    nothing; weights from torch.Generator().manual_seed(0)."""
+    tc = TrainConfig(epochs=1, optimizer="adam", lr=0.01, clip=True, seed=0,
+                     impl=impl, batch_size=MB_BATCH, fanouts=MB_FANOUTS,
+                     sampler_engine="native", sample_budget="auto",
+                     feature_residency="device")
+    return MinibatchTrainer(graph, config, tc, log_fn=lambda _: None,
+                            splits=splits, device=dev)
+
+
+def phase_minibatch_main_path(dev, card):
+    """Drive the minibatch main path: 3 warm-up and 30 timed batches of
+    MinibatchTrainer(impl='pallas') through the prefetching sampler, the
+    K5/K6/K7 counters zeroed just before and read just after; then the
+    step and pipeline times and one exact full-graph evaluation."""
+    t0 = time.perf_counter()
+    g = random_graph(**PRODUCTS_SUB)
+    splits = random_splits(g.num_nodes, (0.6, 0.2, 0.2), seed=0)
+    config = ModelConfig(
+        num_layers=3, heads=HEADS, out_dims=OUTDIMS,
+        num_classes=PRODUCTS_SUB["num_classes"],
+        in_dim=PRODUCTS_SUB["feature_dim"],
+    )
+    tr = minibatch_trainer(g, config, splits, "pallas", dev)
+    s = tr.sampler
+    print(f"products-sub: N={g.num_nodes} E={g.num_edges} F={g.feature_dim} "
+          f"C={g.num_classes}; batch {MB_BATCH}, fanouts {list(MB_FANOUTS)}, "
+          f"engine {s.engine}: max_nodes={s.max_nodes} "
+          f"max_edges={s.max_edges} edge tiles={s._tile_budget}, "
+          f"{s.batches_per_epoch()} batches per epoch; graph and trainer "
+          f"{time.perf_counter() - t0:.2f} s")
+    if (s.max_nodes, s.max_edges) != (MB_MAX_NODES, MB_MAX_EDGES):
+        fail(f"sampler budget {s.max_nodes}/{s.max_edges}, want "
+             f"{MB_MAX_NODES}/{MB_MAX_EDGES}")
+    start = copy.deepcopy(tr.params)
+    stream = prefetch(iter(s), depth=2)
+    kept, losses = [], []
+    torch.cuda.synchronize()
+    zero_counters()
+    for i in range(MB_WARMUP + MB_TIMED):
+        if i == MB_WARMUP:
+            torch.cuda.synchronize()
+            t_timed = time.perf_counter()
+        b = next(stream)
+        if len(kept) < MB_CHECK:
+            kept.append(b)
+        losses.append(tr.train_step(b)[0])  # float(): waits for the step
+    pipelined_ms = (time.perf_counter() - t_timed) * 1e3 / MB_TIMED
+    torch.cuda.synchronize()
+    launches = read_counters()
+    stream.close()  # stops the prefetch thread
+    print(f"minibatch main path launches ({MB_WARMUP + MB_TIMED} batches): "
+          f"{launches}")
+    for name in PALLAS_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the minibatch main path")
+    if not all(np.isfinite(losses)):
+        fail(f"minibatch losses are not finite: {losses}")
+    edges = [b.num_edges for b in kept]
+    print(f"minibatch losses {losses[0]:.6f} -> {losses[-1]:.6f}; real "
+          f"edges per batch {edges}, real nodes {[b.num_nodes for b in kept]}")
+
+    # times: the step on one batch replayed (host-to-device copies of its
+    # ids and tiles included), host sampling + tile emission alone, and the
+    # pipelined batches above against them (tools/bench_minibatch.py's
+    # pipeline_ratio: 1.0 = the device never waits for the host)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    tr.train_step(kept[0])
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = cuda_ms(lambda: tr.train_step(kept[0]), reps=10, warmup=1)
+    rng = np.random.default_rng(0)
+    pool = np.nonzero(splits.train)[0]
+    seed_sets = [np.sort(rng.choice(pool, size=MB_BATCH, replace=False))
+                 for _ in range(5)]
+    t0 = time.perf_counter()
+    for seeds in seed_sets:
+        s.sample(seeds)
+    sample_ms = (time.perf_counter() - t0) * 1e3 / 5
+    # its two native parts alone: the neighbour sample, the tile emission
+    b = kept[0]
+    t0 = time.perf_counter()
+    native_loader.sample_batch(
+        s._row_ptr64, g.col_idx, seed_sets[0].astype(np.int32),
+        np.asarray(MB_FANOUTS, np.int32), s.max_nodes, s.max_edges, 1)
+    t1 = time.perf_counter()
+    native_loader.emit_tiles(b.src, b.dst, b.num_edges, s.max_nodes, 128,
+                             s._tile_budget)
+    t2 = time.perf_counter()
+    print(f"host per batch: native sample_batch {(t1 - t0) * 1e3:.1f} ms, "
+          f"native emit_tiles {(t2 - t1) * 1e3:.1f} ms, the rest of "
+          f"NeighborSampler.sample "
+          f"{sample_ms - (t2 - t0) * 1e3:.1f} ms ({os.cpu_count()} host "
+          f"CPUs)")
+    print(f"products-sub minibatch: device step {step_ms:.3f} ms, host sample "
+          f"+ tile {sample_ms:.3f} ms, pipelined {pipelined_ms:.3f} ms per "
+          f"batch, pipeline ratio {pipelined_ms / step_ms:.3f} (peak memory "
+          f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above the "
+          f"resident {base / 2**30:.2f} GiB) [{card}]")
+    profile_fn(lambda: tr.train_step(kept[0]),
+               "products-sub minibatch step", step_ms, card)
+
+    # one exact full-graph evaluation: setup_full_graph's layout, chunked if
+    # the device's budget asks for it, and K5 once per chunk and layer
+    k5_before = pallas_fwd.launches
+    t0 = time.perf_counter()
+    accs = tr.evaluate_exact()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    exact_launches = pallas_fwd.launches - k5_before
+    forward_ms = cuda_ms(tr.evaluate_exact, reps=1, warmup=0)
+    et = tr._exact_eval[3]  # the layout evaluate_exact built
+    print(f"products-sub evaluate_exact: chunks={et.num_chunks} "
+          f"tile_e={et.tile_e}; first call (layout + forward) {t1 - t0:.2f} "
+          f"s, forward {forward_ms:.1f} ms, {exact_launches} K5 launches; "
+          f"accuracies {accs} [{card}]")
+    if exact_launches < config.num_layers * et.num_chunks or not all(
+            0.0 <= v <= 1.0 for v in accs.values()):
+        fail("evaluate_exact did not run K5 per chunk and layer, or its "
+             "accuracies are out of range")
+    return dict(graph=g, splits=splits, config=config, trainer=tr,
+                start=start, kept=kept, launches=launches,
+                exact_launches=exact_launches)
+
+
+def phase_minibatch_losses(mb, dev):
+    """The first sampled batches through impl='pallas' and impl='torch'
+    minibatch steps from the same weights: per-step losses."""
+    tr = mb["trainer"]
+    ref = minibatch_trainer(mb["graph"], mb["config"], mb["splits"], "torch",
+                            dev)
+    got, want = [], []
+    for t, out in ((tr, got), (ref, want)):
+        t.params = copy.deepcopy(mb["start"])
+        t.opt_state = optim.init_opt_state(t.params, "adam")
+        t.step_count = 0
+        out += [t.train_step(b)[0] for b in mb["kept"]]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"minibatch losses over the first {len(got)} batches: pallas {got}, "
+          f"torch {want}; max relative difference {rel:.3e} (tolerance "
+          f"{LOSS_RTOL:g})")
+    if not all(np.isfinite(got)) or rel > LOSS_RTOL:
+        fail("pallas minibatch losses disagree with the torch path")
+    del ref
+
+
+class _Branches:
+    """Every LeakyReLU branch of a forward, recorded or replayed: inside the
+    attention (s = zs[src] + zd[dst] per edge) and between layers. An fp32
+    path decides the branch of an input near 0 by its rounding, which makes
+    its gradient jump there; the float64 reference replays the path's own
+    decisions, so the gradients are compared where the piecewise-linear
+    model is smooth. The pallas kernels' branches are recomputed from the
+    op's fp32 inputs, with the kernels' own addition."""
+
+    def __init__(self, src, dst):
+        self.src, self.dst = src.long(), dst.long()
+        self.masks, self.replay = [], False
+
+    def leaky_relu(self, x, negative_slope=0.01, inplace=False):
+        if self.replay:
+            mask = self.masks[self.calls].reshape(x.shape)
+            self.calls += 1
+            return torch.where(mask, x, negative_slope * x)
+        self.masks.append(x > 0)
+        return self._leaky_relu(x, negative_slope)
+
+    def attention(self, zs, zd, a, *args, **kw):
+        if not self.replay and kw.get("impl") == "pallas":
+            h, d = a.shape
+            self.masks.append(zs.detach().view(-1, h, d)[self.src]
+                              + zd.detach().view(-1, h, d)[self.dst] > 0)
+        return self._attention(zs, zd, a, *args, **kw)
+
+    def __enter__(self):
+        import gatv2_tpu_torch.models.gatv2 as model_module
+
+        self._module = model_module
+        self._leaky_relu = torch.nn.functional.leaky_relu
+        self._attention = model_module.edge_attention
+        self.calls = 0
+        torch.nn.functional.leaky_relu = self.leaky_relu
+        model_module.edge_attention = self.attention
+        return self
+
+    def __exit__(self, *exc):
+        torch.nn.functional.leaky_relu = self._leaky_relu
+        self._module.edge_attention = self._attention
+        self.replay = True
+
+
+def phase_minibatch_gradients(mb, dev):
+    """One batch's gradients: pallas (K5-K7) and the fp32 torch path, each
+    against the torch path in float64 on that path's own LeakyReLU branches
+    (_Branches), per parameter."""
+    tr, b, config = mb["trainer"], mb["kept"][0], mb["config"]
+    feats, _, _, labels, tiles = tr.batch_args(b)
+    x = gather_rows_clip(*feats)
+    src = torch.as_tensor(b.src[: b.num_edges], device=dev)
+    dst = torch.as_tensor(b.dst[: b.num_edges], device=dev)
+    start = mb["start"]
+    start64 = copy.deepcopy(start).double()
+
+    def grads(m, xx, impl, et=None):
+        kw = dict(edge_tiles=et) if impl == "pallas" else {}
+        loss, _ = loss_fn(m, xx, None if et else src, None if et else dst,
+                          labels, config, impl=impl, num_valid=b.num_seeds,
+                          **kw)
+        return torch.autograd.grad(loss, optim.param_leaves(m))
+
+    natural = _Branches(src, dst)  # float64's own branches
+    with natural, torch.no_grad():
+        loss_fn(start64, x.double(), src, dst, labels, config, impl="torch",
+                num_valid=b.num_seeds)
+    runs = {}
+    for name, impl, et in (("pallas", "pallas", tiles),
+                           ("torch", "torch", None)):
+        branches = _Branches(src, dst)
+        with branches:
+            g32 = grads(start, x, impl, et)
+        with branches:
+            g64 = grads(start64, x.double(), "torch")
+        flips = sum(int((m32.reshape(m64.shape) != m64).sum())
+                    for m32, m64 in zip(branches.masks, natural.masks))
+        runs[name] = (g32, g64, flips)
+    print("products-sub minibatch gradients, max |error| vs the float64 "
+          "torch path on the same path's branches / the parameter's largest "
+          f"|gradient| (LeakyReLU inputs whose fp32 sign differs from "
+          f"float64's: pallas {runs['pallas'][2]}, torch "
+          f"{runs['torch'][2]}):")
+    too_far = []
+    for i, pname in enumerate(param_names(start)):
+        errs = {}
+        for name, (g32, g64, _) in runs.items():
+            scale = float(g64[i].abs().max()) or 1.0
+            errs[name] = float((g32[i].double() - g64[i]).abs().max()) / scale
+        ok = errs["pallas"] <= max(GRAD_FACTOR * errs["torch"], GRAD_FLOOR)
+        print(f"  {pname:12s} pallas {errs['pallas']:.3e}  torch "
+              f"{errs['torch']:.3e}  {'ok' if ok else 'TOO FAR'}")
+        if not ok:
+            too_far.append(pname)
+    if too_far:
+        fail(f"pallas minibatch gradients of {too_far} are more than "
+             f"{GRAD_FACTOR:g}x the torch path's distance (or "
+             f"{GRAD_FLOOR:g}) from float64")
+    del start64, runs
+
+
+def pallas_bounds(e, rows, tiles_n, hd, heads, n_src, n_dst):
+    """(bound_ms, bound_by) of one K5, K6 and K7 launch: each input read
+    once (zs rows an edge reads, zd/g rows and sigma/r of nodes with an
+    in-edge, each real edge's two ids, the tile offsets, a) and each output
+    written once (out, m, l; dzd, d_a and one c1 row per real edge; dzs),
+    against the operations the real edges need."""
+    meta = 2 * e + tiles_n + 1
+    k5 = 4 * ((n_src + n_dst) * hd + meta + hd + rows * (hd + 2 * heads))
+    k6 = 4 * ((n_src + 2 * n_dst) * hd + 2 * heads * n_dst + meta + 2 * hd
+              + rows * hd + e * hd)
+    k7 = 4 * (e * hd + meta + rows * hd)
+    return {
+        "pallas_fwd": _bound(k5, e * hd * K5_OPS_PER_FEATURE),
+        "pallas_bwd_dst": _bound(k6, e * hd * K6_OPS_PER_FEATURE),
+        "pallas_segsum": _bound(k7, e * hd * K7_OPS_PER_FEATURE),
+    }
+
+
+def phase_pallas_kernels_at_main_path(mb, card):
+    """K5, K6 and K7 against their twins, and their times, at each layer's
+    shapes of one products-sub batch: the layer's projections, K5's stats,
+    a seeded random upstream gradient; K6's unwritten padding packets are
+    poisoned with NaN before K7 reads the packets."""
+    tr, b, config, start = mb["trainer"], mb["kept"][0], mb["config"], \
+        mb["start"]
+    max_err = dict.fromkeys(PALLAS_KERNELS, 0.0)
+    tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                   library_ms=0.0) for k in PALLAS_KERNELS}
+    rng = np.random.default_rng(4)
+    e = b.num_edges
+    n_src = int(np.unique(b.src[:e]).size)
+    n_dst = int(np.unique(b.dst[:e]).size)
+    with torch.no_grad():
+        feats, _, _, _, tiles = tr.batch_args(b)
+        x = gather_rows_clip(*feats)
+        side = tiles.dst_side
+        lay = (side.ids_grp[0], side.other_grp[0], side.rel_offsets[0],
+               tiles.tile_e)
+        rows = tiles.padded_num_nodes
+        real = side.ids_grp[0] < rows
+        # the library call for K7's function: one index_add_ of every
+        # packet into its edge's src row (padding slots into a spare row)
+        lib_idx = torch.where(real, side.other_grp[0], rows).long()
+        src_e = torch.as_tensor(b.src[:e], device=x.device)
+        dst_e = torch.as_tensor(b.dst[:e], device=x.device)
+        for l, layer in enumerate(start.layers):
+            zs, zd = layer.project(x, config.precision)
+            a = layer.a.detach().contiguous()
+            heads, hd = a.shape[0], zs.shape[1]
+            kw = dict(negative_slope=SLOPE)
+            tag = f"products-sub layer {l}"
+            got = pallas_fwd(zs, zd, a, *lay, **kw)
+            want = pallas_fwd_plain(zs, zd, a, *lay, **kw)
+            for part, gv, wv in zip(("out", "m", "l"), got, want):
+                max_err["pallas_fwd"] = max(max_err["pallas_fwd"], compare(
+                    f"{tag} K5 {part} [{tuple(gv.shape)}]", gv, wv, K1_RTOL,
+                    K1_ATOL))
+            del want
+            out, m, l_ = got
+            gout = torch.as_tensor(rng.standard_normal(
+                (rows, hd), dtype=np.float32), device=zs.device)
+            r = (gout * out).view(rows, heads, hd // heads).sum(-1)
+            sr = tpa.sigma_r_table(m + torch.log(l_ + 1e-8), r)
+            args = (zs, zd, gout, sr, a, *lay)
+            dzd, da, c1 = pallas_bwd_dst(*args, **kw)
+            w_dzd, w_da, w_c1 = pallas_bwd_dst_plain(*args, **kw)
+            w64 = pallas_bwd_dst_plain(*(t.double() for t in args[:5]), *lay,
+                                       **kw)
+            max_err["pallas_bwd_dst"] = max(
+                max_err["pallas_bwd_dst"],
+                compare(f"{tag} K6 c1 real slots [{e}, {hd}]", c1[real],
+                        w_c1[real], K1_RTOL, K1_ATOL),
+                compare_f64(f"{tag} K6 dzd [{tuple(dzd.shape)}]", dzd, w_dzd,
+                            w64[0]),
+                compare_f64(f"{tag} K6 d_a [{tuple(da.shape)}]", da, w_da,
+                            w64[1]))
+            del w_dzd, w_c1, w64
+            c1[~real] = float("nan")
+            k7 = (c1, tiles.gather_perm, tiles.src_sorted_ids,
+                  tiles.src_tile_offsets, tiles.tile_e)
+            dzs = pallas_segsum(*k7)
+            if not bool(torch.isfinite(dzs).all()):
+                fail(f"{tag}: K7 read a padding packet")
+            w_dzs = pallas_segsum_plain(*k7)
+            w64 = pallas_segsum_plain(c1.double(), *k7[1:])
+            lib = torch.zeros(rows + 1, hd, device=c1.device).index_add_(
+                0, lib_idx, c1)
+            max_err["pallas_segsum"] = max(
+                max_err["pallas_segsum"],
+                compare_f64(f"{tag} K7 dzs [{tuple(dzs.shape)}]", dzs, w_dzs,
+                            w64))
+            compare_f64(f"{tag} index_add_ (library) dzs", lib[:rows], w_dzs,
+                        w64)
+            del w_dzs, w64, lib
+            # the op's gradients at this layer: pallas (K5-K7) and the fp32
+            # torch path, each against the torch path in float64
+            with torch.enable_grad():
+                res = []
+                for impl, dt in (("pallas", torch.float32),
+                                 ("torch", torch.float32),
+                                 ("torch", torch.float64)):
+                    xs = [t.detach().to(dt).requires_grad_()
+                          for t in (zs, zd, a)]
+                    if impl == "pallas":
+                        o = tpa.edge_attention_pallas(
+                            *xs, rows, negative_slope=SLOPE, edge_tiles=tiles)
+                    else:
+                        o = edge_attention(
+                            xs[0].view(rows, heads, -1),
+                            xs[1].view(rows, heads, -1), xs[2], src_e, dst_e,
+                            rows, negative_slope=SLOPE, impl="torch",
+                        ).reshape(rows, -1)
+                    (o * gout.to(dt)).sum().backward()
+                    res.append([v.grad for v in xs])
+            for part, kern, twin, ref in zip(("d_zs", "d_zd", "d_a"), *res):
+                compare_f64(f"{tag} op {part} (torch fp32 as the twin)",
+                            kern, twin, ref)
+            del res
+            bounds = pallas_bounds(e, rows, tiles.num_node_tiles, hd, heads,
+                                   n_src, n_dst)
+            times = {
+                "pallas_fwd": (
+                    cuda_ms(lambda: pallas_fwd(zs, zd, a, *lay, **kw)),
+                    cuda_ms(lambda: pallas_fwd_plain(zs, zd, a, *lay, **kw),
+                            reps=3, warmup=1), 0.0),
+                "pallas_bwd_dst": (
+                    cuda_ms(lambda: pallas_bwd_dst(*args, **kw)),
+                    cuda_ms(lambda: pallas_bwd_dst_plain(*args, **kw),
+                            reps=3, warmup=1), 0.0),
+                "pallas_segsum": (
+                    cuda_ms(lambda: pallas_segsum(*k7)),
+                    cuda_ms(lambda: pallas_segsum_plain(*k7), reps=3,
+                            warmup=1),
+                    cuda_ms(lambda: torch.zeros(
+                        rows + 1, hd, device=c1.device
+                    ).index_add_(0, lib_idx, c1))),
+            }
+            for k, (ms, plain_ms, lib_ms) in times.items():
+                bound, by = bounds[k]
+                lib_txt = f", index_add_ {lib_ms:.4f} ms" if lib_ms else ""
+                print(f"  {tag} H*D={hd}: {k} {ms:.4f} ms, bound "
+                      f"{bound:.4f} ms ({by}), twin {plain_ms:.3f} ms"
+                      f"{lib_txt} [{card}]")
+                t = tot[k]
+                t["ms"] += ms
+                t["plain_ms"] += plain_ms
+                t["bound_ms"] += bound
+                t["bytes_ms"] += bound if by == "bytes" else 0.0
+                t["library_ms"] += lib_ms
+            del got, out, dzd, c1, dzs
+            x = layer(x, None, None, is_last=l == len(start.layers) - 1,
+                      config=config, impl="pallas", edge_tiles=tiles)
+    for k, t in tot.items():
+        print(f"  products-sub {k} per step: {t['ms']:.4f} ms, bound "
+              f"{t['bound_ms']:.4f} ms, twin {t['plain_ms']:.3f} ms"
+              + (f", index_add_ {t['library_ms']:.4f} ms"
+                 if t["library_ms"] else "") + f" [{card}]")
+    return max_err, tot
+
+
+def _empty_tiles_batch(n=2048):
+    """A sampled batch's shape: 2048 padded nodes, in-edges only into nodes
+    below 700 from nodes below 1500, so node tiles 6..15 hold no edge."""
+    rng = np.random.default_rng(11)
+    dst = np.sort(rng.integers(0, 700, size=6000))
+    row_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n), out=row_ptr[1:])
+    col = rng.integers(0, 1500, size=dst.size).astype(np.int32)
+    return Graph(rng.standard_normal((n, 8)).astype(np.float32), row_ptr,
+                 col, rng.integers(0, 3, size=n))
+
+
+def phase_pallas_cases(dev):
+    """Layouts the main path does not reach: 20 heads (head groups), a hub
+    beside isolated nodes, a batch with empty node tiles (a fixed
+    edge-tile budget), no edges. The op's output and gradients on the card
+    (K5-K7) and on the CPU (the twins), same inputs and upstream gradient;
+    the gradients each against the torch path in float64."""
+    max_err = 0.0
+    empty = Graph(np.zeros((1000, 8), np.float32), np.zeros(1001, np.int64),
+                  np.zeros(0, np.int32), np.zeros(1000, np.int32))
+    rng = np.random.default_rng(12)
+    cases = [
+        ("H=20 (head groups), D=32", random_graph(5_000, 40_000, 8, 3,
+                                                  seed=5), 20, 32, {}),
+        ("isolated nodes beside a hub", _hub_and_isolated(), 4, 16, {}),
+        ("a batch with empty node tiles", _empty_tiles_batch(), 4, 16,
+         dict(tile_e=128, fixed_edge_tiles=60)),
+        ("no edges", empty, 2, 16, {}),
+    ]
+    for label, gr, h, d, opts in cases:
+        n = gr.num_nodes
+        et = tpa.prepare_edge_tiles(gr.row_ptr, gr.col_idx, n, **opts)
+        zs, zd, w = (rng.standard_normal((n, h * d), dtype=np.float32)
+                     for _ in range(3))
+        a = (rng.standard_normal((h, d), dtype=np.float32)
+             / np.sqrt(d)).astype(np.float32)
+        res = []
+        for where in (dev, torch.device("cpu")):
+            x = [torch.as_tensor(v, device=where).requires_grad_()
+                 for v in (zs, zd, a)]
+            out = tpa.edge_attention_pallas(*x, n, negative_slope=SLOPE,
+                                            edge_tiles=et.to(where))
+            (out * torch.as_tensor(w, device=where)).sum().backward()
+            res.append([out.detach().cpu()] + [v.grad.cpu() for v in x])
+        x64 = [torch.as_tensor(v).double().requires_grad_()
+               for v in (zs, zd, a)]
+        out64 = edge_attention(
+            x64[0].view(n, h, d), x64[1].view(n, h, d), x64[2],
+            torch.as_tensor(gr.src), torch.as_tensor(gr.dst), n,
+            negative_slope=SLOPE, impl="torch")
+        (out64.reshape(n, -1) * torch.as_tensor(w).double()).sum().backward()
+        print(f"case {label} (chunks={et.num_chunks}, tile_e={et.tile_e}, "
+              f"H*D={h * d}):")
+        # out sums one term per in-edge (1,500 on the hub row): held
+        # against float64 like the gradients
+        max_err = max(max_err, compare_f64(
+            f"{label} out", res[0][0], res[1][0],
+            out64.detach().reshape(n, -1)))
+        for part, kern, twin, ref in zip(("d_zs", "d_zd", "d_a"), res[0][1:],
+                                         res[1][1:], [v.grad for v in x64]):
+            max_err = max(max_err, compare_f64(f"{label} {part}", kern, twin,
+                                               ref))
+        no_in = torch.as_tensor(np.diff(gr.row_ptr) == 0)
+        if not (bool((res[0][0][no_in] == 0).all())
+                and bool((res[0][2][no_in] == 0).all())):
+            fail(f"{label}: nodes without an in-edge do not get out = 0 "
+                 f"and d_zd = 0")
+    return max_err
+
+
+def phase_pallas_full_graph(model, config, runs, dev, card):
+    """Full-graph Trainer(impl='pallas') on both graphs, TRAIN_EPOCHS epochs
+    from the same weights, K5-K7 counted; losses against the torch path's
+    Trainers of the training phase; epoch times beside SELL's."""
+    launches = {}
+    for name, r in runs.items():
+        tr = make_trainer(r["graph"], config, "pallas", model, dev)
+        et = tr.edge_tiles
+        torch.cuda.synchronize()
+        before = read_counters()
+        tr.run()
+        torch.cuda.synchronize()
+        after = read_counters()
+        counts = {k: after[k] - before[k] for k in PALLAS_KERNELS}
+        got = tr.metrics_sink.losses
+        want = r["torch_trainer"].metrics_sink.losses
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        pallas_ms = cuda_ms(tr.step, reps=3, warmup=1)
+        sell_ms = cuda_ms(r["trainer"].step, reps=3, warmup=1)
+        print(f"{name} full-graph pallas training (chunks={et.num_chunks}, "
+              f"tile_e={et.tile_e}): launches {counts}; losses {got}, torch "
+              f"{want}, max relative difference {rel:.3e} (tolerance "
+              f"{LOSS_RTOL:g}); epoch pallas {pallas_ms:.3f} ms, sell "
+              f"{sell_ms:.3f} ms [{card}]")
+        if min(counts.values()) == 0:
+            fail(f"{name}: full-graph pallas training launched no "
+                 f"{min(counts, key=counts.get)}")
+        if not all(np.isfinite(got)) or rel > LOSS_RTOL:
+            fail(f"{name}: pallas training losses disagree with the torch "
+                 f"path")
+        launches[name] = counts
+        del tr
+    return launches
+
+
+def phase_minibatch_entry():
+    """python -m gatv2_tpu_torch.train --batch-size on karate with a
+    checkpoint, then predict --impl pallas from that checkpoint."""
+    arch = ["--num-layers", "2", "--heads", "4,1", "--outdims", "16,16"]
+    common = ["--dataset", "karate", "--data-root", "./data", *arch]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        ck, odir = pathlib.Path(tmp, "ck"), pathlib.Path(tmp, "p")
+        proc = subprocess.run(
+            [sys.executable, "-m", "gatv2_tpu_torch.train", *common,
+             "--epochs", "3", "--optimizer", "adam", "--lr", "0.01",
+             "--clip", "--seed", "1", "--batch-size", "32", "--fanouts",
+             "5,5", "--checkpoint-dir", str(ck)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        print("minibatch train: " + " | ".join(lines[-9:]))
+        if proc.returncode != 0:
+            fail(f"minibatch train exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        if sum(l.startswith("Avg Loss: ") for l in lines) != 3 or not any(
+                l.startswith("Minibatch mode: ") for l in lines):
+            fail("minibatch train did not print 3 minibatch epochs")
+        for tag, kname in (("K5", "pallas_fwd"), ("K6", "pallas_bwd_dst"),
+                           ("K7", "pallas_segsum")):
+            m = re.search(rf"{tag} {kname} launches: (\d+)", proc.stdout)
+            if not m or int(m.group(1)) < 2:
+                fail(f"minibatch train did not show its {tag} launches")
+        proc = subprocess.run(
+            [sys.executable, "-m", "gatv2_tpu_torch.predict", *common,
+             "--checkpoint-dir", str(ck), "--impl", "pallas", "--out",
+             str(odir)],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        print("predict --impl pallas from the checkpoint: "
+              + " ".join(proc.stdout.strip().splitlines()))
+        if proc.returncode != 0:
+            fail(f"predict exited {proc.returncode}: {proc.stderr[-2000:]}")
+        preds = np.loadtxt(odir / "predictions.txt", dtype=np.int64, ndmin=1)
+        m = re.search(r"K5 pallas_fwd launches: (\d+)", proc.stdout)
+        if preds.shape != (34,) or "epoch 3" not in proc.stdout or not m \
+                or int(m.group(1)) < 2:
+            fail("predict --impl pallas from the checkpoint did not run K5 "
+                 "or wrote no predictions")
+
+
 def main() -> int:
     card = phase_device()  # the nvidia-smi name and power limit
     dev = torch.device("cuda", 0)
@@ -915,6 +1555,13 @@ def main() -> int:
     phase_epoch_times(runs, dev, card)
     phase_predict(dev)
     phase_train_entry()
+    mb = phase_minibatch_main_path(dev, card)
+    phase_minibatch_losses(mb, dev)
+    err_pallas, pallas_totals = phase_pallas_kernels_at_main_path(mb, card)
+    phase_minibatch_gradients(mb, dev)
+    err_pallas_cases = phase_pallas_cases(dev)
+    phase_pallas_full_graph(model, config, runs, dev, card)
+    phase_minibatch_entry()
     measured = {
         "sell_fwd": (totals["arxiv"], max(err_main, err_cases)),
         "sell_bwd_dst": (bwd_totals["arxiv"]["sell_bwd_dst"],
@@ -922,13 +1569,20 @@ def main() -> int:
         "sell_segsum": (bwd_totals["arxiv"]["sell_segsum"],
                         max(err_bwd["sell_segsum"], err_bwd_cases)),
     }
+    measured.update({k: (pallas_totals[k], max(err_pallas[k],
+                                               err_pallas_cases))
+                     for k in PALLAS_KERNELS})
+    launches = {k: infer_launches[k] + train_launches[k]
+                for k in SELL_KERNELS}
+    launches.update({k: mb["launches"][k] for k in PALLAS_KERNELS})
+    launches["pallas_fwd"] += mb["exact_launches"]
     line = {"kernels": []}
     for name, (t, err) in measured.items():
         k = KERNELS[name]
         line["kernels"].append({
             "name": name, "route": k["route"], "source": k["source"],
             "replaces": k["replaces"],
-            "launches": infer_launches[name] + train_launches[name],
+            "launches": launches[name],
             "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -937,11 +1591,15 @@ def main() -> int:
             "library_ms": t.get("library_ms") or None,
         })
     print("ms / plain_ms / bound_ms / library_ms: sum over the 3 layers of "
-          "one 'arxiv' forward (K1) or backward (K2, K3); launches: both "
-          "main paths (both graphs' forwards, and "
-          f"{TRAIN_EPOCHS} training epochs on each graph); library_ms: K1 and "
-          "K2 have no single PyTorch call that computes their fused "
-          "function, K3's is index_add_")
+          "one 'arxiv' forward (K1) or backward (K2, K3), or of one "
+          "products-sub minibatch step (K5 forward, K6 and K7 backward); "
+          "launches: K1-K3 on the inference and full-graph training main "
+          f"paths (both graphs' forwards, {TRAIN_EPOCHS} training epochs on "
+          "each graph), K5-K7 on the minibatch main path "
+          f"({MB_WARMUP + MB_TIMED} batches) and, for K5, its exact "
+          "evaluation; library_ms: K1, K2, K5 and K6 have no single PyTorch "
+          "call that computes their fused function, K3's and K7's is "
+          "index_add_")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,9 +4,10 @@ A second package beside the JAX one, module for module: `config`, `data/`,
 `ops/`, `models/`, `cli` and `predict` each mirror their gatv2_tpu
 counterpart. It imports torch and numpy only, never JAX or gatv2_tpu.
 
-The SELL forward kernel (ops/sell_fwd.py, source csrc/sell_fwd.cu) is built
-with nvcc and loaded at its first launch, so importing any module here needs
-neither a GPU nor a CUDA toolkit.
+Each CUDA kernel (ops/sell_*.py and ops/pallas_*.py, sources in csrc/) is
+built with nvcc and loaded at its first launch, and the native sampler and
+parser (utils/native_loader.py) with g++ at first use, so importing any
+module here needs neither a GPU nor a compiler.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`device="cpu"`, `--device cpu`); with no CUDA device they raise rather

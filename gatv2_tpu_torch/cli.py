@@ -4,9 +4,9 @@ defaults, validation messages and configuration echo.
 Reference surface: --num-layers, --heads, --outdims, --epochs, --optimizer,
 --beta1/--beta2, --lr, --clip, --dataset, --data-root (DATA_ROOT env
 fallback). Parsing is order-insensitive. Port-specific: --impl takes
-torch|sell|auto and --device cuda|cpu. Every flag parses as in the JAX
-package; a flag whose code is not ported yet exits with an error naming its
-ROADMAP.md item, never ignored.
+torch|sell|pallas|auto and --device cuda|cpu. Every flag parses as in the
+JAX package; a flag whose code is not ported yet exits with an error naming
+its ROADMAP.md item, never ignored.
 """
 
 from __future__ import annotations
@@ -19,25 +19,28 @@ from gatv2_tpu_torch.config import ModelConfig, TrainConfig
 
 
 def _resolve_impl(args) -> str:
-    """--impl auto: the SELL kernel on CUDA, the plain PyTorch path on the
-    CPU (the CUDA kernel does not run there)."""
+    """--impl auto, as the JAX package resolves it on an accelerator: the
+    pallas kernels for minibatch training, the SELL kernels full-graph, on
+    CUDA; the plain PyTorch path on the CPU (the CUDA kernels do not run
+    there)."""
     if args.impl != "auto":
         return args.impl
-    return "sell" if args.device == "cuda" else "torch"
+    if args.device != "cuda":
+        return "torch"
+    return "pallas" if args.batch_size > 0 else "sell"
 
 
 # flag -> (is it set?, its ROADMAP.md section 1 item)
 _UNPORTED = {
-    "--impl pallas": (lambda a: a.impl == "pallas",
-                      "item 3, the pallas family (K5-K8)"),
-    "--batch-size": (lambda a: a.batch_size > 0,
-                     "item 4, sampling and minibatch training"),
-    "--mesh": (lambda a: a.mesh > 0, "item 5, multi-GPU"),
-    "--overlap": (lambda a: a.overlap, "item 5, multi-GPU"),
+    "--impl sell with --batch-size": (
+        lambda a: a.impl == "sell" and a.batch_size > 0,
+        "item 2, minibatch SELL"),
+    "--mesh": (lambda a: a.mesh > 0, "item 3, multi-GPU"),
+    "--overlap": (lambda a: a.overlap, "item 3, multi-GPU"),
     "--profile": (lambda a: a.profile is not None,
-                  "item 6, the bench and its tooling"),
+                  "item 4, the bench and its tooling"),
     "--debug-nans": (lambda a: a.debug_nans,
-                     "item 6, the bench and its tooling"),
+                     "item 4, the bench and its tooling"),
 }
 
 
@@ -78,8 +81,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="attention implementation: torch (plain PyTorch), "
                         "sell (degree-sorted sliced-ELLPACK layout through "
-                        "the CUDA kernels), auto (sell on CUDA, torch with "
-                        "--device cpu); pallas is not yet ported")
+                        "the CUDA kernels K1-K3), pallas (edge tiles "
+                        "through the CUDA kernels K5-K7), auto (on CUDA "
+                        "pallas with --batch-size, else sell; torch with "
+                        "--device cpu)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device to run on (default cuda; no CUDA device "
                         "is an error, never a silent CPU run)")

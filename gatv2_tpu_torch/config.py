@@ -90,13 +90,20 @@ class TrainConfig:
     seed: int | None = None  # None -> time-based, like the reference
     dataset: str = "pubmed"
     data_root: str = "./data"
-    # attention implementation: 'torch' (plain PyTorch, the oracle) or
-    # 'sell' (the SELL layout through the hand-written CUDA kernels)
+    # attention implementation: 'torch' (plain PyTorch, the oracle), 'sell'
+    # (the SELL layout through the hand-written CUDA kernels K1-K3) or
+    # 'pallas' (the edge-tile layout through K5-K7)
     impl: str = "torch"
+    # minibatch mode: batch_size > 0 trains on neighbour-sampled subgraphs
+    # (fanouts = per-layer in-neighbour caps) instead of full-graph epochs
     batch_size: int = 0
     fanouts: tuple = ()
-    sampler_engine: str = "auto"  # 'auto' | 'native' | 'python'
+    sampler_engine: str = "auto"  # 'auto' (= 'native') | 'native' | 'python'
+    # static-shape budget of sampled subgraphs: 'auto' (worst case capped at
+    # the graph size), 'worst' (uncapped), 'probe' (from probe batches)
     sample_budget: str = "auto"
+    # minibatch features: 'device' (the full table on the device, rows
+    # gathered there by node id) or 'host' (rows gathered on the host)
     feature_residency: str = "device"
     log_file: str | None = None
     checkpoint_dir: str | None = None
@@ -128,5 +135,15 @@ class TrainConfig:
         if self.batch_size > 0 and any(f < 1 for f in self.fanouts):
             raise ValueError(
                 f"--fanouts entries must be >= 1, got {list(self.fanouts)}"
+            )
+        if self.sampler_engine not in ("auto", "native", "python"):
+            raise ValueError(
+                f"sampler_engine must be 'auto', 'native' or 'python', "
+                f"got {self.sampler_engine!r}"
+            )
+        if self.sample_budget not in ("auto", "worst", "probe"):
+            raise ValueError(
+                f"sample_budget must be 'auto', 'worst' or 'probe', "
+                f"got {self.sample_budget!r}"
             )
         return warnings

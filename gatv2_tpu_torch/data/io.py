@@ -1,5 +1,5 @@
 """Dataset IO: the reference's four-file whitespace text CSR format (port
-of gatv2_tpu/data/io.py, numpy parser only).
+of gatv2_tpu/data/io.py).
 
   features.txt — one line per node, F floats separated by spaces
   row_ptr.txt  — N+1 ints (CSR row pointer over destination nodes)
@@ -8,6 +8,11 @@ of gatv2_tpu/data/io.py, numpy parser only).
 
 The dataset lives in `<root>/<name>/`, with root taken from `--data-root`,
 else env `DATA_ROOT`, else `./data`.
+
+Two parsers give identical arrays, chosen by the caller with
+`parser="numpy"` (the default) or `parser="native"` (the multi-threaded C++
+parser of native/loader.cpp, built at first use by utils/native_loader.py;
+a failed build raises). There is no silent switch between them.
 """
 
 from __future__ import annotations
@@ -29,15 +34,29 @@ def resolve_dataset_dir(
     return pathlib.Path(data_root) / dataset
 
 
-def load_features(path: pathlib.Path) -> np.ndarray:
+PARSERS = ("numpy", "native")
+
+
+def _check_parser(parser: str) -> None:
+    if parser not in PARSERS:
+        raise ValueError(f"parser must be one of {PARSERS}, got {parser!r}")
+
+
+def load_features(path: pathlib.Path, parser: str = "numpy") -> np.ndarray:
     """Dense [N, F] float32; N and F inferred from the file; ragged rows
     are an error."""
+    _check_parser(parser)
     with open(path) as f:
         first = f.readline()
     ncols = len(first.split())
     if ncols == 0:
         raise ValueError(f"{path}: empty first row")
-    flat = np.fromfile(path, dtype=np.float32, sep=" ")
+    if parser == "native":
+        from gatv2_tpu_torch.utils import native_loader
+
+        flat = native_loader.parse_float_file(path)
+    else:
+        flat = np.fromfile(path, dtype=np.float32, sep=" ")
     if flat.size % ncols != 0:
         raise ValueError(
             f"{path}: total value count {flat.size} is not a multiple of the "
@@ -46,12 +65,19 @@ def load_features(path: pathlib.Path) -> np.ndarray:
     return flat.reshape(-1, ncols)
 
 
-def load_int_array(path: pathlib.Path) -> np.ndarray:
+def load_int_array(path: pathlib.Path, parser: str = "numpy") -> np.ndarray:
     """Whitespace-separated ints."""
+    _check_parser(parser)
+    if parser == "native":
+        from gatv2_tpu_torch.utils import native_loader
+
+        return native_loader.parse_int_file(path)
     return np.fromfile(path, dtype=np.int64, sep=" ").astype(np.int32)
 
 
-def load_dataset(dataset: str, data_root: str | None = None) -> Graph:
+def load_dataset(
+    dataset: str, data_root: str | None = None, parser: str = "numpy"
+) -> Graph:
     d = resolve_dataset_dir(dataset, data_root)
     if not d.is_dir():
         raise FileNotFoundError(
@@ -61,9 +87,10 @@ def load_dataset(dataset: str, data_root: str | None = None) -> Graph:
     for fname in ("features.txt", "row_ptr.txt", "col_idx.txt", "labels.txt"):
         if not (d / fname).is_file():
             raise FileNotFoundError(f"Missing {fname} in {d}")
+    _check_parser(parser)
     return Graph(
-        features=load_features(d / "features.txt"),
-        row_ptr=load_int_array(d / "row_ptr.txt"),
-        col_idx=load_int_array(d / "col_idx.txt"),
-        labels=load_int_array(d / "labels.txt"),
+        features=load_features(d / "features.txt", parser),
+        row_ptr=load_int_array(d / "row_ptr.txt", parser),
+        col_idx=load_int_array(d / "col_idx.txt", parser),
+        labels=load_int_array(d / "labels.txt", parser),
     )

@@ -71,7 +71,7 @@ class GATv2Layer(nn.Module):
         num_nodes = x.shape[0]
         nh, hdim = self.a.shape
         zs, zd = self.project(x, config.precision)
-        if impl != "sell":
+        if impl not in ("sell", "pallas"):  # those take the flat layout
             zs = zs.view(num_nodes, nh, hdim)
             zd = zd.view(num_nodes, nh, hdim)
         h = edge_attention(
@@ -178,7 +178,7 @@ def model_forward(
     is asked for and absent). Inputs may be numpy arrays or tensors; they
     and `params` (in place, as nn.Module.to does) move to `device`.
     src/dst are the real edges (impl='torch'); edge_tiles the SellTiles
-    (impl='sell')."""
+    (impl='sell') or EdgeTiles (impl='pallas')."""
     dev = resolve_device(device)
     params = params.to(dev)
     if edge_tiles is not None:

@@ -6,7 +6,8 @@ Implementations, selectable with `impl=`:
             oracle, the counterpart of the JAX package's 'xla' path;
   'sell'  — the SELL layout through the hand-written CUDA forward kernel
             (ops/sell_attention.py);
-  'pallas' — the streamed-operand kernel family; not yet ported.
+  'pallas' — the edge-tile layout through the hand-written CUDA kernels
+            K5-K7 (ops/pallas_attention.py).
 """
 
 from __future__ import annotations
@@ -19,10 +20,11 @@ from gatv2_tpu_torch.ops.segment import segment_softmax, segment_sum
 
 
 def edge_attention(
-    zs: torch.Tensor,  # [N, H, D] src projections; 'sell' also takes flat [N, H*D]
+    zs: torch.Tensor,  # [N, H, D] src projections; 'sell' and 'pallas'
+    #                    also take flat [N, H*D]
     zd: torch.Tensor,  # same shape as zs: dst projections
     a: torch.Tensor,  # [H, D] attention vectors
-    src: torch.Tensor | None,  # [E] int, unused by 'sell'
+    src: torch.Tensor | None,  # [E] int, unused by 'sell' and 'pallas'
     dst: torch.Tensor | None,  # [E] int, sorted ascending, all < num_nodes
     num_nodes: int,
     *,
@@ -49,11 +51,14 @@ def edge_attention(
             sell_tiles=edge_tiles, streams=streams,
         )
     if impl == "pallas":
-        raise NotImplementedError(
-            "impl='pallas' is not yet ported: the streamed-operand kernels "
-            "K5-K8 are queued in ROADMAP.md (section 2, the pallas family)"
+        from gatv2_tpu_torch.ops.pallas_attention import edge_attention_pallas
+
+        return edge_attention_pallas(
+            zs, zd, a, num_nodes, negative_slope=negative_slope,
+            edge_tiles=edge_tiles,
         )
-    raise ValueError(f"unknown impl {impl!r}; expected 'torch' or 'sell'")
+    raise ValueError(
+        f"unknown impl {impl!r}; expected 'torch', 'sell' or 'pallas'")
 
 
 def _edge_attention_torch(

@@ -344,19 +344,24 @@ def suggest_num_chunks_sell(
 DEFAULT_SPLIT_CAP = 256
 
 # chunk budget when the layout is built for the CPU: the JAX package's
-# budget for graphs under 30M edges (gatv2_tpu/ops/pallas_attention.py
-# default_chunk_budget)
+# policy (gatv2_tpu/ops/pallas_attention.py default_chunk_budget), 6 GiB
+# below 30M edges and 2 GiB from there on
 CPU_CHUNK_BUDGET = 6 << 30
+CPU_CHUNK_BUDGET_LARGE = 2 << 30
+LARGE_GRAPH_EDGES = 30_000_000
 
 
-def default_chunk_budget(device: str | torch.device) -> int:
+def default_chunk_budget(device: str | torch.device, num_edges: int = 0) -> int:
     """Edge-temporary budget for auto-chunking: a quarter of the CUDA
     device's free memory (the rest holds features, projections and
-    activations), or CPU_CHUNK_BUDGET on the CPU."""
+    activations), or the JAX package's budget for a graph of num_edges
+    edges on the CPU."""
     dev = torch.device(device)
     if dev.type == "cuda":
         free, _ = torch.cuda.mem_get_info(dev)
         return free // 4
+    if num_edges >= LARGE_GRAPH_EDGES:
+        return CPU_CHUNK_BUDGET_LARGE
     return CPU_CHUNK_BUDGET
 
 
@@ -465,15 +470,15 @@ def setup_full_graph_sell(
 ):
     """One-stop full-graph SELL setup: builds the two-sided layout —
     auto-chunked so the edge-space temporaries fit budget_bytes (default:
-    default_chunk_budget(device)) — and pads features and labels (default
-    graph.labels; a split-masked copy in training) to the padded node grid
-    once.
+    default_chunk_budget(device, graph.num_edges)) — and pads features and
+    labels (default graph.labels; a split-masked copy in training) to the
+    padded node grid once.
 
     Returns (sell_tiles, features, labels, num_valid), all on the host;
     num_valid is None when no padding row was added. Padding labels are
     -1 (ignored by the loss)."""
     if budget_bytes is None:
-        budget_bytes = default_chunk_budget(device)
+        budget_bytes = default_chunk_budget(device, graph.num_edges)
     num_chunks = suggest_chunks_for_graph(
         graph.row_ptr, graph.col_idx, graph.num_nodes, heads, out_dims,
         budget_bytes=budget_bytes,

@@ -1,10 +1,11 @@
 """Inference entry point: load trained weights, write per-node predictions
 (port of the root predict.py).
 
-Runs one full-graph forward and writes `predictions.txt` (one predicted
-label per node) and, with --save-probs, `probs.txt` (softmax rows), from a
-text weight dump (--load-weights) or the newest checkpoint of a training
-run (--checkpoint-dir; either package's).
+Runs one full-graph forward (on CUDA through K1 with --impl sell, the
+default, or K5 with --impl pallas) and writes `predictions.txt` (one
+predicted label per node) and, with --save-probs, `probs.txt` (softmax
+rows), from a text weight dump (--load-weights) or the newest checkpoint of
+a training run (--checkpoint-dir; either package's).
 
 Example:
     python -m gatv2_tpu_torch.predict --dataset citeseer --load-weights w/ \\
@@ -25,6 +26,8 @@ from gatv2_tpu_torch.data.io import load_dataset
 from gatv2_tpu_torch.device import resolve_device
 from gatv2_tpu_torch.models.gatv2 import GATv2, model_forward
 from gatv2_tpu_torch.models.params_io import load_params_txt
+from gatv2_tpu_torch.ops.pallas_attention import setup_full_graph
+from gatv2_tpu_torch.ops.pallas_fwd import pallas_fwd
 from gatv2_tpu_torch.ops.sell_attention import setup_full_graph_sell
 from gatv2_tpu_torch.ops.sell_fwd import sell_fwd
 from gatv2_tpu_torch.train import checkpoint as ckpt
@@ -70,14 +73,17 @@ def main(argv: list[str] | None = None) -> int:
     num_nodes = graph.num_nodes
     edge_tiles, src, dst = None, None, None
     feats = graph.features
-    if train_config.impl == "sell":
-        edge_tiles, feats, _, _ = setup_full_graph_sell(
+    setup = {"sell": setup_full_graph_sell, "pallas": setup_full_graph}
+    if train_config.impl in setup:
+        edge_tiles, feats, _, _ = setup[train_config.impl](
             graph, model_config.heads, model_config.out_dims, device=device
         )
     else:
         src, dst = graph.src, graph.dst
 
-    launches0 = sell_fwd.launches
+    kernel = {"sell": ("K1", sell_fwd), "pallas": ("K5", pallas_fwd)}.get(
+        train_config.impl)
+    launches0 = kernel[1].launches if kernel else 0
     with torch.inference_mode():
         logits = model_forward(
             params, feats, src, dst, model_config, impl=train_config.impl,
@@ -85,8 +91,9 @@ def main(argv: list[str] | None = None) -> int:
         )[:num_nodes]
         preds = logits.argmax(dim=-1).cpu().numpy().astype(np.int64)
         probs = torch.softmax(logits, dim=-1).cpu().numpy()
-    if train_config.impl == "sell":
-        print(f"K1 sell_fwd launches: {sell_fwd.launches - launches0}")
+    if kernel:
+        tag, k = kernel
+        print(f"{tag} {k.__name__} launches: {k.launches - launches0}")
 
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)

@@ -1,16 +1,20 @@
-"""Training entry point (port of the root train.py): full-graph training on
-one device.
+"""Training entry point (port of the root train.py): full-graph or
+sampled-minibatch training on one device.
 
     python -m gatv2_tpu_torch.train --num-layers 3 --heads 4,1,1 \\
         --outdims 64,32,16 --epochs 200 --optimizer adam --lr 0.01 --clip \\
         --dataset citeseer --data-root /data/graphs
+    python -m gatv2_tpu_torch.train --batch-size 1024 --fanouts 10,10,10 \\
+        --num-layers 3 --heads 4,1,1 --outdims 64,32,16 --optimizer adam \\
+        --lr 0.01 --clip --dataset products --data-root /data/graphs
 
-Runs on the CUDA device, where --impl auto is 'sell' (the SELL kernels K1,
-K2 and K3), unless given --device cpu ('torch'). Prints the JAX package's
-console lines and, on impl 'sell', how many times each kernel was launched.
-Flags of paths not ported yet (--mesh, --batch-size, --overlap, --profile,
---debug-nans, --impl pallas) exit with an error naming their ROADMAP.md
-item.
+Runs on the CUDA device, where --impl auto is 'sell' full-graph (the SELL
+kernels K1, K2 and K3) and 'pallas' with --batch-size (the edge-tile
+kernels K5, K6 and K7), unless given --device cpu ('torch'). Prints the JAX
+package's console lines and, on impl 'sell' or 'pallas', how many times
+each kernel was launched. Flags of paths not ported yet (--mesh,
+--overlap, --profile, --debug-nans, --impl sell with --batch-size) exit
+with an error naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,11 +32,15 @@ def main(argv: list[str] | None = None) -> int:
         load_params_txt,
         save_params_txt,
     )
+    from gatv2_tpu_torch.ops.pallas_bwd_dst import pallas_bwd_dst
+    from gatv2_tpu_torch.ops.pallas_fwd import pallas_fwd
+    from gatv2_tpu_torch.ops.pallas_segsum import pallas_segsum
     from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst
     from gatv2_tpu_torch.ops.sell_fwd import sell_fwd
     from gatv2_tpu_torch.ops.sell_segsum import sell_segsum
     from gatv2_tpu_torch.train import checkpoint as ckpt
     from gatv2_tpu_torch.train.loop import Trainer
+    from gatv2_tpu_torch.train.minibatch import MinibatchTrainer
     from gatv2_tpu_torch.utils.metrics import JsonlSink, device_memory_report
 
     model_config, train_config, args = cli.parse_args(argv)
@@ -74,13 +82,25 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Split: {tr} train / {va} val / {te} test nodes")
 
     sink = JsonlSink(train_config.log_file) if train_config.log_file else None
-    trainer = Trainer(graph, model_config, train_config, metrics_sink=sink,
-                      splits=splits, device=device)
+    if train_config.batch_size > 0:
+        print(
+            f"Minibatch mode: batch_size={train_config.batch_size}, "
+            f"fanouts={list(train_config.fanouts)}, "
+            f"sampler={train_config.sampler_engine}"
+        )
+        trainer = MinibatchTrainer(graph, model_config, train_config,
+                                   metrics_sink=sink, splits=splits,
+                                   device=device)
+    else:
+        trainer = Trainer(graph, model_config, train_config,
+                          metrics_sink=sink, splits=splits, device=device)
     meta = ckpt.run_meta(model_config, train_config)
     if train_config.resume and train_config.checkpoint_dir:
         if ckpt.restore_into(train_config.checkpoint_dir, trainer,
                              expect_meta=meta):
             print(f"Resumed from checkpoint at epoch {trainer.epoch}")
+            if train_config.batch_size > 0:
+                trainer.sync_step_count()
 
     mem_after = device_memory_report()
     for dev in mem_after:
@@ -91,8 +111,11 @@ def main(argv: list[str] | None = None) -> int:
         trainer.params = load_params_txt(args.load_weights, model_config)
         print(f"Loaded weights from {args.load_weights}/")
 
-    kernels = (("K1", sell_fwd), ("K2", sell_bwd_dst), ("K3", sell_segsum))
-    launches0 = [k.launches for _, k in kernels]
+    kernel_lines = (
+        (("K1", sell_fwd), ("K2", sell_bwd_dst), ("K3", sell_segsum)),
+        (("K5", pallas_fwd), ("K6", pallas_bwd_dst), ("K7", pallas_segsum)),
+    )
+    launches0 = [[k.launches for _, k in line] for line in kernel_lines]
     every = train_config.checkpoint_every
     if train_config.checkpoint_dir and every > 0:
         while trainer.epoch < train_config.epochs:
@@ -104,13 +127,31 @@ def main(argv: list[str] | None = None) -> int:
         if train_config.checkpoint_dir:
             ckpt.save(train_config.checkpoint_dir, trainer.params,
                       trainer.opt_state, trainer.epoch, meta=meta)
-    if train_config.impl == "sell":
-        print(", ".join(
-            f"{tag} {k.__name__} launches: {k.launches - n0}"
-            for (tag, k), n0 in zip(kernels, launches0)))
+    if train_config.impl in ("sell", "pallas"):
+        for line, counts0 in zip(kernel_lines, launches0):
+            print(", ".join(
+                f"{tag} {k.__name__} launches: {k.launches - n0}"
+                for (tag, k), n0 in zip(line, counts0)))
 
     if splits is not None:
-        print(f"Final Test Accuracy: {trainer.evaluate()['test'] * 100:.2f}%")
+        if train_config.batch_size == 0:
+            acc = trainer.evaluate()["test"]
+        elif args.eval_mode == "sampled":
+            acc = trainer.evaluate("test")
+        elif train_config.feature_residency == "host":
+            # --feature-residency host exists because the feature table does
+            # not fit the device; exact evaluation would upload all of it
+            print(
+                "Note: --eval-mode exact needs the full feature table "
+                "on device; with --feature-residency host falling back "
+                "to sampled evaluation"
+            )
+            acc = trainer.evaluate("test")
+        else:
+            # one deterministic full-graph forward, the reference's
+            # all-nodes evaluation
+            acc = trainer.evaluate_exact()["test"]
+        print(f"Final Test Accuracy: {acc * 100:.2f}%")
     if args.save_weights:
         save_params_txt(args.save_weights, trainer.params)
         print(f"Saved weights to {args.save_weights}/")

@@ -2,7 +2,8 @@
 
 One optimizer step per epoch: forward, masked cross-entropy, backward
 through autograd (on impl='sell' the backward runs the SELL kernels K2 and
-K3), optional group-norm clipping, SGD or Adam. Each epoch prints the
+K3, on impl='pallas' K6 and K7; a chunked pallas layout raises, naming K8),
+optional group-norm clipping, SGD or Adam. Each epoch prints the
 reference's console lines
 
     Epoch 1
@@ -80,12 +81,22 @@ class Trainer:
             self.edge_tiles = st.to(dev)
             if pad_valid is not None and self.num_valid is None:
                 self.num_valid = pad_valid
+        elif train_config.impl == "pallas":
+            from gatv2_tpu_torch.ops.pallas_attention import setup_full_graph
+
+            et, feats, labels, pad_valid = setup_full_graph(
+                graph, model_config.heads, model_config.out_dims, device=dev,
+                labels=labels,
+            )
+            self.edge_tiles = et.to(dev)
+            if pad_valid is not None and self.num_valid is None:
+                self.num_valid = pad_valid
         elif train_config.impl == "torch":
             self.src = torch.as_tensor(graph.src, device=dev)
             self.dst = torch.as_tensor(graph.dst, device=dev)
         else:
             raise ValueError(
-                f"Trainer: impl must be 'torch' or 'sell', got "
+                f"Trainer: impl must be 'torch', 'sell' or 'pallas', got "
                 f"{train_config.impl!r}"
             )
         self.features = torch.as_tensor(feats, device=dev)

@@ -1,0 +1,275 @@
+"""Minibatch (sampled-subgraph) training on one device (port of
+gatv2_tpu/train/minibatch.py:28-447).
+
+Pairs with data.sampling.NeighborSampler. The loss is computed over seed
+nodes only (labels are -1 elsewhere); Adam bias correction is indexed by the
+global STEP count here (the full-graph Trainer indexes it by epoch, as the
+reference does). On impl='pallas' each batch's fixed-shape EdgeTiles go to
+the device once and the model runs K5 forward and K6/K7 backward on them.
+
+Features: with feature_residency='device' the whole feature table stays on
+the device and each batch gathers its rows there by node id (an
+index_select with the ids clamped into range, the JAX package's
+mode='clip'); with 'host' the sampler gathers the rows on the host (the
+native gather_rows on the native engine) and the batch uploads them.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from gatv2_tpu_torch.config import ModelConfig, TrainConfig
+from gatv2_tpu_torch.data.sampling import MiniBatch, NeighborSampler, prefetch
+from gatv2_tpu_torch.device import resolve_device
+from gatv2_tpu_torch.models.gatv2 import (
+    GATv2,
+    init_params_for_variant,
+    loss_and_accuracy,
+    loss_fn,
+)
+from gatv2_tpu_torch.train import optim
+
+
+def gather_rows_clip(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """table[ids] with out-of-range ids clamped onto the first or last row
+    (jnp.take's mode='clip')."""
+    return table.index_select(0, ids.long().clamp(0, table.shape[0] - 1))
+
+
+def make_minibatch_step(
+    model_config: ModelConfig, train_config: TrainConfig, *,
+    device_gather: bool = False,
+) -> Callable:
+    """step(params, opt_state, t, features, src, dst, labels, num_seeds
+    [, edge_tiles]) -> (params, opt_state, loss, acc): one optimizer step on
+    one batch, written into params and opt_state in place (the JAX
+    package returns new ones). t is the 1-indexed global step.
+
+    device_gather=True: `features` is (feat_table, node_ids) — the full
+    feature table on the device and the batch's node ids — and the rows
+    are gathered on the device."""
+
+    def step(params: GATv2, opt_state: dict, t: int, features, src, dst,
+             labels, num_seeds: int, edge_tiles=None):
+        if device_gather:
+            feat_table, node_ids = features
+            features = gather_rows_clip(feat_table, node_ids)
+        leaves = optim.param_leaves(params)
+        loss, acc = loss_fn(
+            params, features, src, dst, labels, model_config,
+            impl=train_config.impl, num_valid=num_seeds,
+            edge_tiles=edge_tiles,
+        )
+        grads = torch.autograd.grad(loss, leaves)
+        optim.apply_updates(leaves, list(grads), opt_state, t, train_config)
+        return params, opt_state, loss.detach(), acc
+
+    return step
+
+
+class MinibatchTrainer:
+    """Sampled-subgraph trainer with the reference's console contract
+    (per-epoch 'Avg Loss / Accuracy / total time' lines; loss and accuracy
+    are seed-weighted averages over the epoch's batches). `device` defaults
+    to CUDA and raises without it unless the caller asks for the CPU."""
+
+    def __init__(
+        self,
+        graph,
+        model_config: ModelConfig,
+        train_config: TrainConfig,
+        *,
+        log_fn: Callable[[str], None] = print,
+        metrics_sink: Any = None,
+        splits: Any = None,
+        device: str | torch.device = "cuda",
+    ):
+        self.graph = graph
+        self.model_config = model_config
+        self.train_config = train_config
+        self.log = log_fn
+        self.metrics_sink = metrics_sink
+        self.splits = splits
+        self.device = resolve_device(device)
+        fanouts = train_config.fanouts or tuple([10] * model_config.num_layers)
+        if len(fanouts) != model_config.num_layers:
+            raise ValueError(
+                f"--fanouts needs {model_config.num_layers} entries, got "
+                f"{len(fanouts)}")
+        seed = train_config.seed
+        if seed is None:
+            seed = int(time.time())
+        self._seed = seed
+        # with splits, only train nodes seed batches (no val/test leakage)
+        seed_nodes = (np.nonzero(splits.train)[0] if splits is not None
+                      else None)
+        self.sampler = self._make_sampler(fanouts, seed, seed_nodes)
+        self.params = init_params_for_variant(
+            model_config, torch.Generator().manual_seed(seed))
+        self.opt_state = optim.init_opt_state(self._params,
+                                              train_config.optimizer)
+        self.epoch = 0
+        self.step_count = 0
+        self._device_gather = train_config.feature_residency == "device"
+        if self._device_gather:
+            self._feat_table = torch.as_tensor(graph.features,
+                                               device=self.device)
+        self._step = make_minibatch_step(
+            model_config, train_config, device_gather=self._device_gather)
+        self._eval_samplers: dict[str, NeighborSampler] = {}
+        self._exact_eval = None
+
+    @property
+    def params(self) -> GATv2:
+        return self._params
+
+    @params.setter
+    def params(self, params: GATv2) -> None:
+        self._params = params.to(self.device)
+
+    def _make_sampler(self, fanouts, seed, seed_nodes) -> NeighborSampler:
+        tc = self.train_config
+        return NeighborSampler(
+            self.graph, tc.batch_size, fanouts, seed=seed,
+            engine=tc.sampler_engine, seed_nodes=seed_nodes,
+            emit_tiles="pallas" if tc.impl == "pallas" else False,
+            budget=tc.sample_budget,
+            gather_features=tc.feature_residency == "host",
+        )
+
+    def sync_step_count(self) -> None:
+        """After a checkpoint resume (which restores `epoch`): rebuild the
+        Adam step counter so bias correction continues, instead of
+        restarting at t=1 with warm moments."""
+        self.step_count = self.epoch * self.sampler.batches_per_epoch()
+
+    def batch_args(self, b: MiniBatch) -> tuple:
+        """(features, src, dst, labels, edge_tiles) of a batch on the
+        device, as the step takes them. impl='torch' gets the real edges
+        only (its segment ops take no padding id); 'pallas' reads its edges
+        from the tiles."""
+        dev = self.device
+        if self._device_gather:
+            feats = (self._feat_table, torch.as_tensor(b.node_ids, device=dev))
+        else:
+            feats = torch.as_tensor(b.features, device=dev)
+        src = dst = None
+        if self.train_config.impl == "torch":
+            src = torch.as_tensor(b.src[: b.num_edges], device=dev)
+            dst = torch.as_tensor(b.dst[: b.num_edges], device=dev)
+        tiles = b.tiles.to(dev) if b.tiles is not None else None
+        return feats, src, dst, torch.as_tensor(b.labels, device=dev), tiles
+
+    def train_step(self, b: MiniBatch) -> tuple[float, float]:
+        """One optimizer step on batch b. Returns (loss, accuracy)."""
+        self.step_count += 1
+        feats, src, dst, labels, tiles = self.batch_args(b)
+        _, _, loss, acc = self._step(
+            self._params, self.opt_state, self.step_count, feats, src, dst,
+            labels, b.num_seeds, tiles)
+        return float(loss), float(acc)
+
+    @torch.no_grad()
+    def evaluate(self, which: str = "test") -> float:
+        """Accuracy on a split by sampled-subgraph inference: every node of
+        the split seeds exactly one batch; accuracy is seed-weighted."""
+        if self.splits is None:
+            raise ValueError("MinibatchTrainer built without splits")
+        # one sampler per split, kept: a new one would re-run probe batches
+        sampler = self._eval_samplers.get(which)
+        if sampler is None:
+            nodes = np.nonzero(getattr(self.splits, which))[0]
+            sampler = self._eval_samplers[which] = self._make_sampler(
+                self.sampler.fanouts, self._seed + 1, nodes)
+        mc, impl = self.model_config, self.train_config.impl
+        correct, total = 0.0, 0
+        for b in prefetch(sampler, depth=2):
+            feats, src, dst, labels, tiles = self.batch_args(b)
+            if self._device_gather:
+                feats = gather_rows_clip(*feats)
+            logits = self._params(feats, src, dst, mc, impl=impl,
+                                  edge_tiles=tiles)
+            _, acc = loss_and_accuracy(logits, labels, b.num_seeds)
+            correct += float(acc) * b.num_seeds
+            total += b.num_seeds
+        return correct / max(total, 1)
+
+    @torch.no_grad()
+    def evaluate_exact(self) -> dict[str, float]:
+        """Split accuracies from ONE exact full-graph forward: every node
+        aggregates its full in-neighbourhood, the reference's evaluation
+        semantics. Deterministic, unlike the sampled evaluate(). impl
+        'pallas' runs through setup_full_graph's layout (chunked when the
+        device's budget asks for it: the forward runs K5 per chunk)."""
+        if self.splits is None:
+            raise ValueError("MinibatchTrainer built without splits")
+        if self._exact_eval is None:
+            self._exact_eval = self._setup_exact_eval()
+        feats, src, dst, et, labels, masks = self._exact_eval
+        logits = self._params(feats, src, dst, self.model_config,
+                              impl=self.train_config.impl, edge_tiles=et)
+        hit = (logits.argmax(dim=-1) == labels).float()
+        return {
+            k: float(torch.where(m, hit, 0.0).sum() / m.sum().clamp(min=1))
+            for k, m in zip(("train", "val", "test"), masks)
+        }
+
+    def _setup_exact_eval(self):
+        graph, mc, dev = self.graph, self.model_config, self.device
+        impl = self.train_config.impl
+        feats, src, dst, et = graph.features, None, None, None
+        if impl == "pallas":
+            from gatv2_tpu_torch.ops.pallas_attention import setup_full_graph
+
+            et, feats, _, _ = setup_full_graph(graph, mc.heads, mc.out_dims,
+                                               device=dev)
+            et = et.to(dev)
+        else:
+            src = torch.as_tensor(graph.src, device=dev)
+            dst = torch.as_tensor(graph.dst, device=dev)
+        n_all = feats.shape[0]
+        full = np.full(n_all, -1, np.int32)
+        full[: graph.num_nodes] = graph.labels
+
+        def padmask(m):
+            out = np.zeros(n_all, bool)
+            out[: m.shape[0]] = m
+            return torch.as_tensor(out, device=dev)
+
+        masks = tuple(padmask(m) for m in (
+            self.splits.train, self.splits.val, self.splits.test))
+        return (torch.as_tensor(feats, device=dev), src, dst, et,
+                torch.as_tensor(full, device=dev), masks)
+
+    def run(self, epochs: int | None = None) -> dict:
+        epochs = epochs if epochs is not None else self.train_config.epochs
+        last = {}
+        for _ in range(epochs):
+            self.epoch += 1
+            t0 = time.perf_counter()
+            loss_sum = correct_sum = 0.0
+            seeds_total = 0
+            for b in prefetch(self.sampler, depth=2):
+                loss, acc = self.train_step(b)
+                loss_sum += loss * b.num_seeds
+                correct_sum += acc * b.num_seeds
+                seeds_total += b.num_seeds
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            avg_loss = loss_sum / max(seeds_total, 1)
+            avg_acc = correct_sum / max(seeds_total, 1)
+            self.log(f"Epoch {self.epoch}")
+            self.log(
+                f"Avg Loss: {avg_loss:.6f}, Accuracy: {avg_acc * 100.0:.2f}%  "
+                f"total time: {dt_ms:.2f} ms"
+            )
+            last = {
+                "epoch": self.epoch, "loss": avg_loss, "accuracy": avg_acc,
+                "ms": dt_ms, "batches": self.sampler.batches_per_epoch(),
+            }
+            if self.metrics_sink is not None:
+                self.metrics_sink.write(last)
+        return last

@@ -1,6 +1,6 @@
-"""Card-only tests of the port: the CUDA kernels K1, K2 and K3 against
-their plain twins, a model forward and a training step that go through
-them. They carry the `gpu` marker and skip without a CUDA device. Run them
+"""Card-only tests of the port: the CUDA kernels K1, K2 and K3 (SELL) and
+K5, K6 and K7 (edge tiles) against their plain twins, a model forward, a
+training step and a minibatch step that go through them. They carry the `gpu` marker and skip without a CUDA device. Run them
 on the machine with the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
@@ -19,12 +19,20 @@ import torch
 from gatv2_tpu_torch.config import ModelConfig, TrainConfig
 from gatv2_tpu_torch.data.synthetic import powerlaw_graph, random_graph
 from gatv2_tpu_torch.models.gatv2 import init_params, model_forward
+from gatv2_tpu_torch.ops import pallas_attention as tpa
 from gatv2_tpu_torch.ops import sell_attention as tsa
+from gatv2_tpu_torch.ops.pallas_bwd_dst import (
+    pallas_bwd_dst,
+    pallas_bwd_dst_plain,
+)
+from gatv2_tpu_torch.ops.pallas_fwd import pallas_fwd, pallas_fwd_plain
+from gatv2_tpu_torch.ops.pallas_segsum import pallas_segsum, pallas_segsum_plain
 from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst, sell_bwd_dst_plain
 from gatv2_tpu_torch.ops.sell_fwd import TILE_N, sell_fwd, sell_fwd_plain
 from gatv2_tpu_torch.ops.sell_segsum import sell_segsum, sell_segsum_plain
 from gatv2_tpu_torch.train import optim
 from gatv2_tpu_torch.train.loop import Trainer
+from gatv2_tpu_torch.train.minibatch import MinibatchTrainer
 
 SLOPE = 0.2
 
@@ -201,3 +209,128 @@ def test_sell_training_step_matches_torch_path(cuda):
     assert abs(runs["sell"][0] - runs["torch"][0]) < 1e-5
     for p, q in zip(runs["sell"][1], runs["torch"][1]):
         torch.testing.assert_close(p, q, rtol=1e-4, atol=1e-5)
+
+
+PALLAS_CASES = [
+    ("uniform", 4, 64), ("uniform", 16, 8), ("uniform", 1, 16),
+    ("zipf-split", 2, 24), ("isolated", 4, 16), ("minibatch", 3, 16),
+    ("zero-edge", 2, 8),
+]
+
+
+def _pallas_layout(case):
+    """(EdgeTiles, row_ptr): the graphs of LAYOUT_CASES, or a sampled
+    batch's fixed-budget layout with node tiles that hold no edge."""
+    if case == "minibatch":
+        rng = np.random.default_rng(8)
+        dst = np.sort(rng.integers(0, 180, size=900)).astype(np.int32)
+        src = rng.integers(0, 290, size=900).astype(np.int32)
+        row_ptr = np.zeros(641, np.int64)
+        np.cumsum(np.bincount(dst, minlength=640), out=row_ptr[1:])
+        return tpa.prepare_edge_tiles(row_ptr, src, 640, tile_e=128,
+                                      fixed_edge_tiles=30), row_ptr
+    row_ptr, col_idx, n = _layout(case)
+    return tpa.prepare_edge_tiles(row_ptr, col_idx, n), row_ptr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,h,d", PALLAS_CASES)
+def test_k5_k6_k7_kernels_match_twins(cuda, case, h, d):
+    et_host, row_ptr = _pallas_layout(case)
+    et = et_host.to(cuda)
+    n = et.num_nodes
+    rng = np.random.default_rng(6)
+    zs, zd, g = (torch.from_numpy(rng.normal(size=(n, h * d))
+                                  .astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    a = torch.from_numpy(rng.normal(size=(h, d)).astype(np.float32)).to(cuda)
+    side = et.dst_side
+    lay = (side.ids_grp[0], side.other_grp[0], side.rel_offsets[0],
+           et.tile_e)
+    before = [k.launches for k in (pallas_fwd, pallas_bwd_dst, pallas_segsum)]
+    out, m, l = pallas_fwd(zs, zd, a, *lay, negative_slope=SLOPE)
+    torch.cuda.synchronize()
+    w_out, w_m, w_l = pallas_fwd_plain(zs, zd, a, *lay, negative_slope=SLOPE)
+    # out and l sum one term per in-edge, thousands on a hub row, which the
+    # twin adds with index_add_ in any order: held against float64
+    w64 = pallas_fwd_plain(zs.double(), zd.double(), a.double(), *lay,
+                           negative_slope=SLOPE)
+    assert _close_by_row(m, w_m)
+    assert _close_f64(out, w_out, w64[0])
+    assert _close_f64(l, w_l, w64[2])
+    no_in = torch.as_tensor(np.diff(row_ptr) == 0, device=cuda)
+    assert bool((out[:n][no_in] == 0).all())
+    assert bool((l[:n][no_in] == 0).all())
+    # K6 on the op's backward stats: sigma = m + log(l + 1e-8), r = <g, out>
+    r = (g * out[:n]).view(n, h, d).sum(-1)
+    sr = tpa.sigma_r_table(m + torch.log(l + 1e-8), r)
+    args = (zs, zd, g, sr, a, *lay)
+    dzd, da, c1 = pallas_bwd_dst(*args, negative_slope=SLOPE)
+    torch.cuda.synchronize()
+    w_dzd, w_da, w_c1 = pallas_bwd_dst_plain(*args, negative_slope=SLOPE)
+    w64 = pallas_bwd_dst_plain(*(t.double() for t in args[:5]), *lay,
+                               negative_slope=SLOPE)
+    real = side.ids_grp[0] < et.tiles_per_chunk * TILE_N
+    assert _close_by_row(c1[real], w_c1[real])
+    assert _close_f64(dzd, w_dzd, w64[0])
+    assert _close_f64(da, w_da, w64[1])
+    # K7 skips padding entries by id: NaN there must not reach dzs
+    c1[~real] = float("nan")
+    k7_args = (c1, et.gather_perm, et.src_sorted_ids, et.src_tile_offsets,
+               et.tile_e)
+    dzs = pallas_segsum(*k7_args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dzs).all())
+    assert _close_f64(dzs, pallas_segsum_plain(*k7_args),
+                      pallas_segsum_plain(c1.double(), *k7_args[1:]))
+    launched = [k.launches - b for k, b in
+                zip((pallas_fwd, pallas_bwd_dst, pallas_segsum), before)]
+    assert launched == [1, 1, 1]
+
+
+@pytest.mark.gpu
+def test_pallas_op_head_groups_match_cpu(cuda):
+    """20 heads run as two launches of <= 16 heads: the op's output and
+    gradients on the card against the op on the CPU (the twins)."""
+    et, _ = _pallas_layout("uniform")
+    n, h, d = et.num_nodes, 20, 8
+    rng = np.random.default_rng(2)
+    zs, zd, w = (rng.normal(size=(n, h * d)).astype(np.float32)
+                 for _ in range(3))
+    a = rng.normal(size=(h, d)).astype(np.float32)
+    res = []
+    for where in (cuda, torch.device("cpu")):
+        x = [torch.as_tensor(v, device=where).requires_grad_()
+             for v in (zs, zd, a)]
+        out = tpa.edge_attention_pallas(*x, n, negative_slope=SLOPE,
+                                        edge_tiles=et.to(where))
+        (out * torch.as_tensor(w, device=where)).sum().backward()
+        res.append([out.detach().cpu()] + [v.grad.cpu() for v in x])
+    assert _close_by_row(res[0][0], res[1][0])
+    for got, want in zip(res[0][1:], res[1][1:]):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.gpu
+def test_minibatch_step_matches_torch_path(cuda):
+    """Two SGD minibatch steps through K5-K7 against impl='torch' on the
+    same batches from the same weights, with the launches counted."""
+    g = random_graph(3000, 24000, 16, 4, seed=9)
+    mc = ModelConfig(num_layers=2, heads=(4, 1), out_dims=(16, 8),
+                     num_classes=g.num_classes, in_dim=g.feature_dim)
+    start = init_params(mc, torch.Generator().manual_seed(4))
+    counters = (pallas_fwd, pallas_bwd_dst, pallas_segsum)
+    losses = {}
+    for impl in ("pallas", "torch"):
+        tc = TrainConfig(epochs=1, optimizer="sgd", lr=0.5, clip=True, seed=0,
+                         batch_size=256, fanouts=(5, 5), impl=impl)
+        tr = MinibatchTrainer(g, mc, tc, log_fn=lambda _: None, device=cuda)
+        tr.params = copy.deepcopy(start)
+        batches = iter(tr.sampler)
+        before = [k.launches for k in counters]
+        losses[impl] = [tr.train_step(next(batches))[0] for _ in range(2)]
+        torch.cuda.synchronize()
+        launched = [k.launches - b for k, b in zip(counters, before)]
+        assert launched == ([4, 4, 4] if impl == "pallas" else [0, 0, 0])
+    np.testing.assert_allclose(losses["pallas"], losses["torch"], rtol=1e-5)

@@ -127,8 +127,16 @@ def test_cli_matches_jax_surface(capsys):
         assert str(te.value) == str(je.value)
     tcli.parse_args(["--streams", "bf16", "--impl", "torch"])
     assert "applies to the SELL kernels only" in capsys.readouterr().err
-    with pytest.raises(SystemExit):
-        tcli.parse_args(["--impl", "pallas"])
+    # --impl auto resolves as in the JAX package on an accelerator: pallas
+    # for minibatch training, sell full-graph; explicit pallas parses
+    for argv in (["--batch-size", "8"], ["--impl", "pallas"], []):
+        assert tcli.parse_args(argv)[1].impl == (
+            "pallas" if argv else "sell")
+    assert jcli.parse_args(["--batch-size", "8"])[1].impl == "pallas"
+    assert tcli.parse_args(["--batch-size", "8", "--device", "cpu"])[1].impl \
+        == "torch"
+    with pytest.raises(SystemExit, match="minibatch SELL"):
+        tcli.parse_args(["--impl", "sell", "--batch-size", "8"])
 
 
 def test_port_imports_no_jax():

@@ -236,10 +236,15 @@ def test_backward_raises():
 
 
 def test_pallas_impl_not_ported():
+    """impl='pallas' is ported now (tests/test_torch_pallas.py): it needs
+    its edge tiles, and an unknown impl still raises."""
     z = torch.zeros(4, 1, 2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="requires edge_tiles"):
         edge_attention(z, z, torch.zeros(1, 2), None, None, 4,
                        negative_slope=SLOPE, impl="pallas")
+    with pytest.raises(ValueError, match="unknown impl"):
+        edge_attention(z, z, torch.zeros(1, 2), None, None, 4,
+                       negative_slope=SLOPE, impl="xla")
 
 
 def test_chunk_budget_forces_chunked_layout():

@@ -43,6 +43,20 @@ LOSS_ATOL = 1e-6
 ARCH = dict(num_layers=2, heads=(2, 1), out_dims=(8, 4))
 
 
+@pytest.fixture(autouse=True)
+def _one_cpu_thread():
+    """Run the port's CPU math on one thread. With several, MKL splits a
+    GEMM's reduction by however many threads it takes under the machine's
+    load, so its rounding changes from run to run; Adam turns the rounding
+    of a gradient that is nearly 0 (layer 0's w_dst: the softmax Jacobian's
+    terms cancel) into steps of about lr, and the trajectories compared
+    below then depend on the load. One thread sums in one fixed order."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
@@ -130,7 +144,7 @@ def _trainers(dataset, impl, jax_impl, epochs, **train_kw):
     train_kw = dict(dict(epochs=epochs, optimizer="adam", lr=0.01,
                          clip=True, seed=0), **train_kw)
     jcfg = jconfig.ModelConfig(**model_kw)
-    start = jmodel.init_params_for_variant(jcfg, jax.random.PRNGKey(7))
+    start = jmodel.init_params_for_variant(jcfg, jax.random.PRNGKey(5))
     logs = {"port": [], "jax": []}
     jt = jloop.Trainer(
         jg, jcfg, jconfig.TrainConfig(impl=jax_impl, **train_kw),
@@ -300,9 +314,9 @@ def test_train_entry_point_cpu(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert "Loaded checkpoint at epoch 3" in r.stdout
     assert np.loadtxt(tmp_path / "p" / "predictions.txt").shape == (34,)
-    for flag in (["--mesh", "2"], ["--batch-size", "8"], ["--overlap"],
-                 ["--profile", str(tmp_path)], ["--debug-nans"],
-                 ["--impl", "pallas"]):
+    for flag in (["--mesh", "2"], ["--impl", "sell", "--batch-size", "8"],
+                 ["--overlap"], ["--profile", str(tmp_path)],
+                 ["--debug-nans"]):
         with pytest.raises(SystemExit, match="ROADMAP.md"):
             tmain.main([*common, *flag])
 
