@@ -8,45 +8,66 @@ Phases (any failure exits non-zero):
      power limit; no CUDA device is a failure;
   2. build every CUDA kernel from gatv2_tpu_torch/csrc (one nvcc per
      source, all at once), with nvcc's register / shared-memory report;
-  3. full-width inference, the first main path: the headline model (3
+  3. chunked full-graph training, the fourth main path, first while the
+     card's memory is free: bench.py's products-full (2,449,029 nodes,
+     61,859,140 edges, heads 2,1,1, outdims 64,32,16, random weights from a
+     seeded torch.Generator) through Trainer(impl='sell') on the chunk
+     count its default budget picks (more than 1), 3 epochs of Adam with
+     clipping; the K1/K2/K3/K4 counters zeroed just before and read just
+     after (K4 launched, K3 not); epoch time, peak memory, a profiler
+     table, one remat epoch with the same first loss; then K4 against its
+     twin and float64, and K2 without packets against K2 with them, at
+     each layer's shapes on one chunk;
+  4. full-width inference, the first main path: the headline model (3
      layers, heads 4,1,1, outdims 64,32,16, random weights from a seeded
      torch.Generator) at ogbn-arxiv scale on a uniform graph ('arxiv') and
      a Zipf(1.2) graph ('arxiv-pl'), through model_forward(impl='sell');
      K1's launch counter is zeroed just before and read just after. The
      logits must be finite and match impl='torch';
-  4. full-width training, the second main path: the port's Trainer
+  5. full-width training, the second main path: the port's Trainer
      (impl='sell', Adam, lr 0.01, clipping, 3 epochs) on both graphs from
      the same weights, K1/K2/K3 counters zeroed just before and read just
      after; the losses must be finite and match a Trainer on impl='torch';
-  5. one step's gradients: sell and the fp32 torch path, each against the
+  6. one step's gradients: sell and the fp32 torch path, each against the
      torch path in float64;
-  6. every kernel against its plain PyTorch twin on the card, at the main
+  7. every kernel against its plain PyTorch twin on the card, at the main
      paths' per-layer shapes and on extra layouts (chunked, 20 heads, bf16
      streams, isolated nodes, no edges), with each layer's kernel time
      beside its bound, the twin's time and, for K3, index_add_'s;
-  7. forward and epoch times, peak memory, profiler tables;
-  8. the entry points end to end, as subprocesses: predict on data/digits;
+  8. forward and epoch times, peak memory, profiler tables;
+  9. the entry points end to end, as subprocesses: predict on data/digits;
      train on data/karate with a checkpoint, then predict from it;
-  9. sampled-minibatch training, the third main path: the headline model at
+ 10. sampled-minibatch training, the third main path: the headline model at
      full width on bench.py's products-sub graph (500k nodes, 8M edges,
      batch 1024, fanouts 10,10,10, native sampler, device-resident
      features, Adam lr 0.01 with clipping, weights from a seeded
      torch.Generator) through MinibatchTrainer(impl='pallas'); the K5/K6/K7
      counters are zeroed just before 3 warm-up and 30 timed batches and
      read just after; then one exact full-graph evaluation (K5 per chunk);
- 10. its correctness on the card: the first sampled batches through
+ 11. its correctness on the card: the first sampled batches through
      impl='pallas' and impl='torch' from the same weights (losses), one
      batch's gradients against float64, K5/K6/K7 against their twins at
      every layer's shapes (padding packets poisoned with NaN before K7) and
      on extra layouts (20 heads, a hub beside isolated nodes, a batch with
      empty node tiles, no edges), and full-graph Trainer(impl='pallas') on
      'arxiv' and 'arxiv-pl' against the torch path;
- 11. its times: device step, host sample + tile, the pipeline ratio of
+ 12. chunk invariance: 'arxiv' and 'arxiv-pl' on a forced 3-chunk layout,
+     sell (K1, K2, K4) and pallas (K5, K6, K8) Trainers against the torch
+     path's losses, one step's gradients against float64; both ops'
+     gradients on chunked extra layouts (20 heads, split hubs beside
+     isolated nodes, chunks without an edge, no edges, bf16 streams)
+     against the twins and float64;
+ 13. its times: device step, host sample + tile, the pipeline ratio of
      tools/bench_minibatch.py, each kernel beside its bound, its twin and,
      for K7, index_add_; a profiler table; peak memory; and the minibatch
      entry point (train --batch-size on karate, then predict --impl pallas
      from its checkpoint);
- 12. one JSON line listing every kernel, the nvidia-smi line, then the
+ 14. products-sub full-graph Trainer(impl='pallas') on the chunk count its
+     default budget picks, the K5-K8 counters zeroed just before and read
+     just after (K8 launched, K7 not), against a sell Trainer from the same
+     weights; then K8 against its twin and float64, and K6 without packets
+     against K6 with them, at each layer's shapes on one chunk;
+ 15. one JSON line listing every kernel, the nvidia-smi line, then the
      result line {"ok": true, "device": {...}}.
 
 Every time is measured with CUDA events and printed with the card's name
@@ -56,7 +77,9 @@ and power limit.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
+import dataclasses
 import json
 import os
 import pathlib
@@ -80,9 +103,14 @@ from gatv2_tpu_torch.models.params_io import save_params_txt
 from gatv2_tpu_torch.ops import build
 from gatv2_tpu_torch.ops import pallas_attention as tpa
 from gatv2_tpu_torch.ops.attention import edge_attention
+from gatv2_tpu_torch.ops import sell_attention as tsa
 from gatv2_tpu_torch.ops.pallas_bwd_dst import (
     pallas_bwd_dst,
     pallas_bwd_dst_plain,
+)
+from gatv2_tpu_torch.ops.pallas_bwd_src import (
+    pallas_bwd_src,
+    pallas_bwd_src_plain,
 )
 from gatv2_tpu_torch.ops.pallas_fwd import pallas_fwd, pallas_fwd_plain
 from gatv2_tpu_torch.ops.pallas_segsum import pallas_segsum, pallas_segsum_plain
@@ -94,6 +122,7 @@ from gatv2_tpu_torch.ops.sell_attention import (
     setup_full_graph_sell,
 )
 from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst, sell_bwd_dst_plain
+from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src, sell_bwd_src_plain
 from gatv2_tpu_torch.ops.sell_fwd import sell_fwd, sell_fwd_plain
 from gatv2_tpu_torch.ops.sell_segsum import sell_segsum, sell_segsum_plain
 from gatv2_tpu_torch.train import optim
@@ -177,6 +206,29 @@ K7_OPS_PER_FEATURE = K3_OPS_PER_FEATURE
 SELL_KERNELS = ("sell_fwd", "sell_bwd_dst", "sell_segsum")
 PALLAS_KERNELS = ("pallas_fwd", "pallas_bwd_dst", "pallas_segsum")
 
+# bench.py's 'products-full' config: random_graph(2449029, 61859140, 100, 47)
+# with heads 2,1,1 and outdims 64,32,16, trained full-graph; the default
+# chunk budget (a quarter of free device memory) chunks its layout
+PRODUCTS_FULL = dict(num_nodes=2_449_029, num_edges=61_859_140,
+                     feature_dim=100, num_classes=47, seed=0)
+PF_HEADS, PF_OUTDIMS = (2, 1, 1), (64, 32, 16)
+# the chunked backward's kernels: K2 per dst chunk without packets, K4 per
+# src chunk (SELL); K6 and K8 (edge tiles)
+CHUNKED_SELL_KERNELS = ("sell_fwd", "sell_bwd_dst", "sell_bwd_src")
+CHUNKED_PALLAS_KERNELS = ("pallas_fwd", "pallas_bwd_dst", "pallas_bwd_src")
+# the chunk count the chunk-invariance phase forces on arxiv / arxiv-pl
+FORCED_CHUNKS = 3
+# K4 and K8, per feature per real edge: add zd, LeakyReLU (compare +
+# multiply), multiply by a and the score sum's add, g*zs and the dalpha
+# sum's add, ds (two multiplies), c1 = alpha*g + ds (a multiply and an add)
+# and dzs's add; the per-head exp and de are D times rarer and not counted
+K4_OPS_PER_FEATURE = 12
+K8_OPS_PER_FEATURE = K4_OPS_PER_FEATURE
+# a remat epoch's loss against the same epoch without remat: the forward is
+# the same computation, so only a different GEMM or reduction order could
+# move it
+REMAT_RTOL = 1e-6
+
 KERNELS = {
     "sell_fwd": dict(
         fn=sell_fwd, route="cuda", source="gatv2_tpu_torch/csrc/sell_fwd.cu",
@@ -206,6 +258,16 @@ KERNELS = {
         fn=pallas_segsum, route="cuda",
         source="gatv2_tpu_torch/csrc/pallas_segsum.cu",
         replaces="gatv2_tpu/ops/pallas_attention.py:1150",
+    ),
+    "sell_bwd_src": dict(
+        fn=sell_bwd_src, route="cuda",
+        source="gatv2_tpu_torch/csrc/sell_bwd_src.cu",
+        replaces="gatv2_tpu/ops/sell_attention.py:1173",
+    ),
+    "pallas_bwd_src": dict(
+        fn=pallas_bwd_src, route="cuda",
+        source="gatv2_tpu_torch/csrc/pallas_bwd_src.cu",
+        replaces="gatv2_tpu/ops/pallas_attention.py:1254",
     ),
 }
 
@@ -676,11 +738,17 @@ def param_names(model):
     return names + ["w_o"]
 
 
-def phase_gradients(model, config, runs, dev):
-    """One step's gradients of the loss: sell (K1-K3) and the fp32 torch
-    path, each against the torch path in float64, per parameter."""
+def phase_gradients(model, config, runs, dev, paths=None):
+    """One step's gradients of the loss: each path (by default sell, K1-K3;
+    paths(r) maps a label to (impl, tiles, features, labels, num_valid))
+    and the fp32 torch path, each against the torch path in float64, per
+    parameter."""
     model64 = copy.deepcopy(model).double()
     names = param_names(model)
+    if paths is None:
+        def paths(r):
+            return {"sell": ("sell", r["st"], r["feats"], r["labels"],
+                             r["num_valid"])}
 
     def grads(m, feats, src, dst, labels, impl, st=None, num_valid=None):
         loss, _ = loss_fn(m, feats, src, dst, labels, config, impl=impl,
@@ -690,23 +758,26 @@ def phase_gradients(model, config, runs, dev):
     for name, r in runs.items():
         n = r["graph"].num_nodes
         labels = r["labels"][:n]
-        g_sell = grads(model, r["feats"], None, None, r["labels"], "sell",
-                       r["st"], r["num_valid"])
+        got = {label: grads(model, feats, None, None, lab, impl, tiles, nv)
+               for label, (impl, tiles, feats, lab, nv) in paths(r).items()}
         g_torch = grads(model, r["feats"][:n], r["src"], r["dst"], labels,
                         "torch")
         g64 = grads(model64, r["feats"][:n].double(), r["src"], r["dst"],
                     labels, "torch")
         print(f"{name} gradients, max |error| vs the float64 torch path / "
               f"the parameter's largest |gradient|:")
-        for pname, a, b, c in zip(names, g_sell, g_torch, g64):
-            scale = float(c.abs().max()) or 1.0
-            e_sell = float((a.double() - c).abs().max()) / scale
-            e_torch = float((b.double() - c).abs().max()) / scale
-            ok = e_sell <= max(GRAD_FACTOR * e_torch, GRAD_FLOOR)
-            print(f"  {pname:12s} sell {e_sell:.3e}  torch {e_torch:.3e}  "
-                  f"{'ok' if ok else 'TOO FAR'}")
+        for i, pname in enumerate(names):
+            scale = float(g64[i].abs().max()) or 1.0
+            e_torch = float((g_torch[i].double() - g64[i]).abs().max()) / scale
+            errs = {label: float((g[i].double() - g64[i]).abs().max()) / scale
+                    for label, g in got.items()}
+            ok = all(e <= max(GRAD_FACTOR * e_torch, GRAD_FLOOR)
+                     for e in errs.values())
+            print(f"  {pname:12s} " + "  ".join(
+                f"{label} {e:.3e}" for label, e in errs.items())
+                + f"  torch {e_torch:.3e}  {'ok' if ok else 'TOO FAR'}")
             if not ok:
-                fail(f"{name}: sell gradient of {pname} is more than "
+                fail(f"{name}: a gradient of {pname} ({errs}) is more than "
                      f"{GRAD_FACTOR:g}x the torch path's distance (or "
                      f"{GRAD_FLOOR:g}) from float64")
 
@@ -1539,10 +1610,542 @@ def phase_minibatch_entry():
                  "or wrote no predictions")
 
 
+# ---------------------------------------------------------------------------
+# the fourth main path: chunked full-graph training through K4 and K8
+# ---------------------------------------------------------------------------
+
+
+def chunk_rows(side, spc, chunk):
+    """The perm rows of one chunk of a SELL side."""
+    return side.perm[chunk * spc * TILE_N: (chunk + 1) * spc * TILE_N]
+
+
+def k4_bound_ms(st, chunk, hd, heads):
+    """(bound_ms, bound_by, real edges) of one K4 launch on src chunk
+    `chunk` of the SELL layout st (on the card): the zs rows of the chunk's
+    sources with an edge, the zd and g rows and sigma, r of the destinations
+    its edges reach, each read once; the perm rows, the ids of real slots,
+    the column counts and offsets, a; the dzs rows written."""
+    side = st.srcs
+    cnt, rel = side.cnt_grp[chunk].long(), side.rel_off[chunk].long()
+    real = real_slots(side.cnt_grp[chunk])
+    e = int(real.sum())
+    n_dst = int(torch.unique(side.ids_grp[chunk][real]).numel())
+    widths = rel[1:] - rel[:-1]
+    first = cnt[rel[:-1].clamp(max=cnt.numel() - 1)]
+    row_used = (torch.where(widths > 0, first, 0)[:, None]
+                > torch.arange(TILE_N, device=cnt.device)).reshape(-1)
+    perm = chunk_rows(side, st.spc_src, chunk)
+    n_src = int(torch.unique(perm[row_used]).numel())
+    rows = perm.numel()
+    nbytes = 4 * (n_src * hd + 2 * n_dst * hd + 2 * n_dst * heads + e + rows
+                  + cnt.numel() + rel.numel() + hd + rows * hd)
+    return (*_bound(nbytes, e * hd * K4_OPS_PER_FEATURE), e)
+
+
+def k8_bound_ms(et, chunk, hd, heads):
+    """(bound_ms, bound_by, real edges) of one K8 launch on src chunk
+    `chunk` of the edge tiles et (on the card): the zs rows of the chunk's
+    sources with an edge, the zd and g rows and sigma, r of the destinations
+    its edges reach, each read once; each real edge's two ids, the tile
+    offsets, a; the dzs rows written."""
+    side = et.src_side
+    rows = et.padded_src_nodes // et.num_chunks
+    real = side.ids_grp[chunk] < rows
+    e = int(real.sum())
+    n_src = int(torch.unique(side.ids_grp[chunk][real]).numel())
+    n_dst = int(torch.unique(side.other_grp[chunk][real]).numel())
+    nbytes = 4 * (n_src * hd + 2 * n_dst * hd + 2 * n_dst * heads + 2 * e
+                  + side.rel_offsets[chunk].numel() + hd + rows * hd)
+    return (*_bound(nbytes, e * hd * K8_OPS_PER_FEATURE), e)
+
+
+def phase_products_full(dev, card):
+    """Drive the chunked main path: full-graph training of bench.py's
+    products-full (61.9 M edges, heads 2,1,1, outdims 64,32,16, weights
+    from torch.Generator seed 0) through Trainer(impl='sell') with its own
+    default chunk budget, TRAIN_EPOCHS epochs of Adam with clipping, the
+    K1-K4 counters zeroed just before and read just after; then its epoch
+    time, peak memory, a profiler table, and one epoch with remat=True
+    from the same start."""
+    t0 = time.perf_counter()
+    g = random_graph(**PRODUCTS_FULL)
+    t1 = time.perf_counter()
+    config = ModelConfig(
+        num_layers=3, heads=PF_HEADS, out_dims=PF_OUTDIMS,
+        num_classes=PRODUCTS_FULL["num_classes"],
+        in_dim=PRODUCTS_FULL["feature_dim"],
+    )
+    start = init_params(config, torch.Generator().manual_seed(0))
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    tr = make_trainer(g, config, "sell", start, dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    st = tr.edge_tiles
+    print(f"products-full: N={g.num_nodes} E={g.num_edges} "
+          f"F={g.feature_dim} C={g.num_classes}, heads {list(PF_HEADS)}, "
+          f"outdims {list(PF_OUTDIMS)}; free device memory "
+          f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB, chunk budget "
+          f"{free // 4 / 1e9:.2f} GB -> num_chunks={st.num_chunks} "
+          f"(slices per chunk dst {st.spc_dst}, src {st.spc_src}); "
+          f"e_ell={st.e_ell} e2_ell={st.e2_ell} pad={st.pad_overhead:.4f} "
+          f"split dst/src={st.dst.split}/{st.srcs.split}; graph "
+          f"{t1 - t0:.2f} s, Trainer set-up (host layout and copies) "
+          f"{t2 - t1:.2f} s [{card}]")
+    if st.num_chunks == 1:
+        fail("products-full: the default chunk budget chose 1 chunk; the "
+             "phase exists to run the chunked backward (K4)")
+    torch.cuda.synchronize()
+    zero_counters()
+    tr.run()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    losses = list(tr.metrics_sink.losses)
+    print(f"products-full main path launches ({TRAIN_EPOCHS} epochs): "
+          f"{launches}; losses {losses}")
+    for name in CHUNKED_SELL_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the products-full main "
+                 f"path")
+    if launches["sell_segsum"] != 0:
+        fail("K3 (the packet sum) ran on a chunked layout")
+    if not all(np.isfinite(losses)):
+        fail(f"products-full losses are not finite: {losses}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    tr.step()
+    peak = torch.cuda.max_memory_allocated(dev)
+    epoch_ms = cuda_ms(tr.step, reps=3, warmup=0)
+    print(f"products-full training epoch: sell {epoch_ms:.3f} ms on "
+          f"{st.num_chunks} chunks (peak memory {peak / 2**30:.2f} GiB, "
+          f"{(peak - base) / 2**30:.2f} GiB above the resident "
+          f"{base / 2**30:.2f} GiB) [{card}]")
+    profile_fn(tr.step, "products-full sell training step", epoch_ms, card,
+               reps=2)
+
+    # one epoch with remat=True from the same start: the same first loss
+    tr.params = copy.deepcopy(start)
+    tr.opt_state = optim.init_opt_state(tr.params, "adam")
+    tr.epoch = 0
+    tr.model_config = dataclasses.replace(config, remat=True)
+    tr.metrics_sink = LossSink()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr.run(1)
+    remat_peak = torch.cuda.max_memory_allocated(dev)
+    tr.model_config = config
+    remat_loss = tr.metrics_sink.losses[0]
+    rel = abs(remat_loss - losses[0]) / abs(losses[0])
+    print(f"products-full remat epoch: loss {remat_loss!r} against epoch 1's "
+          f"{losses[0]!r}, relative difference {rel:.3e} (tolerance "
+          f"{REMAT_RTOL:g}); peak memory {remat_peak / 2**30:.2f} GiB "
+          f"[{card}]")
+    if rel > REMAT_RTOL:
+        fail("products-full: the remat epoch's loss differs from epoch 1's")
+    return dict(graph=g, config=config, start=start, trainer=tr,
+                launches=launches)
+
+
+def phase_k4_at_products_full(pf, card):
+    """K4 against its twin and float64, and K2 on a dst chunk without
+    packets against its launch with them, its twin and float64, at each
+    products-full layer's shapes on chunk 0 (the layer's projections from
+    the start weights, sigma from its chunked forward, a seeded random
+    upstream gradient); each layer's K4 time beside its bound and its
+    twin's."""
+    tr, config = pf["trainer"], pf["config"]
+    st = tr.edge_tiles
+    model = copy.deepcopy(pf["start"]).to(st.srcs.perm.device)
+    gen = torch.Generator(device=st.srcs.perm.device).manual_seed(4)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0)
+    max_err = 0.0
+    lay_s = (chunk_rows(st.srcs, st.spc_src, 0), st.srcs.ids_grp[0],
+             st.srcs.cnt_grp[0], st.srcs.rel_off[0])
+    lay_d = (chunk_rows(st.dst, st.spc_dst, 0), st.dst.ids_grp[0],
+             st.dst.cnt_grp[0], st.dst.rel_off[0])
+    kw = dict(negative_slope=SLOPE)
+    with torch.no_grad():
+        x = tr.features
+        for l, layer in enumerate(model.layers):
+            zs, zd = layer.project(x, config.precision)
+            a = layer.a.detach().contiguous()
+            heads, hd = a.shape[0], zs.shape[1]
+            out, sigma = sell_forward(zs, zd, a, x.shape[0],
+                                      negative_slope=SLOPE, sell_tiles=st)
+            gout = torch.randn(x.shape[0], hd, generator=gen,
+                               device=x.device)
+            rr = (gout * out).view(-1, heads, hd // heads).sum(-1)
+            del out
+            tables = (zs, zd, gout, sigma, rr, a)
+            tag = f"products-full layer {l} chunk 0"
+            dzs = sell_bwd_src(*tables, *lay_s, **kw)
+            w_dzs = sell_bwd_src_plain(*tables, *lay_s, **kw)
+            w64 = sell_bwd_src_plain(*(t.double() for t in tables), *lay_s,
+                                     **kw)
+            max_err = max(max_err, compare_f64(
+                f"{tag} K4 dzs [{tuple(dzs.shape)}]", dzs, w_dzs, w64))
+            del w_dzs, w64
+            # K2 without packets: the same dzd and d_a as with them
+            dzd, da, c1 = sell_bwd_dst(*tables, *lay_d, **kw)
+            del c1
+            dzd0, da0, none = sell_bwd_dst(*tables, *lay_d, emit_c1=False,
+                                           **kw)
+            same = none is None and torch.equal(dzd0, dzd) and \
+                torch.equal(da0, da)
+            print(f"  {tag} K2 emit_c1=False: dzd and d_a "
+                  f"{'equal to' if same else 'DIFFER FROM'} the "
+                  f"emit_c1=True launch")
+            if not same:
+                fail(f"{tag}: K2 without packets differs from K2 with them")
+            w_dzd, w_da, _ = sell_bwd_dst_plain(*tables, *lay_d,
+                                                emit_c1=False, **kw)
+            w64 = sell_bwd_dst_plain(*(t.double() for t in tables), *lay_d,
+                                     emit_c1=False, **kw)
+            compare_f64(f"{tag} K2 dzd without packets", dzd0, w_dzd, w64[0])
+            compare_f64(f"{tag} K2 d_a without packets", da0, w_da, w64[1])
+            del w_dzd, w64, dzd, dzd0
+            ms = cuda_ms(lambda: sell_bwd_src(*tables, *lay_s, **kw))
+            plain_ms = cuda_ms(
+                lambda: sell_bwd_src_plain(*tables, *lay_s, **kw),
+                reps=2, warmup=1)
+            bound, by, e = k4_bound_ms(st, 0, hd, heads)
+            print(f"  {tag} H*D={hd}, {e} real edges: sell_bwd_src {ms:.4f} "
+                  f"ms, bound {bound:.4f} ms ({by}), twin {plain_ms:.3f} ms, "
+                  f"library none [{card}]")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bound_ms"] += bound
+            tot["bytes_ms"] += bound if by == "bytes" else 0.0
+            del dzs, tables, zs, zd, gout
+            x = layer(x, None, None, is_last=l == len(model.layers) - 1,
+                      config=config, impl="sell", edge_tiles=st)
+    print(f"  products-full sell_bwd_src, chunk 0 of each layer: "
+          f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, twin "
+          f"{tot['plain_ms']:.3f} ms [{card}]")
+    return max_err, tot
+
+
+@contextlib.contextmanager
+def forced_chunks(module, suggest, chunks):
+    """Within the block, `module`'s default chunk budget is the smallest
+    budget for which suggest(budget) (its chunk policy, non-increasing in
+    the budget) picks `chunks` chunks, so a Trainer built there lays its
+    graph out in that many chunks."""
+    lo, hi = 1, 1 << 45
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if suggest(mid) > chunks:
+            lo = mid + 1
+        else:
+            hi = mid
+    if suggest(lo) != chunks:
+        fail(f"no chunk budget gives {chunks} chunks")
+    saved = module.default_chunk_budget
+    module.default_chunk_budget = lambda device, num_edges=0: lo
+    try:
+        yield lo
+    finally:
+        module.default_chunk_budget = saved
+
+
+def phase_chunk_invariance(model, config, runs, dev, card):
+    """arxiv and arxiv-pl on a forced FORCED_CHUNKS-chunk layout: sell (K1,
+    K2, K4) and pallas (K5, K6, K8) Trainers, TRAIN_EPOCHS epochs from the
+    training phase's weights, against the torch path's losses; then one
+    step's gradients of both against float64."""
+    max_hd = max(-(-h * d // 128) * 128 for h, d in zip(HEADS, OUTDIMS))
+    for name, r in runs.items():
+        g = r["graph"]
+        policies = {
+            "sell": (tsa, lambda b: tsa.suggest_chunks_for_graph(
+                g.row_ptr, g.col_idx, g.num_nodes, HEADS, OUTDIMS,
+                budget_bytes=b)),
+            "pallas": (tpa, lambda b: tpa.suggest_num_chunks(
+                g.num_edges, max_hd, budget_bytes=b)),
+        }
+        paths = {}
+        for impl, (module, suggest) in policies.items():
+            with forced_chunks(module, suggest, FORCED_CHUNKS) as budget:
+                tr = make_trainer(g, config, impl, model, dev)
+            tiles = tr.edge_tiles
+            if tiles.num_chunks != FORCED_CHUNKS:
+                fail(f"{name} {impl}: {tiles.num_chunks} chunks, want "
+                     f"{FORCED_CHUNKS}")
+            torch.cuda.synchronize()
+            before = read_counters()
+            tr.run()
+            torch.cuda.synchronize()
+            after = read_counters()
+            counts = {k: after[k] - before[k] for k in KERNELS
+                      if after[k] != before[k]}
+            got = tr.metrics_sink.losses
+            want = r["torch_trainer"].metrics_sink.losses
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+            epoch_ms = cuda_ms(tr.step, reps=3, warmup=1)
+            print(f"{name} {impl} on {FORCED_CHUNKS} chunks (budget {budget} "
+                  f"bytes): launches {counts}; losses {got}, torch {want}, "
+                  f"max relative difference {rel:.3e} (tolerance "
+                  f"{LOSS_RTOL:g}); epoch {epoch_ms:.3f} ms [{card}]")
+            kernels = (CHUNKED_SELL_KERNELS if impl == "sell"
+                       else CHUNKED_PALLAS_KERNELS)
+            if any(counts.get(k, 0) == 0 for k in kernels):
+                fail(f"{name} {impl}: the chunked path launched "
+                     f"{counts}, not all of {kernels}")
+            if not all(np.isfinite(got)) or rel > LOSS_RTOL:
+                fail(f"{name} {impl}: chunked losses disagree with the torch "
+                     f"path")
+            paths[f"{impl} {FORCED_CHUNKS} chunks"] = (
+                impl, tiles, tr.features, tr.labels, tr.num_valid)
+            del tr
+        r["chunked_paths"] = paths
+    phase_gradients(model, config, runs, dev,
+                    paths=lambda r: r["chunked_paths"])
+    for r in runs.values():
+        del r["chunked_paths"]
+
+
+def _hubs_and_isolated():
+    """_hub_and_isolated's graph (node 0 an in-hub of 1,500 edges, nodes
+    1..500 without an in-edge) with node 1 an out-hub of 600 edges: both
+    SELL sides split rows."""
+    gr = _hub_and_isolated()
+    col = gr.col_idx.copy()
+    col[:600] = 1
+    return Graph(gr.features, gr.row_ptr, col, gr.labels)
+
+
+def _edges_among_first(n=1000, k=100, e=3000):
+    """Edges only among nodes 0..k-1 of n: on 3 chunks two chunks of each
+    side hold no edge."""
+    rng = np.random.default_rng(13)
+    dst = np.sort(rng.integers(0, k, size=e))
+    row_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n), out=row_ptr[1:])
+    return Graph(rng.standard_normal((n, 8)).astype(np.float32), row_ptr,
+                 rng.integers(0, k, size=e).astype(np.int32),
+                 rng.integers(0, 3, size=n))
+
+
+def phase_chunked_cases(dev):
+    """Chunked layouts the main paths do not reach: 20 heads (two head
+    groups), split hubs beside isolated nodes, chunks without an edge, no
+    edges at all, and (SELL) bf16 streams. Both ops on FORCED_CHUNKS
+    chunks: the gradients on the card (K1/K2/K4, K5/K6/K8) and on the CPU
+    (the twins), same inputs and upstream gradient, each against the torch
+    path's gradients in float64."""
+    max_err = 0.0
+    empty = Graph(np.zeros((1000, 8), np.float32), np.zeros(1001, np.int64),
+                  np.zeros(0, np.int32), np.zeros(1000, np.int32))
+    rng = np.random.default_rng(21)
+    cases = [
+        ("H=20 (two head groups), D=32", random_graph(5_000, 40_000, 8, 3,
+                                                      seed=5), 20, 32, "f32"),
+        ("split hubs beside isolated nodes", _hubs_and_isolated(), 4, 16,
+         "f32"),
+        ("chunks without an edge", _edges_among_first(), 2, 16, "f32"),
+        ("no edges", empty, 2, 16, "f32"),
+        ("streams=bf16, power-law split", powerlaw_graph(
+            20_000, 150_000, 8, 3, seed=6, alpha=1.2), 4, 64, "bf16"),
+    ]
+    for label, gr, h, d, streams in cases:
+        n = gr.num_nodes
+        zs, zd, w = (rng.standard_normal((n, h * d), dtype=np.float32)
+                     for _ in range(3))
+        a = (rng.standard_normal((h, d), dtype=np.float32)
+             / np.sqrt(d)).astype(np.float32)
+        x64 = [torch.as_tensor(v).double() for v in (zs, zd, a)]
+        if streams == "bf16":
+            x64[:2] = [v.to(torch.bfloat16).double() for v in x64[:2]]
+        for v in x64:
+            v.requires_grad_()
+        out64 = edge_attention(
+            x64[0].view(n, h, d), x64[1].view(n, h, d), x64[2],
+            torch.as_tensor(gr.src), torch.as_tensor(gr.dst), n,
+            negative_slope=SLOPE, impl="torch")
+        (out64.reshape(n, -1) * torch.as_tensor(w).double()).sum().backward()
+        ops = {"sell": tsa.prepare_sell_tiles(gr.row_ptr, gr.col_idx, n,
+                                              num_chunks=FORCED_CHUNKS)}
+        if streams == "f32":
+            ops["pallas"] = tpa.prepare_edge_tiles(
+                gr.row_ptr, gr.col_idx, n, num_chunks=FORCED_CHUNKS)
+        for impl, lay in ops.items():
+            res = []
+            before = read_counters()
+            for where in (dev, torch.device("cpu")):
+                x = [torch.as_tensor(v, device=where).requires_grad_()
+                     for v in (zs, zd, a)]
+                if impl == "sell":
+                    out = sell_attention(*x, n, negative_slope=SLOPE,
+                                         sell_tiles=lay.to(where),
+                                         streams=streams)
+                else:
+                    out = tpa.edge_attention_pallas(
+                        *x, n, negative_slope=SLOPE, edge_tiles=lay.to(where))
+                (out * torch.as_tensor(w, device=where)).sum().backward()
+                res.append([v.grad.cpu() for v in x])
+            torch.cuda.synchronize()
+            k = "sell_bwd_src" if impl == "sell" else "pallas_bwd_src"
+            launched = read_counters()[k] - before[k]
+            if impl == "sell":
+                detail = (f"split dst/src {lay.dst.split}/{lay.srcs.split}, "
+                          f"src chunks without an edge "
+                          f"{int((lay.srcs.rel_off[:, -1] == 0).sum())}")
+            else:
+                detail = (f"src chunks without an edge "
+                          f"{int((lay.src_side.rel_offsets[:, -1] == 0).sum())}")
+            print(f"case {label}, {impl} on {lay.num_chunks} chunks "
+                  f"({detail}, H*D={h * d}, {k} launches {launched}):")
+            if launched == 0:
+                fail(f"{label} {impl}: {k} was not launched")
+            for part, kern, twin, ref in zip(("d_zs", "d_zd", "d_a"), *res,
+                                             [v.grad for v in x64]):
+                max_err = max(max_err, compare_f64(
+                    f"{label} {impl} {part}", kern, twin, ref))
+            no_in = torch.as_tensor(np.diff(gr.row_ptr) == 0)
+            if not bool((res[0][1][no_in] == 0).all()):
+                fail(f"{label} {impl}: d_zd of nodes without an in-edge is "
+                     f"not 0")
+    return max_err
+
+
+def phase_products_sub_full_graph(mb, dev, card):
+    """Full-graph Trainer(impl='pallas') on products-sub with the chunk
+    count its default budget picks (K5, K6 per dst chunk, K8 per src
+    chunk), TRAIN_EPOCHS epochs with the K5-K8 counters zeroed just before
+    and read just after; against a sell Trainer on the same graph from the
+    same weights."""
+    g, config, start = mb["graph"], mb["config"], mb["start"]
+    trainers, setup_s = {}, {}
+    for impl in ("pallas", "sell"):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        trainers[impl] = make_trainer(g, config, impl, start, dev)
+        setup_s[impl] = time.perf_counter() - t0
+    et, st = trainers["pallas"].edge_tiles, trainers["sell"].edge_tiles
+    print(f"products-sub full graph: pallas chunks={et.num_chunks} "
+          f"tile_e={et.tile_e} (set-up {setup_s['pallas']:.2f} s), sell "
+          f"chunks={st.num_chunks} (set-up {setup_s['sell']:.2f} s)")
+    if et.num_chunks == 1:
+        fail("products-sub: the default budget chose 1 chunk for pallas; "
+             "the phase exists to run K8")
+    torch.cuda.synchronize()
+    zero_counters()
+    trainers["pallas"].run()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    print(f"products-sub full-graph pallas launches ({TRAIN_EPOCHS} epochs): "
+          f"{ {k: launches[k] for k in PALLAS_KERNELS + ('pallas_bwd_src',)} }")
+    for name in CHUNKED_PALLAS_KERNELS:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the products-sub "
+                 f"full-graph pallas path")
+    if launches["pallas_segsum"] != 0:
+        fail("K7 (the packet sum) ran on a chunked layout")
+    before = read_counters()
+    trainers["sell"].run()
+    torch.cuda.synchronize()
+    sell_counts = {k: v - before[k] for k, v in read_counters().items()
+                   if v != before[k]}
+    got = trainers["pallas"].metrics_sink.losses
+    want = trainers["sell"].metrics_sink.losses
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    times = {impl: cuda_ms(tr.step, reps=3, warmup=1)
+             for impl, tr in trainers.items()}
+    print(f"products-sub full-graph losses: pallas {got}, sell {want} (sell "
+          f"launches {sell_counts}); max relative difference {rel:.3e} "
+          f"(tolerance {LOSS_RTOL:g}); epoch pallas {times['pallas']:.3f} "
+          f"ms, sell {times['sell']:.3f} ms [{card}]")
+    if not all(np.isfinite(got)) or rel > LOSS_RTOL:
+        fail("products-sub: full-graph pallas losses disagree with sell")
+    del trainers["sell"]
+    return dict(trainer=trainers["pallas"], launches=launches)
+
+
+def phase_k8_at_products_sub(mb, pfs, card):
+    """K8 against its twin and float64, and K6 on a dst chunk without
+    packets against its launch with them, at each products-sub layer's
+    shapes on chunk 0 of the full-graph layout (the layer's projections
+    from the minibatch phase's start weights, K5's stats, a seeded random
+    upstream gradient); each layer's K8 time beside its bound and its
+    twin's."""
+    tr, config = pfs["trainer"], mb["config"]
+    et = tr.edge_tiles
+    dev = et.src_side.ids_grp.device
+    model = copy.deepcopy(mb["start"]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0)
+    max_err = 0.0
+    src, dsts = et.src_side, et.dst_side
+    lay_s = (src.ids_grp[0], src.other_grp[0], src.rel_offsets[0], et.tile_e)
+    lay_d = (dsts.ids_grp[0], dsts.other_grp[0], dsts.rel_offsets[0],
+             et.tile_e)
+    kw = dict(negative_slope=SLOPE)
+    with torch.no_grad():
+        x = tr.features
+        for l, layer in enumerate(model.layers):
+            zs, zd = layer.project(x, config.precision)
+            a = layer.a.detach().contiguous()
+            heads, hd = a.shape[0], zs.shape[1]
+            out, m, l_ = tpa.pallas_forward(zs, zd, a, et, x.shape[0], SLOPE)
+            gout = torch.randn(x.shape[0], hd, generator=gen, device=dev)
+            rr = (gout * out).view(-1, heads, hd // heads).sum(-1)
+            sr = tpa.sigma_r_table(m + torch.log(l_ + 1e-8), rr)
+            del out, m, l_
+            tables = (zs, zd, gout, sr, a)
+            tag = f"products-sub full graph layer {l} chunk 0"
+            dzs = pallas_bwd_src(*tables, *lay_s, **kw)
+            w_dzs = pallas_bwd_src_plain(*tables, *lay_s, **kw)
+            w64 = pallas_bwd_src_plain(*(t.double() for t in tables), *lay_s,
+                                       **kw)
+            max_err = max(max_err, compare_f64(
+                f"{tag} K8 dzs [{tuple(dzs.shape)}]", dzs, w_dzs, w64))
+            del w_dzs, w64
+            dzd, da, c1 = pallas_bwd_dst(*tables, *lay_d, **kw)
+            del c1
+            dzd0, da0, none = pallas_bwd_dst(*tables, *lay_d, emit_c1=False,
+                                             **kw)
+            same = none is None and torch.equal(dzd0, dzd) and \
+                torch.equal(da0, da)
+            print(f"  {tag} K6 emit_c1=False: dzd and d_a "
+                  f"{'equal to' if same else 'DIFFER FROM'} the "
+                  f"emit_c1=True launch")
+            if not same:
+                fail(f"{tag}: K6 without packets differs from K6 with them")
+            del dzd, dzd0
+            ms = cuda_ms(lambda: pallas_bwd_src(*tables, *lay_s, **kw))
+            plain_ms = cuda_ms(
+                lambda: pallas_bwd_src_plain(*tables, *lay_s, **kw),
+                reps=2, warmup=1)
+            bound, by, e = k8_bound_ms(et, 0, hd, heads)
+            print(f"  {tag} H*D={hd}, {e} real edges: pallas_bwd_src "
+                  f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), twin "
+                  f"{plain_ms:.3f} ms, library none [{card}]")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["bound_ms"] += bound
+            tot["bytes_ms"] += bound if by == "bytes" else 0.0
+            del dzs, tables, zs, zd, gout
+            x = layer(x, None, None, is_last=l == len(model.layers) - 1,
+                      config=config, impl="pallas", edge_tiles=et)
+    print(f"  products-sub pallas_bwd_src, chunk 0 of each layer: "
+          f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, twin "
+          f"{tot['plain_ms']:.3f} ms [{card}]")
+    return max_err, tot
+
+
 def main() -> int:
     card = phase_device()  # the nvidia-smi name and power limit
     dev = torch.device("cuda", 0)
     phase_build()
+    # the chunked main path first, while the card's memory is free: the
+    # default chunk budget is a quarter of it
+    pf = phase_products_full(dev, card)
+    err_k4, k4_totals = phase_k4_at_products_full(pf, card)
+    pf_launches = pf["launches"]
+    del pf
+    torch.cuda.empty_cache()
     model, config, runs, infer_launches = phase_main_path(dev)
     train_launches = phase_train_main_path(model, config, runs, dev)
     phase_gradients(model, config, runs, dev)
@@ -1561,7 +2164,11 @@ def main() -> int:
     phase_minibatch_gradients(mb, dev)
     err_pallas_cases = phase_pallas_cases(dev)
     phase_pallas_full_graph(model, config, runs, dev, card)
+    phase_chunk_invariance(model, config, runs, dev, card)
+    err_chunked_cases = phase_chunked_cases(dev)
     phase_minibatch_entry()
+    pfs = phase_products_sub_full_graph(mb, dev, card)
+    err_k8, k8_totals = phase_k8_at_products_sub(mb, pfs, card)
     measured = {
         "sell_fwd": (totals["arxiv"], max(err_main, err_cases)),
         "sell_bwd_dst": (bwd_totals["arxiv"]["sell_bwd_dst"],
@@ -1572,10 +2179,16 @@ def main() -> int:
     measured.update({k: (pallas_totals[k], max(err_pallas[k],
                                                err_pallas_cases))
                      for k in PALLAS_KERNELS})
+    measured["sell_bwd_src"] = (k4_totals, max(err_k4, err_chunked_cases))
+    measured["pallas_bwd_src"] = (k8_totals, max(err_k8, err_chunked_cases))
     launches = {k: infer_launches[k] + train_launches[k]
                 for k in SELL_KERNELS}
     launches.update({k: mb["launches"][k] for k in PALLAS_KERNELS})
     launches["pallas_fwd"] += mb["exact_launches"]
+    for k in CHUNKED_SELL_KERNELS:
+        launches[k] = launches.get(k, 0) + pf_launches[k]
+    for k in CHUNKED_PALLAS_KERNELS:
+        launches[k] = launches.get(k, 0) + pfs["launches"][k]
     line = {"kernels": []}
     for name, (t, err) in measured.items():
         k = KERNELS[name]
@@ -1591,15 +2204,19 @@ def main() -> int:
             "library_ms": t.get("library_ms") or None,
         })
     print("ms / plain_ms / bound_ms / library_ms: sum over the 3 layers of "
-          "one 'arxiv' forward (K1) or backward (K2, K3), or of one "
-          "products-sub minibatch step (K5 forward, K6 and K7 backward); "
-          "launches: K1-K3 on the inference and full-graph training main "
-          f"paths (both graphs' forwards, {TRAIN_EPOCHS} training epochs on "
-          "each graph), K5-K7 on the minibatch main path "
-          f"({MB_WARMUP + MB_TIMED} batches) and, for K5, its exact "
-          "evaluation; library_ms: K1, K2, K5 and K6 have no single PyTorch "
-          "call that computes their fused function, K3's and K7's is "
-          "index_add_")
+          "one 'arxiv' forward (K1) or backward (K2, K3), of one "
+          "products-sub minibatch step (K5 forward, K6 and K7 backward), of "
+          "chunk 0 of one products-full backward (K4) or of chunk 0 of one "
+          "products-sub full-graph backward (K8); launches: K1-K3 on the "
+          "inference and full-graph training main paths (both graphs' "
+          f"forwards, {TRAIN_EPOCHS} training epochs on each graph), K5-K7 "
+          f"on the minibatch main path ({MB_WARMUP + MB_TIMED} batches) and, "
+          "for K5, its exact evaluation; K1, K2 and K4 also on the "
+          f"products-full main path ({TRAIN_EPOCHS} epochs), K5, K6 and K8 "
+          f"on products-sub full-graph pallas training ({TRAIN_EPOCHS} "
+          "epochs); library_ms: K1, K2, K4, K5, K6 and K8 have no single "
+          "PyTorch call that computes their fused function, K3's and K7's "
+          "is index_add_")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

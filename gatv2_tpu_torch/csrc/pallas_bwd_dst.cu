@@ -2,8 +2,8 @@
 // rows), for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel gatv2_tpu/ops/pallas_attention.py:_bwd_dst_kernel
-// (launched by _bwd_dst_chunk, math in _edge_backward_core) with
-// emit_c1=True, the unchunked path. It computes the same function: for
+// (launched by _bwd_dst_chunk, math in _edge_backward_core), with and without
+// emit_c1. It computes the same function: for
 // every real edge e of the destination-sorted edge tiles, with j = dst_e,
 // sigma = sr[j][h] and r = sr[j][16 + h] (the op's _sigma_r_table rows),
 //     s      = zs[src_e] + zd[j]
@@ -15,7 +15,10 @@
 //     ds     = de * a_h * (s > 0 ? 1 : slope)
 // and accumulates dzd[j] += ds (per row), d_a += de * s_act, and writes the
 // per-edge packet c1[e] = alpha * g[j] + ds, which K7 (pallas_segsum.cu)
-// sums per source row into d_zs.
+// sums per source row into d_zs. On a chunked layout (the TPU kernel's
+// emit_c1=False, one launch per chunk of node tiles) c1 is null and no
+// packet is written: K8 (pallas_bwd_src.cu) recomputes each edge's packet
+// from the source side instead. dzd and d_a are the same numbers either way.
 //
 // What bounds it on this card: memory. Each real edge reads one zs row and
 // writes one c1 row of H*D fp32 (2 KB per edge at H*D = 256), against about
@@ -118,6 +121,7 @@ pallas_bwd_dst_kernel(const float* __restrict__ zs,
   }
   float* ps = part_sc[warp];
   float* pq = part_dal[warp];
+  const bool emit = c1 != nullptr;  // uniform over the launch
 
   for (int row = blockIdx.x * kWarps + warp; row < rows;
        row += gridDim.x * kWarps) {  // warp-uniform
@@ -178,11 +182,11 @@ pallas_bwd_dst_kernel(const float* __restrict__ zs,
           __syncwarp();  // every read of ps/pq is done before the next edge
           const float alpha = expf(fminf(fmaxf(sc - sig_h, kExpClamp), 0.f));
           const float de = alpha * (dal - r_h);
-          float* c1_row = c1 + (size_t)(e0 + t) * hd;
+          float* c1_row = emit ? c1 + (size_t)(e0 + t) * hd : nullptr;
 #pragma unroll
           for (int j = 0; j < NF; ++j) {
             const int f = lane + 32 * j;
-            const float aj = __shfl_sync(kFull, alpha, src_lane[j]);
+            const float aj = emit ? __shfl_sync(kFull, alpha, src_lane[j]) : 0.f;
             const float dej = __shfl_sync(kFull, de, src_lane[j]);
             if (f < hd) {
               const float s = z[j] + zdv[j];
@@ -190,7 +194,7 @@ pallas_bwd_dst_kernel(const float* __restrict__ zs,
               const float ds = dej * av[j] * (pos ? 1.f : slope);
               dacc[j] += ds;
               da_acc[j] += dej * (pos ? s : slope * s);
-              c1_row[f] = aj * gv[j] + ds;
+              if (emit) c1_row[f] = aj * gv[j] + ds;
             }
           }
         }
@@ -237,7 +241,8 @@ extern "C" {
 
 // Launches K6 on `stream` for `rows` destination rows (a multiple of 128)
 // with `blocks` thread blocks of 8 warps; da_part holds blocks x H*D
-// partials. Returns the cudaError_t of the launch (0 on success).
+// partials. c1 may be null: then no packet is written. Returns the
+// cudaError_t of the launch (0 on success).
 int gatv2_pallas_bwd_dst(const float* zs, const float* zd, const float* g,
                          const float* sr, const float* a, const int* dst_ids,
                          const int* src_ids, const int* rel_off, int te,

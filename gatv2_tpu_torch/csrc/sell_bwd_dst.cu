@@ -2,7 +2,7 @@
 // for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel gatv2_tpu/ops/sell_attention.py:_sell_bwd_dst_kernel
-// (launched by _sell_bwd_dst) on the unchunked layout. It computes the same
+// (launched by _sell_bwd_dst), with and without emit_c1. It computes the same
 // function: for every real edge (column k, row j) of the destination-sorted
 // SELL-128 layout, with node n = perm[j] and src = gather_ids[slot],
 //     s      = zs[src] + zd[n]
@@ -14,7 +14,10 @@
 //     ds     = de * a_h * (s > 0 ? 1 : slope)
 // and accumulates dzd[j] += ds (per row), d_a += de * s_act, and writes the
 // per-edge packet c1[slot] = alpha * g[n] + ds, which K3 (sell_segsum.cu)
-// sums per source row into d_zs.
+// sums per source row into d_zs. On a chunked layout (the TPU kernel's
+// emit_c1=False, one launch per chunk of slices) c1 is null and no packet
+// is written: K4 (sell_bwd_src.cu) recomputes each edge's packet from the
+// source side instead. dzd and d_a are the same numbers either way.
 //
 // What bounds it on this card: memory. Each real edge reads one zs row and
 // writes one c1 row of H*D fp32 (2 KB per edge at H*D = 256), against about
@@ -106,6 +109,7 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
   }
   float* ps = part_sc[warp];
   float* pq = part_dal[warp];
+  const bool emit = c1 != nullptr;  // uniform over the launch
 
   for (int row = blockIdx.x * kWarps + warp; row < rows;
        row += gridDim.x * kWarps) {  // warp-uniform
@@ -169,11 +173,12 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
           __syncwarp();  // every read of ps/pq is done before the next edge
           const float alpha = expf(fminf(fmaxf(sc - sig_h, kExpClamp), 0.f));
           const float de = alpha * (dal - r_h);
-          float* c1_row = c1 + ((size_t)(c0 + k0 + t) * kTileN + r) * hd;
+          float* c1_row =
+              emit ? c1 + ((size_t)(c0 + k0 + t) * kTileN + r) * hd : nullptr;
 #pragma unroll
           for (int j = 0; j < NF; ++j) {
             const int f = lane + 32 * j;
-            const float aj = __shfl_sync(kFull, alpha, src_lane[j]);
+            const float aj = emit ? __shfl_sync(kFull, alpha, src_lane[j]) : 0.f;
             const float dej = __shfl_sync(kFull, de, src_lane[j]);
             if (f < hd) {
               const float s = z[j] + zdv[j];
@@ -181,7 +186,7 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
               const float ds = dej * av[j] * (pos ? 1.f : slope);
               dacc[j] += ds;
               da_acc[j] += dej * (pos ? s : slope * s);
-              c1_row[f] = aj * gv[j] + ds;
+              if (emit) c1_row[f] = aj * gv[j] + ds;
             }
           }
         }
@@ -230,7 +235,8 @@ extern "C" {
 
 // Launches K2 on `stream` for `rows` virtual rows (a multiple of 128) with
 // `blocks` thread blocks of 8 warps; da_part holds blocks x H*D partials.
-// Returns the cudaError_t of the launch (0 on success).
+// c1 may be null: then no packet is written. Returns the cudaError_t of the
+// launch (0 on success).
 int gatv2_sell_bwd_dst(const float* zs, const float* zd, const float* g,
                        const float* sigma, const float* r, const float* a,
                        const int* perm, const int* gather_ids, const int* cnt,

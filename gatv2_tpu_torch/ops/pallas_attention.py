@@ -13,10 +13,13 @@ batch's layout has the same shapes (`fixed_edge_tiles`,
 `edge_tiles_from_native`).
 
 The op runs K5 (ops/pallas_fwd.py) once per chunk and head group in the
-forward. Its backward (unchunked layouts) runs K6 (ops/pallas_bwd_dst.py)
+forward. On an unchunked layout its backward runs K6 (ops/pallas_bwd_dst.py)
 over the destination rows, which writes one packet per edge, and K7
-(ops/pallas_segsum.py), which sums the packets per source row; a chunked
-layout's backward needs K8, which is not ported, and raises.
+(ops/pallas_segsum.py), which sums the packets per source row. On a chunked
+one it runs K6 once per destination chunk without packets, then K8
+(ops/pallas_bwd_src.py) once per source chunk, which rebuilds each edge's
+packet from the destination side's node-order tables: no edge-space buffer
+is held.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from gatv2_tpu_torch.ops.pallas_bwd_dst import pallas_bwd_dst
+from gatv2_tpu_torch.ops.pallas_bwd_src import pallas_bwd_src
 from gatv2_tpu_torch.ops.pallas_fwd import MAX_HD, STATS_L, TILE_N, pallas_fwd
 from gatv2_tpu_torch.ops.pallas_segsum import pallas_segsum
 from gatv2_tpu_torch.ops.segment import SOFTMAX_EPS
@@ -483,53 +487,75 @@ def sigma_r_table(sigma: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return sr
 
 
+def _bwd_group(zs_g, zd_g, g_g, sr, a_g, et, negative_slope):
+    """One head group's backward kernels -> (dzs rows, dzd rows, da), rows
+    of the padded node grids. Unchunked: K6 over the dst rows with its c1
+    packets, K7 over the src rows. Chunked: K6 once per dst chunk without
+    packets, on the chunk's rows of zd, g and sr (d_a summed over the chunks
+    in order), then K8 once per src chunk on the chunk's rows of zs, which
+    rebuilds each edge's packet from zd, g and sr by global dst id."""
+    kw = dict(negative_slope=negative_slope)
+    side = et.dst_side
+    if et.num_chunks == 1:
+        dzd_rows, da, c1 = pallas_bwd_dst(
+            zs_g, zd_g, g_g, sr, a_g, side.ids_grp[0], side.other_grp[0],
+            side.rel_offsets[0], et.tile_e, **kw)
+        dzs_rows = pallas_segsum(c1, et.gather_perm, et.src_sorted_ids,
+                                 et.src_tile_offsets, et.tile_e)
+        return dzs_rows, dzd_rows, da
+    rows_c = et.tiles_per_chunk * TILE_N
+    dzd_parts, da = [], None
+    for g in range(et.num_chunks):
+        lo = g * rows_c
+        dzd_c, da_c, _ = pallas_bwd_dst(
+            zs_g, zd_g[lo:], g_g[lo:], sr[lo:], a_g, side.ids_grp[g],
+            side.other_grp[g], side.rel_offsets[g], et.tile_e,
+            emit_c1=False, **kw)
+        dzd_parts.append(dzd_c)
+        da = da_c if da is None else da + da_c
+    src = et.src_side
+    rows_cs = et.padded_src_nodes // et.num_chunks
+    dzs_parts = [
+        pallas_bwd_src(zs_g[g * rows_cs:], zd_g, g_g, sr, a_g,
+                       src.ids_grp[g], src.other_grp[g], src.rel_offsets[g],
+                       et.tile_e, **kw)
+        for g in range(et.num_chunks)
+    ]
+    return torch.cat(dzs_parts), torch.cat(dzd_parts), da
+
+
 def pallas_backward(zs2, zd2, a, out2, m, l, g2, et, negative_slope):
-    """The op's backward on the unchunked layout `et` (on g2's device):
-    flat fp32 zs2 [Ns, H*D], zd2 [Nd, H*D], out2 and the upstream gradient
-    g2 [n, H*D], the forward's m and l [n_pad, H] -> (dzs [Ns, H*D], dzd
-    [Nd, H*D], da [H, D]).
+    """The op's backward on the layout `et` (on g2's device): flat fp32 zs2
+    [Ns, H*D], zd2 [Nd, H*D], out2 and the upstream gradient g2 [n, H*D],
+    the forward's m and l [n_pad, H] -> (dzs [Ns, H*D], dzd [Nd, H*D], da
+    [H, D]).
 
     Per head group: r = <g, out> per node and head (the softmax Jacobian's
-    segment term), sigma = m + log(l + 1e-8), K6 over the dst rows (dzd,
-    d_a and the c1 packets), K7 over the src rows (dzs from the packets)."""
+    segment term), sigma = m + log(l + 1e-8), then the backward kernels
+    (_bwd_group: K6 and K7, or K6 and K8 per chunk)."""
     num_heads, head_dim = a.shape
     n = g2.shape[0]
     sigma = m + torch.log(l + SOFTMAX_EPS)
-    side = et.dst_side
     dzs, dzd, da = [], [], []
     for h0, h1 in _head_groups(num_heads, head_dim):
         lanes = slice(h0 * head_dim, h1 * head_dim)
         g_g = g2[:, lanes].contiguous()
         r = (g_g * out2[:, lanes]).view(n, h1 - h0, head_dim).sum(-1)
-        dzd_rows, da_g, c1 = pallas_bwd_dst(
+        dzs_rows, dzd_rows, da_g = _bwd_group(
             zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(), g_g,
             sigma_r_table(sigma[:, h0:h1], r), a[h0:h1].float().contiguous(),
-            side.ids_grp[0], side.other_grp[0], side.rel_offsets[0],
-            et.tile_e, negative_slope=negative_slope,
-        )
-        dzs_rows = pallas_segsum(c1, et.gather_perm, et.src_sorted_ids,
-                                 et.src_tile_offsets, et.tile_e)
-        del c1
+            et, negative_slope)
         dzd.append(dzd_rows[: zd2.shape[0]])
         dzs.append(dzs_rows[: zs2.shape[0]])
         da.append(da_g)
     return _cat(dzs, 1), _cat(dzd, 1), _cat(da, 0)
 
 
-K8_MISSING = (
-    "edge_attention_pallas has no backward on a chunked layout "
-    "(num_chunks > 1): that needs K8, gatv2_tpu/ops/pallas_attention.py:"
-    "_bwd_src_kernel, queued in ROADMAP.md (section 1, item 1, chunked "
-    "full-graph training). Raise the chunk budget (setup_full_graph("
-    "budget_bytes=...)), run inference under torch.inference_mode(), or "
-    "train with impl='torch'"
-)
-
-
 class _PallasAttention(torch.autograd.Function):
-    """Forward through K5; backward through K6 and K7. The saved tensors
-    are the fp32 flat zs/zd, a, the output and the real head lanes of the
-    softmax stats m and l, as the JAX custom VJP saves them."""
+    """Forward through K5; backward through K6 and K7 (K6 and K8 on a
+    chunked layout). The saved tensors are the fp32 flat zs/zd, a, the
+    output and the real head lanes of the softmax stats m and l, as the JAX
+    custom VJP saves them."""
 
     @staticmethod
     def forward(ctx, zs, zd, a, num_nodes, negative_slope, edge_tiles):
@@ -571,11 +597,6 @@ def edge_attention_pallas(
     compute in fp32 at every --precision tier: the JAX package's tiers
     change only its one-hot MXU products, which these kernels do not have
     (the dense projections outside the op follow the tier). Differentiable
-    on an unchunked layout; on a chunked one a call that autograd would
-    record raises (K8 is not ported)."""
-    if (edge_tiles is not None and edge_tiles.num_chunks > 1
-            and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (zs, zd, a))):
-        raise NotImplementedError(K8_MISSING)
+    in zs, zd and a on any layout, chunked or not."""
     return _PallasAttention.apply(zs, zd, a, num_nodes, negative_slope,
                                   edge_tiles)

@@ -2,25 +2,28 @@
 wrapper, its plain PyTorch twin and its ctypes binding.
 
 Replaces gatv2_tpu/ops/pallas_attention.py:_bwd_dst_kernel (launched by
-_bwd_dst_chunk, math in _edge_backward_core) with emit_c1=True, the
-unchunked path. The CUDA source is csrc/pallas_bwd_dst.cu, whose header
-note says what bounds the kernel on the card and what its design does
-about that.
+_bwd_dst_chunk, math in _edge_backward_core), with emit_c1=True on the
+unchunked layout and emit_c1=False once per chunk of a chunked one. The
+CUDA source is csrc/pallas_bwd_dst.cu, whose header note says what bounds
+the kernel on the card and what its design does about that.
 
 Both versions take the same inputs and give the same outputs:
 
   zs           [Ns, H*D] fp32 — src projections, node order
   zd, g        [>= nodes with an edge, H*D] fp32 — dst projections and the
-               upstream gradient of the op's output, node order
-  sr           [>= nodes with an edge, 32] fp32 — the _sigma_r_table rows:
+               upstream gradient of the op's output, node order from the
+               chunk's first node on
+  sr           [>= nodes with an edge, 32] fp32 — the _sigma_r_table rows
+               from the chunk's first node on:
                sigma = m + log(l + 1e-8) in lanes [0, H), r = <g, out> per
                head in lanes [16, 16 + H)
   a            [H, D] fp32, H <= 16
   dst_ids, src_ids, rel_offsets, te — the dst side's layout (as for K5)
   -> dzd [T*128, H*D] fp32 in node order,
      da [H, D] fp32,
-     c1 [Ec, H*D] fp32 packets in edge-slot order. Only the real slots are
-     defined: the kernel leaves padding slots unwritten.
+     c1 [Ec, H*D] fp32 packets in edge-slot order, or None with
+     emit_c1=False. Only the real slots are defined: the kernel leaves
+     padding slots unwritten. dzd and da do not depend on emit_c1.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def pallas_bwd_dst_plain(zs, zd, g, sr, a, dst_ids, src_ids, rel_offsets, te,
-                         *, negative_slope: float):
+                         *, negative_slope: float, emit_c1: bool = True):
     """K6's plain PyTorch twin: the per-edge algebra of _edge_backward_core
     over the real edge slots, gathers and a segment sum. Padding slots of
     c1 are zero here. Runs on any device."""
@@ -68,13 +71,15 @@ def pallas_bwd_dst_plain(zs, zd, g, sr, a, dst_ids, src_ids, rel_offsets, te,
     ds = de_rep * a.reshape(hd) * torch.where(s > 0, 1.0, negative_slope)
     dzd = segment_sum(ds, d, rows)
     da = (de_rep * s_act).sum(0).view(num_heads, head_dim)
+    if not emit_c1:
+        return dzd, da, None
     c1 = zs.new_zeros((dst_ids.numel(), hd))
     c1[pos] = alpha.repeat_interleave(head_dim, 1) * gg + ds
     return dzd, da, c1
 
 
 def pallas_bwd_dst(zs, zd, g, sr, a, dst_ids, src_ids, rel_offsets, te, *,
-                   negative_slope: float):
+                   negative_slope: float, emit_c1: bool = True):
     """K6. On CUDA tensors it launches csrc/pallas_bwd_dst.cu (building it
     at the first call) or raises; on CPU tensors it runs
     pallas_bwd_dst_plain. Returns (dzd, da, c1) as described in the module
@@ -82,7 +87,7 @@ def pallas_bwd_dst(zs, zd, g, sr, a, dst_ids, src_ids, rel_offsets, te, *,
     if zs.device.type == "cpu":
         return pallas_bwd_dst_plain(
             zs, zd, g, sr, a, dst_ids, src_ids, rel_offsets, te,
-            negative_slope=negative_slope)
+            negative_slope=negative_slope, emit_c1=emit_c1)
     if zs.device.type != "cuda":
         raise ValueError(f"pallas_bwd_dst: unsupported device {zs.device}")
     check_inputs(
@@ -111,7 +116,7 @@ def pallas_bwd_dst(zs, zd, g, sr, a, dst_ids, src_ids, rel_offsets, te, *,
     blocks = min(-(-rows // WARPS), MAX_BLOCKS)
     dzd = zs.new_empty((rows, hd))
     da_part = zs.new_empty((blocks, hd))
-    c1 = zs.new_empty((dst_ids.numel(), hd))
+    c1 = zs.new_empty((dst_ids.numel(), hd)) if emit_c1 else None
     with torch.cuda.device(zs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
@@ -119,7 +124,7 @@ def pallas_bwd_dst(zs, zd, g, sr, a, dst_ids, src_ids, rel_offsets, te, *,
             a.data_ptr(), dst_ids.data_ptr(), src_ids.data_ptr(),
             rel_offsets.data_ptr(), int(te), rows, num_heads, head_dim,
             float(negative_slope), blocks, dzd.data_ptr(), da_part.data_ptr(),
-            c1.data_ptr(), stream,
+            c1.data_ptr() if emit_c1 else None, stream,
         )
     raise_on_error(lib, err, "pallas_bwd_dst")
     pallas_bwd_dst.launches += 1

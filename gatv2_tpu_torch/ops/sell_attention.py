@@ -19,10 +19,12 @@ Padding semantics the op and its kernel keep:
   - rows with no edges output exactly 0, with m = -1e30 (finite).
 
 The forward runs K1 (ops/sell_fwd.py) once per chunk of slices and head
-group. The backward (unchunked layouts) runs K2 (ops/sell_bwd_dst.py) over
-the dst rows, which writes one packet per edge, and K3 (ops/sell_segsum.py),
-which sums the packets per src row; a chunked layout's backward needs K4,
-which is not ported, and raises.
+group. On an unchunked layout the backward runs K2 (ops/sell_bwd_dst.py)
+over the dst rows, which writes one packet per edge, and K3
+(ops/sell_segsum.py), which sums the packets per src row. On a chunked one
+it runs K2 once per dst chunk without packets, then K4 (ops/sell_bwd_src.py)
+once per src chunk, which rebuilds each edge's packet from the dst side's
+node-order tables: no edge-space buffer is held.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import torch
 
 from gatv2_tpu_torch.ops.segment import SOFTMAX_EPS, segment_max, segment_sum
 from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst
+from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src
 from gatv2_tpu_torch.ops.sell_fwd import (
     MAX_HD,
     NEG_INF,
@@ -330,11 +333,13 @@ def suggest_num_chunks_sell(
 ) -> int:
     """Chunk count so SELL edge-space temporaries stay under budget_bytes.
 
-    The live set is the training backward's: unchunked, phase 1 holds zs
-    [E, hd] + the c1 packets [E, hd] and phase 2a the permuted packets
-    [E2, hd]; chunked, the widest per-chunk set is phase 2b's [zd | g]
-    stream [E2/G, 2hd] + sr [E2/G, 128]. The forward alone holds no
-    edge-space buffer here (K1 gathers zs rows itself)."""
+    The JAX package's live-set model of the training backward, kept so
+    both packages chunk a graph alike: unchunked, phase 1 holds zs [E, hd]
+    + the c1 packets [E, hd] and phase 2a the permuted packets [E2, hd];
+    chunked, the widest per-chunk set is phase 2b's [zd | g] stream
+    [E2/G, 2hd] + sr [E2/G, 128]. The port's own chunked backward builds
+    none of those streams (K4 reads the node-order tables itself), so this
+    chunks earlier than the port's live set needs."""
     if (2 * e_ell + e2_ell) * max_hd * 4 <= budget_bytes:
         return 1
     need = max(e_ell * max_hd, e2_ell * (2 * max_hd + 128)) * 4
@@ -657,17 +662,48 @@ def _fit_rows(x, n):
     return torch.cat([x, x.new_zeros((n - x.shape[0], *x.shape[1:]))])
 
 
+def _bwd_heads(zs_g, zd_g, g_g, sigma_g, r, a_g, st, negative_slope):
+    """One head group's backward kernels -> row-space (dzs rows, dzd rows,
+    da). Unchunked: K2 over the dst rows with its c1 packets, K3 over the
+    src rows. Chunked: K2 once per dst chunk without packets (d_a summed
+    over the chunks in order), then K4 once per src chunk, which rebuilds
+    each edge's packet from the dst side's node-order tables."""
+    kw = dict(negative_slope=negative_slope)
+    tables = (zs_g, zd_g, g_g, sigma_g, r, a_g)
+    if st.num_chunks == 1:
+        dzd_rows, da, c1 = sell_bwd_dst(
+            *tables, st.dst.perm, st.dst.gather_ids, st.dst.cnt,
+            st.dst.col_off, **kw)
+        dzs_rows = sell_segsum(c1, st.ell_perm, st.srcs.cnt, st.srcs.col_off)
+        return dzs_rows, dzd_rows, da
+
+    def chunks(side, spc):
+        rows_c = spc * TILE_N
+        for g in range(st.num_chunks):
+            yield (side.perm[g * rows_c: (g + 1) * rows_c], side.ids_grp[g],
+                   side.cnt_grp[g], side.rel_off[g])
+
+    dzd_parts, da = [], None
+    for lay in chunks(st.dst, st.spc_dst):
+        dzd_c, da_c, _ = sell_bwd_dst(*tables, *lay, emit_c1=False, **kw)
+        dzd_parts.append(dzd_c)
+        da = da_c if da is None else da + da_c
+    dzs_parts = [sell_bwd_src(*tables, *lay, **kw)
+                 for lay in chunks(st.srcs, st.spc_src)]
+    return torch.cat(dzs_parts), torch.cat(dzd_parts), da
+
+
 def sell_backward(zs2, zd2, a, out2, sigma, g2, st, negative_slope):
-    """The op's backward on the unchunked layout `st` (on g2's device):
-    flat fp32 zs2 [Ns, H*D], zd2 [Nd, H*D] (the forward's rounded values),
-    out2 and the upstream gradient g2 [n, H*D], sigma [n, H], n the op's
-    num_nodes -> (dzs [Ns, H*D], dzd [Nd, H*D], da [H, D]).
+    """The op's backward on the layout `st` (on g2's device): flat fp32 zs2
+    [Ns, H*D], zd2 [Nd, H*D] (the forward's rounded values), out2 and the
+    upstream gradient g2 [n, H*D], sigma [n, H], n the op's num_nodes ->
+    (dzs [Ns, H*D], dzd [Nd, H*D], da [H, D]).
 
     Per head group: r = <g, out> per node and head (the softmax Jacobian's
-    segment term), K2 over the dst rows (dzd rows, d_a, the c1 packets), K3
-    over the src rows (dzs rows from the packets), then rows -> nodes."""
+    segment term), the backward kernels (_bwd_heads: K2 and K3, or K2 and
+    K4 per chunk), then rows -> nodes on both sides."""
     num_heads, head_dim = a.shape
-    # K2 reads g, sigma and r in zd's node space
+    # K2 and K4 read g, sigma and r in zd's node space
     nd = zd2.shape[0]
     g2, out2, sigma = (_fit_rows(x, nd) for x in (g2, out2, sigma))
     dzs, dzd, da = [], [], []
@@ -675,14 +711,11 @@ def sell_backward(zs2, zd2, a, out2, sigma, g2, st, negative_slope):
         lanes = slice(h0 * head_dim, h1 * head_dim)
         g_g = g2[:, lanes].contiguous()
         r = (g_g * out2[:, lanes]).view(nd, h1 - h0, head_dim).sum(-1)
-        dzd_rows, da_g, c1 = sell_bwd_dst(
+        dzs_rows, dzd_rows, da_g = _bwd_heads(
             zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(), g_g,
             sigma[:, h0:h1].contiguous(), r, a[h0:h1].float().contiguous(),
-            st.dst.perm, st.dst.gather_ids, st.dst.cnt, st.dst.col_off,
-            negative_slope=negative_slope,
+            st, negative_slope,
         )
-        dzs_rows = sell_segsum(c1, st.ell_perm, st.srcs.cnt, st.srcs.col_off)
-        del c1
         dzd.append(_rows_to_nodes_sum(
             dzd_rows, st.dst, st.padded_num_nodes, zd2.shape[0]))
         dzs.append(_rows_to_nodes_sum(
@@ -693,20 +726,12 @@ def sell_backward(zs2, zd2, a, out2, sigma, g2, st, negative_slope):
             torch.cat(da, 0) if len(da) > 1 else da[0])
 
 
-K4_MISSING = (
-    "sell_attention has no backward on a chunked layout (num_chunks > 1): "
-    "that needs K4, gatv2_tpu/ops/sell_attention.py:_sell_bwd_src_kernel, "
-    "queued in ROADMAP.md (section 1, item 2). Raise the chunk budget "
-    "(setup_full_graph_sell(budget_bytes=...)), run inference under "
-    "torch.inference_mode(), or train with impl='torch'"
-)
-
-
 class _SellAttention(torch.autograd.Function):
-    """Forward through K1; backward through K2 and K3. The saved tensors
-    are the forward's (rounded) zs/zd in the stream dtype, a, the output
-    and sigma, as the JAX custom VJP saves them; the gradient passes
-    straight through the bf16 rounding to the unrounded input."""
+    """Forward through K1; backward through K2 and K3 (K2 and K4 on a
+    chunked layout). The saved tensors are the forward's (rounded) zs/zd in
+    the stream dtype, a, the output and sigma, as the JAX custom VJP saves
+    them; the gradient passes straight through the bf16 rounding to the
+    unrounded input."""
 
     @staticmethod
     def forward(ctx, zs, zd, a, num_nodes, negative_slope, sell_tiles,
@@ -744,13 +769,8 @@ def sell_attention(
     streams: str = "f32",
 ) -> torch.Tensor:
     """Drop-in replacement for the 'torch' edge attention on the SELL
-    layout (see the module docstring). Returns out in the shape of zs.
-    Differentiable on an unchunked layout; on a chunked one a call that
-    autograd would record raises (K4 is not ported)."""
-    if (sell_tiles is not None and sell_tiles.num_chunks > 1
-            and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (zs, zd, a))):
-        raise NotImplementedError(K4_MISSING)
+    layout (see the module docstring). Returns out in the shape of zs;
+    differentiable in zs, zd and a on any layout, chunked or not."""
     return _SellAttention.apply(
         zs, zd, a, num_nodes, negative_slope, sell_tiles, streams
     )

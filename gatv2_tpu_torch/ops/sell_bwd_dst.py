@@ -2,9 +2,10 @@
 plain PyTorch twin and its ctypes binding.
 
 Replaces gatv2_tpu/ops/sell_attention.py:_sell_bwd_dst_kernel (launched by
-_sell_bwd_dst) with emit_c1=True, the unchunked path. The CUDA source is
-csrc/sell_bwd_dst.cu, whose header note says what bounds the kernel on the
-card and what its design does about that.
+_sell_bwd_dst), with emit_c1=True on the unchunked layout and emit_c1=False
+once per chunk of a chunked one. The CUDA source is csrc/sell_bwd_dst.cu,
+whose header note says what bounds the kernel on the card and what its
+design does about that.
 
 Both versions take the same inputs and give the same outputs, so they can
 be compared element for element:
@@ -15,11 +16,13 @@ be compared element for element:
   sigma       [Nd, H] fp32 — the forward's m + log(l + 1e-8), per node
   r           [Nd, H] fp32 — <g, out> per node and head
   a           [H, D] fp32
-  perm, gather_ids, cnt, col_off — the dst side's layout (as for K1)
+  perm, gather_ids, cnt, col_off — the dst side's layout (as for K1), or
+              one chunk's: its perm rows, ids_grp, cnt_grp and rel_off
   -> dzd [T*128, H*D] fp32 in row order,
      da [H, D] fp32,
-     c1 [Ec, H*D] fp32 packets in ELL slot order. Only the real slots are
-     defined: the kernel leaves padding slots unwritten.
+     c1 [Ec, H*D] fp32 packets in ELL slot order, or None with
+     emit_c1=False. Only the real slots are defined: the kernel leaves
+     padding slots unwritten. dzd and da do not depend on emit_c1.
 
 Node-order tables are read through perm only on rows that have an edge, and
 zs only on real slots, so the ids of padding rows and slots (the padded
@@ -44,7 +47,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def sell_bwd_dst_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
-                       col_off, *, negative_slope: float):
+                       col_off, *, negative_slope: float, emit_c1: bool = True):
     """K2's plain PyTorch twin: the masked column-by-column algebra of the
     TPU kernel, every slice at once. Padding slots keep their masked terms
     (alpha = exp(-80) on rows with edges). Runs on any device."""
@@ -54,7 +57,7 @@ def sell_bwd_dst_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
     rows = (col_off.numel() - 1) * TILE_N
     dzd = zs.new_zeros((rows, hd))
     da = zs.new_zeros(hd)
-    c1 = zs.new_zeros((ids.numel(), hd))
+    c1 = zs.new_zeros((ids.numel(), hd)) if emit_c1 else None
     widths = col_off[1:] - col_off[:-1]
     lane = torch.arange(TILE_N, device=zs.device)
     rows_idx = perm.long()
@@ -86,11 +89,16 @@ def sell_bwd_dst_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
         ds = de * a_flat * torch.where(s > 0, 1.0, negative_slope)
         dzd[rr] = dzd[rr] + ds
         da = da + (de * s_act).sum(0)
-        c1[slot] = alpha.repeat_interleave(head_dim, 1) * gg + ds
+        if emit_c1:
+            c1[slot] = alpha.repeat_interleave(head_dim, 1) * gg + ds
     return dzd, da.view(num_heads, head_dim), c1
 
 
-def _check(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off):
+def _check(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
+           kernel="sell_bwd_dst"):
+    """The checks K2's and K4's wrappers make before a launch: one device,
+    fp32 / int32, contiguous, at most 32 heads and 512 lanes, node-order
+    tables that agree, a layout whose sizes agree."""
     dev = zs.device
     for name, t, dt in (
         ("zs", zs, torch.float32), ("zd", zd, torch.float32),
@@ -101,47 +109,47 @@ def _check(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off):
     ):
         if t.device != dev:
             raise ValueError(
-                f"sell_bwd_dst: {name} is on {t.device}, zs on {dev}")
+                f"{kernel}: {name} is on {t.device}, zs on {dev}")
         if t.dtype != dt:
-            raise ValueError(f"sell_bwd_dst: {name} must be {dt}, got {t.dtype}")
+            raise ValueError(f"{kernel}: {name} must be {dt}, got {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"sell_bwd_dst: {name} must be contiguous")
+            raise ValueError(f"{kernel}: {name} must be contiguous")
     num_heads, head_dim = a.shape
     hd = num_heads * head_dim
     if hd > MAX_HD or num_heads > MAX_HEADS:
         raise ValueError(
-            f"sell_bwd_dst: H={num_heads}, H*D={hd} exceed {MAX_HEADS} heads "
+            f"{kernel}: H={num_heads}, H*D={hd} exceed {MAX_HEADS} heads "
             f"or {MAX_HD} lanes per launch; split heads (heads_per_launch)"
         )
     for name, t in (("zs", zs), ("zd", zd), ("g", g)):
         if t.dim() != 2 or t.shape[1] != hd:
             raise ValueError(
-                f"sell_bwd_dst: {name} {tuple(t.shape)} must be [N, {hd}]")
+                f"{kernel}: {name} {tuple(t.shape)} must be [N, {hd}]")
     if g.shape[0] != zd.shape[0] or sigma.shape != (zd.shape[0], num_heads) \
             or r.shape != sigma.shape:
         raise ValueError(
-            f"sell_bwd_dst: g {tuple(g.shape)}, sigma {tuple(sigma.shape)} "
+            f"{kernel}: g {tuple(g.shape)}, sigma {tuple(sigma.shape)} "
             f"and r {tuple(r.shape)} must cover zd's {zd.shape[0]} nodes "
             f"and {num_heads} heads"
         )
     rows = (col_off.numel() - 1) * TILE_N
     if perm.numel() != rows or gather_ids.numel() != cnt.numel() * TILE_N:
         raise ValueError(
-            f"sell_bwd_dst: layout sizes disagree: perm {perm.numel()} vs "
+            f"{kernel}: layout sizes disagree: perm {perm.numel()} vs "
             f"{rows} rows, gather_ids {gather_ids.numel()} vs "
             f"{cnt.numel()} columns"
         )
 
 
 def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
-                 negative_slope: float):
+                 negative_slope: float, emit_c1: bool = True):
     """K2. On CUDA tensors it launches csrc/sell_bwd_dst.cu (building it at
     the first call) or raises; on CPU tensors it runs sell_bwd_dst_plain.
     Returns (dzd, da, c1) as described in the module docstring."""
     if zs.device.type == "cpu":
         return sell_bwd_dst_plain(
             zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-            negative_slope=negative_slope,
+            negative_slope=negative_slope, emit_c1=emit_c1,
         )
     if zs.device.type != "cuda":
         raise ValueError(f"sell_bwd_dst: unsupported device {zs.device}")
@@ -150,7 +158,7 @@ def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
     hd = num_heads * head_dim
     rows = perm.numel()
     dzd = zs.new_empty((rows, hd))
-    c1 = zs.new_empty((gather_ids.numel(), hd))
+    c1 = zs.new_empty((gather_ids.numel(), hd)) if emit_c1 else None
     if rows == 0:  # a grid of zero blocks is an invalid launch
         return dzd, a.new_zeros(a.shape), c1
     from gatv2_tpu_torch.ops.build import load_library
@@ -168,7 +176,7 @@ def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
             r.data_ptr(), a.data_ptr(), perm.data_ptr(), gather_ids.data_ptr(),
             cnt.data_ptr(), col_off.data_ptr(), rows, num_heads, head_dim,
             float(negative_slope), blocks, dzd.data_ptr(), da_part.data_ptr(),
-            c1.data_ptr(), stream,
+            c1.data_ptr() if emit_c1 else None, stream,
         )
     if err != 0:
         lib.gatv2_cuda_error_string.restype = ctypes.c_char_p

@@ -2,8 +2,8 @@
 
 One optimizer step per epoch: forward, masked cross-entropy, backward
 through autograd (on impl='sell' the backward runs the SELL kernels K2 and
-K3, on impl='pallas' K6 and K7; a chunked pallas layout raises, naming K8),
-optional group-norm clipping, SGD or Adam. Each epoch prints the
+K3, or K2 and K4 on a chunked layout; on impl='pallas' K6 and K7, or K6 and
+K8), optional group-norm clipping, SGD or Adam. Each epoch prints the
 reference's console lines
 
     Epoch 1

@@ -1,7 +1,9 @@
-"""Card-only tests of the port: the CUDA kernels K1, K2 and K3 (SELL) and
-K5, K6 and K7 (edge tiles) against their plain twins, a model forward, a
-training step and a minibatch step that go through them. They carry the `gpu` marker and skip without a CUDA device. Run them
-on the machine with the card:
+"""Card-only tests of the port: the CUDA kernels K1-K4 (SELL) and K5-K8
+(edge tiles) against their plain twins, K2's and K6's launches without
+packets (chunked layouts) against their launches with them, a model
+forward, a training step and a minibatch step that go through them. They
+carry the `gpu` marker and skip without a CUDA device. Run them on the
+machine with the card:
 
     python -m pytest -m gpu tests/test_torch_gpu.py
 
@@ -25,9 +27,14 @@ from gatv2_tpu_torch.ops.pallas_bwd_dst import (
     pallas_bwd_dst,
     pallas_bwd_dst_plain,
 )
+from gatv2_tpu_torch.ops.pallas_bwd_src import (
+    pallas_bwd_src,
+    pallas_bwd_src_plain,
+)
 from gatv2_tpu_torch.ops.pallas_fwd import pallas_fwd, pallas_fwd_plain
 from gatv2_tpu_torch.ops.pallas_segsum import pallas_segsum, pallas_segsum_plain
 from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst, sell_bwd_dst_plain
+from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src, sell_bwd_src_plain
 from gatv2_tpu_torch.ops.sell_fwd import TILE_N, sell_fwd, sell_fwd_plain
 from gatv2_tpu_torch.ops.sell_segsum import sell_segsum, sell_segsum_plain
 from gatv2_tpu_torch.train import optim
@@ -334,3 +341,102 @@ def test_minibatch_step_matches_torch_path(cuda):
         launched = [k.launches - b for k, b in zip(counters, before)]
         assert launched == ([4, 4, 4] if impl == "pallas" else [0, 0, 0])
     np.testing.assert_allclose(losses["pallas"], losses["torch"], rtol=1e-5)
+
+
+CHUNKED_CASES = [
+    ("uniform", 4, 64), ("uniform", 1, 16), ("uniform", 20, 8),
+    ("zipf-split", 3, 24), ("isolated", 2, 16), ("zero-edge", 3, 24),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,h,d", CHUNKED_CASES)
+def test_k4_kernel_matches_twin_and_k2_without_packets(cuda, case, h, d):
+    """On a 3-chunk layout: K4 on every src chunk against its twin, held
+    against float64 (dzs sums packets whose terms cancel); K2 on every dst
+    chunk without packets gives dzd and d_a equal to its launch with
+    them."""
+    row_ptr, col_idx, n = _layout(case)
+    st = tsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=3).to(cuda)
+    rng = np.random.default_rng(7)
+    zs, zd, g = (torch.from_numpy(rng.normal(size=(n, h * d))
+                                  .astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    a = torch.from_numpy(rng.normal(size=(h, d)).astype(np.float32)).to(cuda)
+    out, sigma = tsa.sell_forward(zs, zd, a, n, negative_slope=SLOPE,
+                                  sell_tiles=st)
+    r = (g * out).view(n, h, d).sum(-1)
+    tables = (zs, zd, g, sigma, r, a)
+
+    def chunk(side, spc, c):
+        rows_c = spc * TILE_N
+        return (side.perm[c * rows_c: (c + 1) * rows_c], side.ids_grp[c],
+                side.cnt_grp[c], side.rel_off[c])
+
+    before = (sell_bwd_dst.launches, sell_bwd_src.launches)
+    for c in range(3):
+        lay = chunk(st.dst, st.spc_dst, c)
+        dzd, da, c1 = sell_bwd_dst(*tables, *lay, negative_slope=SLOPE)
+        dzd0, da0, none = sell_bwd_dst(*tables, *lay, negative_slope=SLOPE,
+                                       emit_c1=False)
+        torch.cuda.synchronize()
+        assert none is None and c1 is not None
+        assert torch.equal(dzd0, dzd) and torch.equal(da0, da)
+        lay = chunk(st.srcs, st.spc_src, c)
+        dzs = sell_bwd_src(*tables, *lay, negative_slope=SLOPE)
+        torch.cuda.synchronize()
+        w64 = sell_bwd_src_plain(*(t.double() for t in tables), *lay,
+                                 negative_slope=SLOPE)
+        assert _close_f64(dzs, sell_bwd_src_plain(
+            *tables, *lay, negative_slope=SLOPE), w64)
+    assert (sell_bwd_dst.launches, sell_bwd_src.launches) == (
+        before[0] + 6, before[1] + 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,h,d", [
+    ("uniform", 4, 64), ("uniform", 16, 8), ("uniform", 1, 16),
+    ("zipf-split", 2, 24), ("isolated", 4, 16), ("zero-edge", 2, 8),
+])
+def test_k8_kernel_matches_twin_and_k6_without_packets(cuda, case, h, d):
+    """On a 3-chunk edge-tile layout: K8 on every src chunk against its
+    twin, held against float64; K6 on every dst chunk without packets
+    gives dzd and d_a equal to its launch with them."""
+    row_ptr, col_idx, n = _layout(case)
+    et = tpa.prepare_edge_tiles(row_ptr, col_idx, n,
+                                num_chunks=3).to(cuda)
+    rng = np.random.default_rng(8)
+    zs, zd, g = (torch.from_numpy(rng.normal(size=(n, h * d))
+                                  .astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    a = torch.from_numpy(rng.normal(size=(h, d)).astype(np.float32)).to(cuda)
+    out, m, l = tpa.pallas_forward(zs, zd, a, et, n, SLOPE)
+    r = (g * out).view(n, h, d).sum(-1)
+    sr = tpa.sigma_r_table(m + torch.log(l + 1e-8), r)
+    before = (pallas_bwd_dst.launches, pallas_bwd_src.launches)
+    rows_c = et.tiles_per_chunk * TILE_N
+    rows_cs = et.padded_src_nodes // et.num_chunks
+    for c in range(et.num_chunks):
+        side = et.dst_side
+        lo = c * rows_c
+        args = (zs, zd[lo:], g[lo:], sr[lo:], a, side.ids_grp[c],
+                side.other_grp[c], side.rel_offsets[c], et.tile_e)
+        dzd, da, c1 = pallas_bwd_dst(*args, negative_slope=SLOPE)
+        dzd0, da0, none = pallas_bwd_dst(*args, negative_slope=SLOPE,
+                                         emit_c1=False)
+        torch.cuda.synchronize()
+        assert none is None and c1 is not None
+        assert torch.equal(dzd0, dzd) and torch.equal(da0, da)
+        side = et.src_side
+        lay = (side.ids_grp[c], side.other_grp[c], side.rel_offsets[c],
+               et.tile_e)
+        tables = (zs[c * rows_cs:], zd, g, sr, a)
+        dzs = pallas_bwd_src(*tables, *lay, negative_slope=SLOPE)
+        torch.cuda.synchronize()
+        w64 = pallas_bwd_src_plain(*(t.double() for t in tables), *lay,
+                                   negative_slope=SLOPE)
+        assert _close_f64(dzs, pallas_bwd_src_plain(
+            *tables, *lay, negative_slope=SLOPE), w64)
+    k = et.num_chunks
+    assert (pallas_bwd_dst.launches, pallas_bwd_src.launches) == (
+        before[0] + 2 * k, before[1] + k)

@@ -2,8 +2,8 @@
 CPU through the plain twins of K5, K6 and K7) against the JAX package's
 edge_attention_pallas run in interpret mode, and against the port's own
 torch path, on the same numpy inputs. Also: K5's softmax statistics against
-the JAX kernel's, the chunked forward, the K8 error under autograd, and
-impl='pallas' through the model.
+the JAX kernel's, K8's twin against the JAX kernel, the chunked forward and
+backward, and impl='pallas' through the model.
 
 Tolerances are the JAX suite's for its pallas path
 (tests/test_pallas_attention.py): forward rtol 2e-5 / atol 2e-6, gradients
@@ -27,7 +27,9 @@ from gatv2_tpu_torch.data.synthetic import powerlaw_graph, random_graph
 from gatv2_tpu_torch.models.gatv2 import init_params, model_forward
 from gatv2_tpu_torch.ops import pallas_attention as tpa
 from gatv2_tpu_torch.ops.attention import edge_attention
+from gatv2_tpu_torch.ops.pallas_bwd_src import pallas_bwd_src
 from gatv2_tpu_torch.ops.pallas_fwd import pallas_fwd
+from test_torch_sell_bwd import _few_sources
 
 SLOPE = 0.2
 FWD_TOL = dict(rtol=2e-5, atol=2e-6)
@@ -66,6 +68,13 @@ def _minibatch_shaped(max_nodes=640, budget=30):
 
 
 def _case(name):
+    """(row_ptr, col_idx, n, layout options); a '-chunked' name is the
+    same graph on 3 chunks."""
+    if name.endswith("-chunked"):
+        *csr, opts = _case(name[: -len("-chunked")])
+        return (*csr, dict(opts, num_chunks=3))
+    if name == "few-sources":
+        return (*_few_sources(), {})
     if name == "uniform":
         g = random_graph(300, 1500, 4, 3, seed=1)
         return g.row_ptr, g.col_idx, g.num_nodes, {}
@@ -78,7 +87,9 @@ def _case(name):
 
 
 CASES = [("uniform", 4, 16), ("uniform", 20, 4), ("power-law", 2, 24),
-         ("hub-isolated", 4, 8), ("minibatch", 3, 16)]
+         ("hub-isolated", 4, 8), ("minibatch", 3, 16),
+         # chunked layouts: K6 per dst chunk without packets, K8 per src chunk
+         ("power-law-chunked", 2, 24), ("uniform-chunked", 20, 4)]
 
 
 def _inputs(n, h, d, seed):
@@ -175,12 +186,81 @@ def test_forward_stats_match_jax_kernel():
     assert (l.numpy()[:n][no_in] == 0).all()
 
 
+def _jax_k8(zs, zd, g, sr, a, et, chunk):
+    """JAX's K8 (_bwd_src_chunk, interpret mode) on one src chunk, with its
+    inputs built as the JAX op's chunked backward (body2) builds them:
+    lane-padded node tables, the zd, g and sigma_r streams gathered per
+    edge by global dst id, the chunk's zs rows gathered by chunk-relative
+    src id with an appended zero row."""
+    h, d = a.shape
+    hd = 128 * -(-h * d // 128)
+    rows_cs = et.padded_src_nodes // et.num_chunks
+
+    def table(x, rows, lanes=hd):
+        return jnp.zeros((rows, lanes), jnp.float32).at[
+            : x.shape[0], : x.shape[1]].set(jnp.asarray(x))
+
+    zs_flat = table(zs, et.padded_src_nodes)
+    zd_flat, g_flat = (table(x, et.padded_num_nodes) for x in (zd, g))
+    sig_r = table(sr, et.padded_num_nodes, 128)
+    side = et.src_side
+    sids = jnp.asarray(side.ids_grp[chunk])
+    dids = jnp.asarray(side.other_grp[chunk])
+    zs_z = jnp.concatenate([zs_flat[chunk * rows_cs: (chunk + 1) * rows_cs],
+                            jnp.zeros((1, hd), jnp.float32)])
+    a_sel, r_mat, a_rep = jpa._head_matrices(jnp.asarray(a), hd)
+    dzs = jpa._bwd_src_chunk(
+        jnp.take(zs_z, jnp.minimum(sids, rows_cs), axis=0),
+        jnp.take(zd_flat, dids, axis=0), jnp.take(g_flat, dids, axis=0),
+        jnp.take(sig_r, dids, axis=0), sids[None, :],
+        jnp.asarray(side.rel_offsets[chunk]), a_sel, r_mat, a_rep,
+        rows_cs // 128, num_heads=h, negative_slope=SLOPE, te=et.tile_e,
+        precision="highest", interpret=True)
+    return np.asarray(dzs)[:, : h * d]
+
+
+@pytest.mark.parametrize("case,h,d", [
+    ("uniform", 4, 16), ("power-law", 2, 24), ("few-sources", 3, 8)])
+def test_k8_twin_matches_jax_kernel(case, h, d):
+    """K8's twin on every src chunk of a 3-chunk layout against the JAX
+    kernel: uniform degrees, power-law out-hubs, and chunks without an
+    edge (whose dzs is exactly 0)."""
+    row_ptr, col, n, _ = _case(case)
+    et = tpa.prepare_edge_tiles(row_ptr, col, n, num_chunks=3)
+    zs, zd, a, g = _inputs(n, h, d, seed=9)
+    t_et = et.to("cpu")
+    _, m, l = tpa.pallas_forward(torch.tensor(zs), torch.tensor(zd),
+                                 torch.tensor(a), t_et, n, SLOPE)
+    out = tpa.pallas_forward(torch.tensor(zs), torch.tensor(zd),
+                             torch.tensor(a), t_et, n, SLOPE)[0]
+    r = (torch.tensor(g) * out).view(n, h, d).sum(-1)
+    sr = tpa.sigma_r_table(m + torch.log(l + 1e-8), r)
+    side = t_et.src_side
+    rows_cs = et.padded_src_nodes // et.num_chunks
+    empty = 0
+    for c in range(et.num_chunks):
+        before = pallas_bwd_src.launches
+        dzs = pallas_bwd_src(
+            torch.tensor(zs)[c * rows_cs:], torch.tensor(zd), torch.tensor(g),
+            sr, torch.tensor(a), side.ids_grp[c], side.other_grp[c],
+            side.rel_offsets[c], et.tile_e, negative_slope=SLOPE).numpy()
+        assert pallas_bwd_src.launches == before  # the CPU runs the twin
+        _assert_grad_close(dzs, _jax_k8(zs, zd, g, sr.numpy(), a, et, c),
+                           f"dzs chunk {c}")
+        if not et.src_side.rel_offsets[c].any():
+            empty += 1
+            assert (dzs == 0).all()
+    assert empty < et.num_chunks and (case != "few-sources" or empty == 2)
+
+
 def test_chunked_forward_and_k8_error():
-    """A chunked layout: the forward (one K5 call per chunk) matches the JAX
-    package's chunked forward; under autograd the op raises naming K8."""
+    """A chunked layout: the forward (one K5 call per chunk) and, under
+    autograd, the gradients (K6 per dst chunk without packets, K8 per src
+    chunk) match the JAX package's chunked op; the chunked backward no
+    longer raises."""
     g = random_graph(700, 3200, 4, 3, seed=13)
     n, h, d = g.num_nodes, 2, 16
-    zs, zd, a, _ = _inputs(n, h, d, seed=5)
+    zs, zd, a, w = _inputs(n, h, d, seed=5)
     et_j = jpa.prepare_edge_tiles(g.row_ptr, g.col_idx, n, num_chunks=3)
     et_t = tpa.prepare_edge_tiles(g.row_ptr, g.col_idx, n, num_chunks=3)
     assert et_t.num_chunks == 3
@@ -192,10 +272,11 @@ def test_chunked_forward_and_k8_error():
             *(torch.tensor(x) for x in (zs, zd, a)), n,
             negative_slope=SLOPE, edge_tiles=et_t)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD_TOL)
-    x = [torch.tensor(v, requires_grad=True) for v in (zs, zd, a)]
-    with pytest.raises(NotImplementedError, match="K8"):
-        tpa.edge_attention_pallas(*x, n, negative_slope=SLOPE,
-                                  edge_tiles=et_t)
+    out, grads = _port_op(zs, zd, a, w, n, et_t)
+    j_out, j_grads = _jax_op(zs, zd, a, w, n, et_j)
+    np.testing.assert_allclose(out, j_out, **FWD_TOL)
+    for name, p, q in zip(("dzs", "dzd", "da"), grads, j_grads):
+        _assert_grad_close(p, q, name)
 
 
 def test_model_pallas_matches_torch():

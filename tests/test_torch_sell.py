@@ -217,22 +217,26 @@ def test_sell_matches_torch_path_and_sigma_is_finite():
 
 
 def test_backward_raises():
-    """The backward runs on an unchunked layout (K2 and K3; its parity with
-    JAX is tests/test_torch_sell_bwd.py) and raises on a chunked one, which
-    needs the unported K4, before any forward work is recorded."""
+    """The backward runs on an unchunked layout (K2 and K3) and on a
+    chunked one (K2 per chunk, then K4), with the same gradients: the
+    chunked backward no longer raises. Its parity with JAX is
+    tests/test_torch_sell_bwd.py."""
     g = random_graph(200, 900, 8, 3, seed=4)
-    zs, zd, a = (torch.from_numpy(x) for x in _zza(g.num_nodes, 2, 8, 5))
-    zs.requires_grad_()
-    st = tsa.prepare_sell_tiles(g.row_ptr, g.col_idx, g.num_nodes)
-    out = tsa.sell_attention(zs, zd, a, g.num_nodes, negative_slope=SLOPE,
-                             sell_tiles=st)
-    out.sum().backward()
-    assert zs.grad is not None and bool(torch.isfinite(zs.grad).all())
-    st3 = tsa.prepare_sell_tiles(g.row_ptr, g.col_idx, g.num_nodes,
-                                 num_chunks=3)
-    with pytest.raises(NotImplementedError, match="K4"):
-        tsa.sell_attention(zs, zd, a, g.num_nodes, negative_slope=SLOPE,
-                           sell_tiles=st3)
+    grads = []
+    for chunks in (1, 3):
+        zs, zd, a = (torch.from_numpy(x) for x in _zza(g.num_nodes, 2, 8, 5))
+        zs.requires_grad_()
+        a.requires_grad_()
+        st = tsa.prepare_sell_tiles(g.row_ptr, g.col_idx, g.num_nodes,
+                                    num_chunks=chunks)
+        assert st.num_chunks == chunks
+        out = tsa.sell_attention(zs, zd, a, g.num_nodes, negative_slope=SLOPE,
+                                 sell_tiles=st)
+        out.sum().backward()
+        assert bool(torch.isfinite(zs.grad).all())
+        grads.append((zs.grad, a.grad))
+    for p, q in zip(*grads):
+        np.testing.assert_allclose(p.numpy(), q.numpy(), rtol=RTOL, atol=ATOL)
 
 
 def test_pallas_impl_not_ported():

@@ -1,8 +1,9 @@
-"""The port's SELL backward against the JAX package's, on the CPU: K2's and
-K3's plain twins against the JAX kernels _sell_bwd_dst and _sell_segsum run
-in interpret mode on the same numpy inputs, and torch.autograd gradients of
-sell_attention (the twins) against jax.grad of the JAX op (interpret mode)
-and of its XLA oracle.
+"""The port's SELL backward against the JAX package's, on the CPU: K2's, K3's
+and K4's plain twins against the JAX kernels _sell_bwd_dst, _sell_segsum and
+_sell_bwd_src run in interpret mode on the same numpy inputs, and
+torch.autograd gradients of sell_attention (the twins) on unchunked and
+chunked layouts against jax.grad of the JAX op (interpret mode) and of its
+XLA oracle.
 
 Tolerances are the JAX suite's own for SELL gradients (tests/test_sell.py):
 rtol 2e-4 / atol 5e-5, and 5e-4 / 1e-4 on split layouts, whose hub rows sum
@@ -20,6 +21,7 @@ from gatv2_tpu.ops.attention import _edge_attention_xla
 from gatv2_tpu_torch.data.synthetic import random_graph
 from gatv2_tpu_torch.ops import sell_attention as tsa
 from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst
+from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src
 from gatv2_tpu_torch.ops.sell_fwd import TILE_N
 from gatv2_tpu_torch.ops.sell_segsum import sell_segsum
 from test_torch_sell import LAYOUTS, SLOPE, _zza
@@ -133,19 +135,101 @@ def test_k3_twin_matches_jax_kernel(case, hd):
     np.testing.assert_allclose(dzs.numpy(), np.asarray(want)[:, :hd], **tol)
 
 
+def _few_sources(n=1000):
+    """Edges only out of nodes 0..99: on 3 chunks one src chunk holds every
+    edge (SELL: its one wide slice; edge tiles: the first node tile) and
+    the other two hold none."""
+    rng = np.random.default_rng(3)
+    dst = np.sort(rng.integers(0, n, size=3000))
+    row_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n), out=row_ptr[1:])
+    return row_ptr, rng.integers(0, 100, size=3000).astype(np.int32), n
+
+
+K4_CASES = {
+    # case: (make, num_chunks, h, d)
+    "uniform": (LAYOUTS["chunked"][0], 3, 4, 16),
+    "zipf-split": (LAYOUTS["zipf-split-chunked"][0], 3, 2, 32),
+    "zero-edge-chunks": (_few_sources, 3, 3, 8),
+}
+
+
+def _jax_k4(zs, zd, g, sigma, r, a, st, chunk):
+    """JAX's K4 (_sell_bwd_src, interpret mode) on one src chunk, with its
+    inputs built as the JAX op's chunked backward (body2) builds them:
+    lane-padded node tables with an appended zero row, the zd, g and
+    [sigma | r] streams gathered per slot by global dst id, the chunk's
+    resident zs rows gathered through the src side's perm."""
+    h, d = a.shape
+    hd = -(-h * d // 128) * 128
+    n_pad = st.padded_num_nodes
+    zs_z = _lane_table(zs, st.padded_src_nodes, hd)
+    zd_z, g_z = (_lane_table(x, n_pad, hd) for x in (zd, g))
+    sr = np.zeros((n_pad + 1, 128), np.float32)
+    sr[: sigma.shape[0], :h] = sigma
+    sr[: r.shape[0], jsa.STATS_L : jsa.STATS_L + h] = r
+    a2, bdiag, rsig, rr, _, a_rep = jsa._sell_matrices(jnp.asarray(a), hd)
+    rows_c = st.spc_src * TILE_N
+    ids = jnp.asarray(st.srcs.ids_grp[chunk])
+    perm = jnp.asarray(st.srcs.perm[chunk * rows_c : (chunk + 1) * rows_c])
+    dzs = jsa._sell_bwd_src(
+        jnp.take(zd_z, ids, axis=0), jnp.take(g_z, ids, axis=0),
+        jnp.take(jnp.asarray(sr), ids, axis=0), jnp.take(zs_z, perm, axis=0),
+        a2, bdiag, jnp.concatenate([rsig, rr], axis=1), a_rep,
+        jnp.asarray(st.srcs.rel_off[chunk]), st.spc_src, negative_slope=SLOPE,
+        hd=hd, precision="highest", interpret=True,
+    )
+    return np.asarray(dzs)[:, : h * d]
+
+
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_k4_twin_matches_jax_kernel(case):
+    make, chunks, h, d = K4_CASES[case]
+    row_ptr, col_idx, n = make()
+    st = tsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=chunks)
+    assert st.num_chunks == chunks
+    zs, zd, a = _zza(n, h, d, 7)
+    g = np.random.default_rng(107).normal(size=zs.shape).astype(np.float32)
+    out, sigma = tsa.sell_forward(
+        *(torch.from_numpy(x) for x in (zs, zd, a)), n, negative_slope=SLOPE,
+        sell_tiles=st)
+    r = (torch.from_numpy(g) * out).view(n, h, d).sum(-1).numpy()
+    inputs = (zs, zd, g, sigma.numpy(), r, a)
+    side, rows_c = st.srcs, st.spc_src * TILE_N
+    tol = SPLIT_GRAD_TOL if side.split else GRAD_TOL
+    empty_chunks = 0
+    for c in range(chunks):
+        before = sell_bwd_src.launches
+        dzs = sell_bwd_src(
+            *(torch.from_numpy(x) for x in (
+                *inputs, side.perm[c * rows_c : (c + 1) * rows_c],
+                side.ids_grp[c], side.cnt_grp[c], side.rel_off[c])),
+            negative_slope=SLOPE,
+        ).numpy()
+        assert sell_bwd_src.launches == before  # the CPU runs the twin
+        np.testing.assert_allclose(dzs, _jax_k4(*inputs, st, c), **tol)
+        if not side.rel_off[c].any():  # a chunk without an edge: exactly 0
+            empty_chunks += 1
+            assert (dzs == 0).all()
+    assert empty_chunks == (2 if case == "zero-edge-chunks" else 0)
+
+
 def _h20_graph():
     g = random_graph(150, 600, 8, 3, seed=9)
     return g.row_ptr, g.col_idx, g.num_nodes
 
 
 GRAD_CASES = {
-    # case: (make, h, d, flat, streams)
-    "uniform": (LAYOUTS["uniform"][0], 4, 16, False, "f32"),
-    "zipf-split": (LAYOUTS["zipf-split"][0], 2, 32, True, "f32"),
-    "isolated": (LAYOUTS["isolated"][0], 2, 16, False, "f32"),
-    "zero-edge": (LAYOUTS["zero-edge"][0], 2, 8, True, "f32"),
-    "h20": (_h20_graph, 20, 8, True, "f32"),
-    "zipf-split-bf16": (LAYOUTS["zipf-split"][0], 3, 24, False, "bf16"),
+    # case: (make, h, d, flat, streams, num_chunks)
+    "uniform": (LAYOUTS["uniform"][0], 4, 16, False, "f32", 1),
+    "zipf-split": (LAYOUTS["zipf-split"][0], 2, 32, True, "f32", 1),
+    "isolated": (LAYOUTS["isolated"][0], 2, 16, False, "f32", 1),
+    "zero-edge": (LAYOUTS["zero-edge"][0], 2, 8, True, "f32", 1),
+    "h20": (_h20_graph, 20, 8, True, "f32", 1),
+    "zipf-split-bf16": (LAYOUTS["zipf-split"][0], 3, 24, False, "bf16", 1),
+    # chunked layouts: K2 per dst chunk without packets, K4 per src chunk
+    "h20-chunked": (LAYOUTS["chunked"][0], 20, 8, True, "f32", 3),
+    "chunked-bf16": (LAYOUTS["chunked"][0], 3, 24, False, "bf16", 3),
 }
 
 
@@ -159,19 +243,20 @@ def _jax_grads(fn, zs, zd, a):
 
 @pytest.mark.parametrize("case", sorted(GRAD_CASES))
 def test_sell_attention_grads_match_jax(case):
-    make, h, d, flat, streams = GRAD_CASES[case]
+    make, h, d, flat, streams, chunks = GRAD_CASES[case]
     row_ptr, col_idx, n = make()
     shape = (n, h * d) if flat else (n, h, d)
     zs, zd, a = _zza(n, h, d, 4)
     zs, zd = zs.reshape(shape), zd.reshape(shape)
-    st = tsa.prepare_sell_tiles(row_ptr, col_idx, n)
+    st = tsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=chunks)
+    assert st.num_chunks == chunks
     x = [torch.from_numpy(v).requires_grad_() for v in (zs, zd, a)]
     out = tsa.sell_attention(*x, n, negative_slope=SLOPE, sell_tiles=st,
                              streams=streams)
     torch.sin(out).sum().backward()
     got = [v.grad.numpy() for v in x]
 
-    j_st = jsa.prepare_sell_tiles(row_ptr, col_idx, n)
+    j_st = jsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=chunks)
     want_sell = _jax_grads(lambda zs_, zd_, a_: jsa.sell_attention(
         zs_, zd_, a_, None, None, n, negative_slope=SLOPE, sell_tiles=j_st,
         interpret=True, streams=streams), zs, zd, a)
@@ -197,14 +282,30 @@ def test_sell_attention_grads_match_jax(case):
 
 @pytest.mark.parametrize("case", ["chunked", "zipf-split-chunked"])
 def test_chunked_layout_backward_raises_k4(case):
+    """The backward on a chunked layout (K2 per dst chunk without packets,
+    K4 per src chunk) against the JAX op's chunked backward, and against
+    the port's own unchunked backward; inference on the chunked layout
+    still runs."""
     make, chunks = LAYOUTS[case]
     row_ptr, col_idx, n = make()
-    st = tsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=chunks)
-    zs, zd, a = (torch.from_numpy(v) for v in _zza(n, 2, 16, 5))
-    with pytest.raises(NotImplementedError, match="K4"):
-        tsa.sell_attention(zs, zd, a.requires_grad_(), n,
-                           negative_slope=SLOPE, sell_tiles=st)
-    with torch.no_grad():  # inference on a chunked layout still runs
-        out = tsa.sell_attention(zs, zd, a, n, negative_slope=SLOPE,
-                                 sell_tiles=st)
+    zs, zd, a = _zza(n, 2, 16, 5)
+    got = {}
+    for g in (1, chunks):
+        st = tsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=g)
+        x = [torch.from_numpy(v).requires_grad_() for v in (zs, zd, a)]
+        out = tsa.sell_attention(*x, n, negative_slope=SLOPE, sell_tiles=st)
+        torch.sin(out).sum().backward()
+        got[g] = [v.grad.numpy() for v in x]
+    j_st = jsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=chunks)
+    want = _jax_grads(lambda zs_, zd_, a_: jsa.sell_attention(
+        zs_, zd_, a_, None, None, n, negative_slope=SLOPE, sell_tiles=j_st,
+        interpret=True), zs, zd, a)
+    tol = SPLIT_GRAD_TOL if st.dst.split or st.srcs.split else GRAD_TOL
+    for p, q, u in zip(got[chunks], want, got[1]):
+        assert np.isfinite(p).all()
+        np.testing.assert_allclose(p, q, **tol)
+        np.testing.assert_allclose(p, u, **tol)
+    with torch.no_grad():  # inference on a chunked layout
+        out = tsa.sell_attention(*(torch.from_numpy(v) for v in (zs, zd, a)),
+                                 n, negative_slope=SLOPE, sell_tiles=st)
     assert out.shape == (n, 32) and bool(torch.isfinite(out).all())

@@ -202,6 +202,71 @@ def test_sell_trainer_matches_jax_sell():
     np.testing.assert_allclose(got, want, rtol=0, atol=LOSS_ATOL)
 
 
+def _budget_giving(chunks, suggest):
+    """The smallest chunk budget for which suggest(budget) (a package's
+    chunk policy, non-increasing in the budget) picks at most `chunks`
+    chunks; it must pick exactly that many."""
+    lo, hi = 1, 1 << 40
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if suggest(mid) > chunks:
+            lo = mid + 1
+        else:
+            hi = mid
+    assert suggest(lo) == chunks
+    return lo
+
+
+@pytest.mark.parametrize("impl,chunks", [("sell", 4), ("pallas", 3)])
+def test_chunked_trainer_matches_jax(impl, chunks, monkeypatch):
+    """Full-graph training on a layout both packages' chunk policies split
+    into `chunks` chunks (each package's chunk budget patched here only):
+    the port's Trainer through the twins of K1, K2 and K4 (impl='sell') or
+    K5, K6 and K8 (impl='pallas') against the JAX Trainer on the same
+    chunking (Pallas interpret mode), 3 epochs on digits, losses to 1e-6.
+    (At these widths the SELL policies jump from 1 chunk straight to 4 in
+    the port, which counts real lanes, and to 2 in the JAX package, which
+    counts 128-lane padded ones; 4 is the first count both pick.)"""
+    from gatv2_tpu.ops import pallas_attention as jpa
+    from gatv2_tpu.ops import sell_attention as jsa
+    from gatv2_tpu_torch.ops import pallas_attention as tpa
+
+    g = tio.load_dataset("digits", DATA)
+    heads, dims = ARCH["heads"], ARCH["out_dims"]
+    if impl == "sell":
+        def port(b):
+            return tsa.suggest_chunks_for_graph(
+                g.row_ptr, g.col_idx, g.num_nodes, heads, dims,
+                budget_bytes=b)
+
+        def jax_(b):
+            return jsa.suggest_chunks_for_graph(
+                g.row_ptr, g.col_idx, g.num_nodes, heads, dims,
+                budget_bytes=b)
+        modules = (tsa, jsa)
+    else:
+        hd = max(-(-h * d // 128) * 128 for h, d in zip(heads, dims))
+
+        def port(b):
+            return tpa.suggest_num_chunks(g.num_edges, hd, budget_bytes=b)
+
+        def jax_(b):
+            return jpa.suggest_num_chunks(g.num_edges, hd, budget_bytes=b)
+        modules = (tpa, jpa)
+    port_b, jax_b = (_budget_giving(chunks, f) for f in (port, jax_))
+    monkeypatch.setattr(modules[0], "default_chunk_budget",
+                        lambda device, num_edges=0: port_b)
+    monkeypatch.setattr(modules[1], "default_chunk_budget",
+                        lambda num_edges: jax_b)
+    tt, jt, _ = _trainers("digits", impl, impl, 3)
+    assert tt.edge_tiles.num_chunks == chunks
+    tt.run()
+    jt.run()
+    got, want = _losses(tt), _losses(jt)
+    assert len(got) == 3
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOSS_ATOL)
+
+
 def test_console_lines_format():
     lines = []
     g = tio.load_dataset("karate", DATA)
