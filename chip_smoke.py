@@ -1301,17 +1301,21 @@ def phase_minibatch_gradients(mb, dev):
 
 
 def pallas_bounds(e, rows, tiles_n, hd, heads, n_src, n_dst):
-    """(bound_ms, bound_by) of one K5, K6 and K7 launch: each input read
-    once (zs rows an edge reads, zd/g rows and sigma/r of nodes with an
-    in-edge, each real edge's two ids, the tile offsets, a) and each output
-    written once (out, m, l; dzd, d_a and one c1 row per real edge; dzs),
-    against the operations the real edges need."""
+    """K5's per-edge gather floor in ms, and (bound_ms, bound_by) of one K5,
+    K6 and K7 launch: each input read once (zs rows an edge reads, zd/g
+    rows and sigma/r of nodes with an in-edge, each real edge's two ids,
+    the tile offsets, a) and each output written once (out, m, l; dzd, d_a
+    and one c1 row per real edge; dzs), against the operations the real
+    edges need."""
     meta = 2 * e + tiles_n + 1
     k5 = 4 * ((n_src + n_dst) * hd + meta + hd + rows * (hd + 2 * heads))
     k6 = 4 * ((n_src + 2 * n_dst) * hd + 2 * heads * n_dst + meta + 2 * hd
               + rows * hd + e * hd)
     k7 = 4 * (e * hd + meta + rows * hd)
-    return {
+    # K5's per-edge gather floor: one zs row per real edge (no reuse of a
+    # source across edges), the rest as in its bound
+    k5_floor = k5 + 4 * (e - n_src) * hd
+    return k5_floor / PEAK_BYTES_PER_S * 1e3, {
         "pallas_fwd": _bound(k5, e * hd * K5_OPS_PER_FEATURE),
         "pallas_bwd_dst": _bound(k6, e * hd * K6_OPS_PER_FEATURE),
         "pallas_segsum": _bound(k7, e * hd * K7_OPS_PER_FEATURE),
@@ -1327,7 +1331,7 @@ def phase_pallas_kernels_at_main_path(mb, card):
         mb["start"]
     max_err = dict.fromkeys(PALLAS_KERNELS, 0.0)
     tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                   library_ms=0.0) for k in PALLAS_KERNELS}
+                   library_ms=0.0, floor_ms=0.0) for k in PALLAS_KERNELS}
     rng = np.random.default_rng(4)
     e = b.num_edges
     n_src = int(np.unique(b.src[:e]).size)
@@ -1418,8 +1422,8 @@ def phase_pallas_kernels_at_main_path(mb, card):
                 compare_f64(f"{tag} op {part} (torch fp32 as the twin)",
                             kern, twin, ref)
             del res
-            bounds = pallas_bounds(e, rows, tiles.num_node_tiles, hd, heads,
-                                   n_src, n_dst)
+            k5_floor, bounds = pallas_bounds(e, rows, tiles.num_node_tiles,
+                                             hd, heads, n_src, n_dst)
             times = {
                 "pallas_fwd": (
                     cuda_ms(lambda: pallas_fwd(zs, zd, a, *lay, **kw)),
@@ -1440,21 +1444,27 @@ def phase_pallas_kernels_at_main_path(mb, card):
             for k, (ms, plain_ms, lib_ms) in times.items():
                 bound, by = bounds[k]
                 lib_txt = f", index_add_ {lib_ms:.4f} ms" if lib_ms else ""
+                floor_txt = (f", per-edge gather floor {k5_floor:.4f} ms"
+                             if k == "pallas_fwd" else "")
                 print(f"  {tag} H*D={hd}: {k} {ms:.4f} ms, bound "
-                      f"{bound:.4f} ms ({by}), twin {plain_ms:.3f} ms"
-                      f"{lib_txt} [{card}]")
+                      f"{bound:.4f} ms ({by}){floor_txt}, twin "
+                      f"{plain_ms:.3f} ms{lib_txt} [{card}]")
                 t = tot[k]
                 t["ms"] += ms
                 t["plain_ms"] += plain_ms
                 t["bound_ms"] += bound
                 t["bytes_ms"] += bound if by == "bytes" else 0.0
                 t["library_ms"] += lib_ms
+                t["floor_ms"] += k5_floor if k == "pallas_fwd" else 0.0
             del got, out, dzd, c1, dzs
             x = layer(x, None, None, is_last=l == len(start.layers) - 1,
                       config=config, impl="pallas", edge_tiles=tiles)
     for k, t in tot.items():
         print(f"  products-sub {k} per step: {t['ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms, twin {t['plain_ms']:.3f} ms"
+              f"{t['bound_ms']:.4f} ms"
+              + (f", per-edge gather floor {t['floor_ms']:.4f} ms"
+                 if t["floor_ms"] else "")
+              + f", twin {t['plain_ms']:.3f} ms"
               + (f", index_add_ {t['library_ms']:.4f} ms"
                  if t["library_ms"] else "") + f" [{card}]")
     return max_err, tot
@@ -1621,11 +1631,12 @@ def chunk_rows(side, spc, chunk):
 
 
 def k4_bound_ms(st, chunk, hd, heads):
-    """(bound_ms, bound_by, real edges) of one K4 launch on src chunk
-    `chunk` of the SELL layout st (on the card): the zs rows of the chunk's
-    sources with an edge, the zd and g rows and sigma, r of the destinations
-    its edges reach, each read once; the perm rows, the ids of real slots,
-    the column counts and offsets, a; the dzs rows written."""
+    """(bound_ms, bound_by, real edges, gather floor ms) of one K4 launch on
+    src chunk `chunk` of the SELL layout st (on the card). The bound: the zs
+    rows of the chunk's sources with an edge, the zd and g rows and sigma, r
+    of the destinations its edges reach, each read once; the perm rows, the
+    ids of real slots, the column counts and offsets, a; the dzs rows
+    written. The floor reads the destination side once per edge."""
     side = st.srcs
     cnt, rel = side.cnt_grp[chunk].long(), side.rel_off[chunk].long()
     real = real_slots(side.cnt_grp[chunk])
@@ -1640,7 +1651,13 @@ def k4_bound_ms(st, chunk, hd, heads):
     rows = perm.numel()
     nbytes = 4 * (n_src * hd + 2 * n_dst * hd + 2 * n_dst * heads + e + rows
                   + cnt.numel() + rel.numel() + hd + rows * hd)
-    return (*_bound(nbytes, e * hd * K4_OPS_PER_FEATURE), e)
+    # the per-edge gather floor: a zd and a g row, sigma, r and the id read
+    # per real edge (no destination reuse on a random graph whose tables
+    # outgrow the L2), the used rows' zs read and every dzs row written
+    floor = 4 * (e * (2 * hd + 2 * heads + 1) + int(row_used.sum()) * hd
+                 + rows * hd)
+    return (*_bound(nbytes, e * hd * K4_OPS_PER_FEATURE), e,
+            floor / PEAK_BYTES_PER_S * 1e3)
 
 
 def k8_bound_ms(et, chunk, hd, heads):
@@ -1759,7 +1776,8 @@ def phase_k4_at_products_full(pf, card):
     st = tr.edge_tiles
     model = copy.deepcopy(pf["start"]).to(st.srcs.perm.device)
     gen = torch.Generator(device=st.srcs.perm.device).manual_seed(4)
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+               floor_ms=0.0)
     max_err = 0.0
     lay_s = (chunk_rows(st.srcs, st.spc_src, 0), st.srcs.ids_grp[0],
              st.srcs.cnt_grp[0], st.srcs.rel_off[0])
@@ -1810,19 +1828,22 @@ def phase_k4_at_products_full(pf, card):
             plain_ms = cuda_ms(
                 lambda: sell_bwd_src_plain(*tables, *lay_s, **kw),
                 reps=2, warmup=1)
-            bound, by, e = k4_bound_ms(st, 0, hd, heads)
+            bound, by, e, floor = k4_bound_ms(st, 0, hd, heads)
             print(f"  {tag} H*D={hd}, {e} real edges: sell_bwd_src {ms:.4f} "
-                  f"ms, bound {bound:.4f} ms ({by}), twin {plain_ms:.3f} ms, "
-                  f"library none [{card}]")
+                  f"ms, bound {bound:.4f} ms ({by}), per-edge gather floor "
+                  f"{floor:.4f} ms, twin {plain_ms:.3f} ms, library none "
+                  f"[{card}]")
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
             tot["bound_ms"] += bound
             tot["bytes_ms"] += bound if by == "bytes" else 0.0
+            tot["floor_ms"] += floor
             del dzs, tables, zs, zd, gout
             x = layer(x, None, None, is_last=l == len(model.layers) - 1,
                       config=config, impl="sell", edge_tiles=st)
     print(f"  products-full sell_bwd_src, chunk 0 of each layer: "
-          f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, twin "
+          f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, per-edge "
+          f"gather floor {tot['floor_ms']:.4f} ms, twin "
           f"{tot['plain_ms']:.3f} ms [{card}]")
     return max_err, tot
 

@@ -15,62 +15,81 @@
 //     ds     = de * a_h * (s > 0 ? 1 : slope)
 //     dzs[j] += alpha * g[dst] + ds
 // i.e. the sum of K2's packets c1 over the row's edges, rebuilt from the
-// destination side instead of read from a packet buffer. The columns are
-// summed in order, as the TPU kernel does.
+// destination side instead of read from a packet buffer. A row's slots are
+// summed in column order, as the TPU kernel does, so the output is the same
+// from run to run (no atomics).
 //
-// What bounds it on this card: memory. Each real edge reads one zd row and
-// one g row of H*D fp32 (1 KB per edge at H*D = 128), against about 12 fp32
-// operations per feature, far below the card's fp32 rate per byte.
+// What bounds it on this card: memory, and on a random graph not the
+// kernel's byte bound (each destination row read once) but the per-edge
+// gather floor: the zd and g tables (2.5 GB at H*D = 128 on products-full)
+// are far larger than the 50 MB L2 and a random graph's destinations have
+// no locality, so each real edge reads one zd row, one g row, sigma, r and
+// its id from device memory (4 * (2*H*D + 2*H + 1) bytes), plus the rows'
+// zs reads and dzs writes. Every edge's gathers are independent, so what
+// the design has to do is keep enough of them in flight.
 //
-// What this simple design does about it:
-//  - the TPU path gathers zd, g and the packed [sigma | r] block per edge
-//    into three [E/G, .] streams in device memory and reads them back
-//    (about 2 * H*D + 128 fp32 written and read per edge, per chunk). Here
-//    each slot's zd and g rows, sigma and r are read straight through the
-//    slot's destination id, so the chunked backward holds no edge-space
-//    buffer at all;
-//  - one warp per virtual source row; the row's zs is read once and held in
-//    registers; lane t holds features t, t+32, ..., so every zd / g read is
-//    coalesced, and the next edge's rows are loaded while the current one is
-//    processed;
-//  - only the row's real slots are visited: in column-major, length-
-//    descending slices, slot (column k, row r) is real iff r < cnt[k], a
-//    prefix of the row's columns. Padding slots (whose id is the padded
-//    node count) are never read; in the TPU kernel they gather zero rows and
-//    add exactly 0. A row without edges writes 0;
-//  - each head's two dot products (score and dalpha) are summed by a group
-//    of G = 32/H (power of two) lanes over shared memory, then by shuffles,
-//    so each edge costs H exponentials, not H*D;
-//  - no float atomics: each row is one warp's, so the result is
-//    deterministic.
-// Faster variants (several rows per warp, TMA) come later.
+// The design (a first version gave one warp to each row, loaded one edge
+// ahead with 4-byte loads and summed heads over shared memory: 5.51 / 2.29
+// / 2.29 ms at H*D = 128 / 32 / 16 on the same chunk):
+//  - lane groups sized to the width (lane_groups.cuh): a row gets
+//    ceil(H*D/4) lanes rounded to a power of two (4 lanes at H*D = 16, 8 at
+//    32, 32 at 128), so a warp works on 32 / LG rows at once and no lane
+//    idles at the narrow widths; every row read is 16-byte vectors; the
+//    score and dalpha head sums are the lane's own sums plus
+//    __shfl_xor_sync rounds inside the head's lanes, and every lane of a
+//    head computes alpha and de itself: no shared memory, no __syncwarp and
+//    no broadcast per edge;
+//  - a register ring of R = kRing<F> slots (4 at H*D <= 128): a group
+//    issues the id, zd, g, sigma and r loads of R slots before it computes
+//    the first of them, and loads the next R ids before it computes, so R
+//    gathers per row (R * 32 / LG per warp) are in flight; the register
+//    budget is cut so that 3 blocks (24 warps) share an SM, which measured
+//    faster than deeper rings at lower occupancy;
+//  - the zd and g rows are read with evict-first loads: they stream through
+//    L2 once, and the tables that are read again (sigma and r, 20-40 MB on
+//    products-full; the slot ids a slice's rows share; zs) stay there;
+//  - a row's real slots are a prefix of its slice's columns (column-major,
+//    length-descending: slot (k, r) is real iff r < cnt[k]), so the row's
+//    slot count is one binary search over the slice's cnt, which the slice's
+//    128 rows share in L1. Padding slots are never read; a row without
+//    edges writes 0.
+// Measured (NVIDIA H100 80GB HBM3, 700.00 W): 5.154 / 1.333 / 0.930 ms at
+// H*D = 128 / 32 / 16 on products-full chunk 0 (chip_smoke.py; per-edge
+// gather floor 4.005 / 1.027 / 0.536 ms), where a bare gather of the same
+// rows in the same order takes 4.58 / 1.17 / 0.84 ms on a synthetic chunk
+// of that shape (tools/torch_kernel_variants.py): the kernel is within
+// 1.10-1.14x of what the memory system delivers for its access pattern.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "lane_groups.cuh"
+
 namespace {
 
+using namespace lane_groups;
+
 constexpr int kTileN = 128;    // rows per SELL slice
-constexpr int kWarps = 8;      // rows per thread block
+constexpr int kBlock = 256;    // threads per block
 constexpr int kMaxHd = 512;    // H*D per launch (the op splits heads)
-constexpr int kMaxHeads = 32;  // heads per launch: one lane group each
+constexpr int kMaxHeads = 32;  // heads per launch
 constexpr float kExpClamp = -80.0f;
-constexpr unsigned kFull = 0xffffffffu;
 
-template <int NF>
-__device__ __forceinline__ void load_row(float (&z)[NF],
-                                         const float* __restrict__ row,
-                                         int lane, int hd) {
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = lane + 32 * j;
-    z[j] = f < hd ? __ldg(row + f) : 0.f;
-  }
-}
+// Slots a group keeps in flight (the register ring), and the blocks per SM
+// the register budget is cut for, by F = floats per lane. At F = 4
+// (H*D = 128 / 32 / 16) tools/torch_kernel_variants.py measured 4 slots at
+// 3 blocks (80 registers, 24 warps an SM) at 5.16 / 1.33 / 0.93 ms, 8
+// slots with no register cut (1-2 blocks) at 9.04 / 2.39 / 1.32 ms, 8 at 2
+// blocks at 5.59 / 1.47 / 0.95 ms and 2 at 4 blocks at 5.13 / 1.32 / 0.93
+// ms (NVIDIA H100 80GB HBM3, 700.00 W).
+template <int F>
+constexpr int kRing = F <= 4 ? 4 : F <= 8 ? 2 : 1;
+template <int F>
+constexpr int kMinBlocks = F <= 8 ? 3 : F <= 16 ? 2 : 1;
 
-template <int NF>  // features per lane: H*D <= 32 * NF
-__global__ void __launch_bounds__(kWarps * 32)
+template <int VEC, int NV>
+__global__ void __launch_bounds__(kBlock, kMinBlocks<NV * VEC>)
 sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const float* __restrict__ g,
                     const float* __restrict__ sigma,
@@ -79,126 +98,90 @@ sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const int* __restrict__ gather_ids,
                     const int* __restrict__ cnt,
                     const int* __restrict__ col_off, int rows, int heads,
-                    int head_dim, float slope, float* __restrict__ dzs) {
-  // per-feature terms of the two head sums: a_f * s_act_f and g_f * zs_f
-  __shared__ float part_sc[kWarps][32 * NF];
-  __shared__ float part_dal[kWarps][32 * NF];
-  const int warp = threadIdx.x >> 5;
+                    int head_dim, int lg, int lph, int qph, float slope,
+                    float* __restrict__ dzs) {
+  constexpr int F = NV * VEC;
+  constexpr int R = kRing<F>;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= rows) return;  // warp-uniform; the kernel syncs warps only
+  const int rows_per_warp = 32 / lg;
+  const int row = ((blockIdx.x * kBlock + threadIdx.x) >> 5) * rows_per_warp +
+                  lane / lg;
+  if (row >= rows) return;  // group-uniform; the kernel syncs groups only
   const int hd = heads * head_dim;
-  // lane groups: G lanes sum head h = lane / G
-  int group = 1;
-  while (group * 2 * heads <= 32) group *= 2;
-  const int h = lane / group;
-  const int gl = lane % group;
+  const int gl = lane & (lg - 1);
+  const unsigned mask = group_mask(lane, lg);
+  const int h = gl / lph;
   const bool own_head = h < heads;
+  Lane<VEC, NV> ln;
+  ln.init(gl, lph, qph, heads, head_dim);
 
-  int src_lane[NF];  // a lane of the group owning each feature's head
-  float av[NF];
-  float acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = lane + 32 * j;
-    src_lane[j] = f < hd ? (f / head_dim) * group : 0;
-    av[j] = f < hd ? a[f] : 0.f;
-    acc[j] = 0.f;
-  }
-  float* ps = part_sc[warp];
-  float* pq = part_dal[warp];
-
+  // the row's real slots: the first `deg` columns of its slice
   const int r = row % kTileN;
   const int c0 = col_off[row / kTileN];
-  const int ncols = col_off[row / kTileN + 1] - c0;
-  if (ncols > 0 && r < cnt[c0]) {
-    float z[NF];  // the row's resident zs
-    load_row<NF>(z, zs + (size_t)perm[row] * hd, lane, hd);
-    for (int k0 = 0; k0 < ncols; k0 += 32) {
-      const int k = k0 + lane;
-      const bool real = k < ncols && r < cnt[c0 + k];
-      // real slots are a prefix, so the count is the first non-real lane
-      const int nb = __popc(__ballot_sync(kFull, real));
-      const int my_id = real ? gather_ids[(size_t)(c0 + k) * kTileN + r] : 0;
-      int id = __shfl_sync(kFull, my_id, 0);
-      float zdn[NF], gn[NF];
-      load_row<NF>(zdn, zd + (size_t)id * hd, lane, hd);
-      load_row<NF>(gn, g + (size_t)id * hd, lane, hd);
-      float sig_n = own_head ? sigma[(size_t)id * heads + h] : 0.f;
-      float r_n = own_head ? rr[(size_t)id * heads + h] : 0.f;
-      for (int t = 0; t < nb; ++t) {
-        float zdv[NF], gv[NF];
+  int lo = 0, hi = col_off[row / kTileN + 1] - c0;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(cnt + c0 + mid) > r)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  const int deg = lo;
+
+  float acc[F];
 #pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          zdv[j] = zdn[j];
-          gv[j] = gn[j];
-        }
-        const float sig_h = sig_n, r_h = r_n;
-        id = __shfl_sync(kFull, my_id, (t + 1) & 31);
-        if (t + 1 < nb) {
-          load_row<NF>(zdn, zd + (size_t)id * hd, lane, hd);
-          load_row<NF>(gn, g + (size_t)id * hd, lane, hd);
-          sig_n = own_head ? sigma[(size_t)id * heads + h] : 0.f;
-          r_n = own_head ? rr[(size_t)id * heads + h] : 0.f;
-        }
+  for (int f = 0; f < F; ++f) acc[f] = 0.f;
+  if (deg > 0) {
+    float z[F], av[F];  // the row's resident zs, and a
+    ln.load(z, zs + (size_t)perm[row] * hd);
+    ln.load(av, a);
+    const int* ids = gather_ids + (size_t)c0 * kTileN + r;  // column k: k*128
+    int id[R];
 #pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          const int f = lane + 32 * j;
-          if (f < hd) {
-            const float s = z[j] + zdv[j];
-            ps[f] = av[j] * (s > 0.f ? s : slope * s);
-            pq[f] = gv[j] * z[j];
-          }
+    for (int i = 0; i < R; ++i) id[i] = i < deg ? __ldg(ids + i * kTileN) : 0;
+    for (int k0 = 0; k0 < deg; k0 += R) {
+      float zdv[R][F], gv[R][F], sg[R], rv[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const bool real = k0 + i < deg;
+        const size_t base = (size_t)id[i] * hd;
+        if (real) {
+          ln.load(zdv[i], zd + base, true);  // read once: evict-first
+          ln.load(gv[i], g + base, true);
         }
-        __syncwarp();
+        sg[i] = real && own_head ? __ldg(sigma + (size_t)id[i] * heads + h)
+                                 : 0.f;
+        rv[i] = real && own_head ? __ldg(rr + (size_t)id[i] * heads + h)
+                                 : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int k = k0 + R + i;
+        id[i] = k < deg ? __ldg(ids + (size_t)k * kTileN) : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (k0 + i >= deg) break;  // group-uniform
         float sc = 0.f, dal = 0.f;
-        if (own_head) {
-          for (int d = gl; d < head_dim; d += group) {
-            sc += ps[h * head_dim + d];
-            dal += pq[h * head_dim + d];
-          }
-        }
-        for (int o = group / 2; o > 0; o >>= 1) {
-          sc += __shfl_xor_sync(kFull, sc, o);
-          dal += __shfl_xor_sync(kFull, dal, o);
-        }
-        __syncwarp();  // every read of ps/pq is done before the next edge
-        const float alpha = expf(fminf(fmaxf(sc - sig_h, kExpClamp), 0.f));
-        const float de = alpha * (dal - r_h);
 #pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          const int f = lane + 32 * j;
-          const float aj = __shfl_sync(kFull, alpha, src_lane[j]);
-          const float dej = __shfl_sync(kFull, de, src_lane[j]);
-          if (f < hd) {
-            const float s = z[j] + zdv[j];
-            const float ds = dej * av[j] * (s > 0.f ? 1.f : slope);
-            acc[j] += aj * gv[j] + ds;
-          }
+        for (int f = 0; f < F; ++f) {
+          const float s = z[f] + zdv[i][f];
+          sc += av[f] * (s > 0.f ? s : slope * s);
+          dal += gv[i][f] * z[f];
+        }
+        sc = head_sum(sc, lph, mask);
+        dal = head_sum(dal, lph, mask);
+        const float alpha = expf(fminf(fmaxf(sc - sg[i], kExpClamp), 0.f));
+        const float de = alpha * (dal - rv[i]);
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const float s = z[f] + zdv[i][f];
+          acc[f] += alpha * gv[i][f] + de * av[f] * (s > 0.f ? 1.f : slope);
         }
       }
-      if (nb < 32) break;
     }
   }
-
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = lane + 32 * j;
-    if (f < hd) dzs[(size_t)row * hd + f] = acc[j];
-  }
-}
-
-template <int NF>
-int launch(const float* zs, const float* zd, const float* g,
-           const float* sigma, const float* rr, const float* a,
-           const int* perm, const int* gather_ids, const int* cnt,
-           const int* col_off, int rows, int heads, int head_dim, float slope,
-           float* dzs, cudaStream_t stream) {
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  sell_bwd_src_kernel<NF><<<blocks, kWarps * 32, 0, stream>>>(
-      zs, zd, g, sigma, rr, a, perm, gather_ids, cnt, col_off, rows, heads,
-      head_dim, slope, dzs);
-  return (int)cudaGetLastError();
+  ln.store(dzs + (size_t)row * hd, acc);
 }
 
 }  // namespace
@@ -216,21 +199,19 @@ int gatv2_sell_bwd_src(const float* zs, const float* zd, const float* g,
   if (rows <= 0 || heads <= 0 || heads > kMaxHeads || head_dim <= 0 ||
       hd > kMaxHd)
     return (int)cudaErrorInvalidValue;
-  const int nf = (hd + 31) / 32;
-  if (nf <= 1)
-    return launch<1>(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-                     rows, heads, head_dim, slope, dzs, stream);
-  if (nf <= 2)
-    return launch<2>(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-                     rows, heads, head_dim, slope, dzs, stream);
-  if (nf <= 4)
-    return launch<4>(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-                     rows, heads, head_dim, slope, dzs, stream);
-  if (nf <= 8)
-    return launch<8>(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-                     rows, heads, head_dim, slope, dzs, stream);
-  return launch<16>(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-                    rows, heads, head_dim, slope, dzs, stream);
+  const Geometry geo = geometry(
+      heads, head_dim,
+      aligned16(zs) && aligned16(zd) && aligned16(g) && aligned16(a) &&
+          aligned16(dzs));
+  const int rows_per_block = kBlock / 32 * (32 / geo.lg);
+  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+  return dispatch(geo, [&](auto vec, auto nv) {
+    sell_bwd_src_kernel<decltype(vec)::value, decltype(nv)::value>
+        <<<blocks, kBlock, 0, stream>>>(
+            zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, rows,
+            heads, head_dim, geo.lg, geo.lph, geo.qph, slope, dzs);
+    return (int)cudaGetLastError();
+  });
 }
 
 const char* gatv2_cuda_error_string(int code) {

@@ -1,7 +1,8 @@
 """Build the port's CUDA sources with nvcc and load them through ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and compiles on its own into
-`_build/<name>-<key>.so`, where the key hashes the source and the flags, so
+`_build/<name>-<key>.so`, where the key hashes the source, the shared
+`csrc/*.cuh` headers and the flags, so
 a library built from other sources is never loaded. The build runs at the
 first launch of a kernel (or from `build()`), never at import. nvcc's
 `-Xptxas -v` report (registers, shared memory, spills) is kept beside the
@@ -42,8 +43,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-    """Where the library built from the current csrc/<name>.cu lives."""
+    """Where the library built from the current csrc/<name>.cu (and the
+    csrc/*.cuh headers it may include) lives."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -61,6 +61,43 @@ def _hub_and_isolated(n=260):
     return row_ptr, rng.integers(0, n, size=int(row_ptr[-1])), n
 
 
+def _csr_of(deg, col):
+    row_ptr = np.zeros(deg.size + 1, np.int64)
+    np.cumsum(deg, out=row_ptr[1:])
+    return row_ptr, col.astype(np.int32), deg.size
+
+
+def _hubs(n=2000):
+    """In-degree hubs beside short rows: node 0 has 12,000 in-edges, nodes
+    1-3 have 257, 256 and 300 (around K5's split threshold), all in node
+    tile 0; the rest 0-4."""
+    rng = np.random.default_rng(12)
+    deg = rng.integers(0, 5, size=n)
+    deg[:4] = (12_000, 257, 256, 300)
+    return _csr_of(deg, rng.integers(0, n, size=int(deg.sum())))
+
+
+def _fan_out(n=1000):
+    """Node 0 is the source of 300 edges (one per destination 0..299), far
+    longer than K4's ring of slots in flight; other edges are random."""
+    rng = np.random.default_rng(13)
+    deg = rng.integers(0, 6, size=n)
+    deg[:300] += 1
+    col = rng.integers(1, n, size=int(deg.sum()))
+    starts = np.concatenate([[0], np.cumsum(deg)[:-1]])
+    col[starts[:300]] = 0
+    return _csr_of(deg, col)
+
+
+def _sparse_src(n=600):
+    """Only nodes 0..202 are sources: the SELL source side's last slices
+    hold no edge at all, and its second slice ends mid-warp with rows
+    without an edge."""
+    rng = np.random.default_rng(14)
+    deg = rng.integers(0, 9, size=n)
+    return _csr_of(deg, rng.integers(0, 203, size=int(deg.sum())))
+
+
 def _layout(case):
     if case == "uniform":
         g = random_graph(2000, 14000, 8, 3, seed=11)
@@ -68,6 +105,12 @@ def _layout(case):
         g = powerlaw_graph(3000, 40000, 8, 3, seed=17)
     elif case == "isolated":
         return _hub_and_isolated()
+    elif case == "hubs":
+        return _hubs()
+    elif case == "fan-out":
+        return _fan_out()
+    elif case == "sparse-src":
+        return _sparse_src()
     else:  # zero-edge
         return np.zeros(11, np.int64), np.zeros(0, np.int32), 10
     return g.row_ptr, g.col_idx, g.num_nodes
@@ -222,6 +265,12 @@ PALLAS_CASES = [
     ("uniform", 4, 64), ("uniform", 16, 8), ("uniform", 1, 16),
     ("zipf-split", 2, 24), ("isolated", 4, 16), ("minibatch", 3, 16),
     ("zero-edge", 2, 8),
+    # K5's lane groups and split hub rows: a width that is not a multiple
+    # of 4, H*D = 512, 8 rows a warp over tiles without an edge, rows of
+    # 256, 257, 300 and 12,000 in-edges (longer than the ring of edges in
+    # flight, and split over the block)
+    ("uniform", 3, 7), ("uniform", 8, 64), ("minibatch", 1, 16),
+    ("hubs", 1, 16), ("hubs", 4, 64), ("hubs", 3, 7),
 ]
 
 
@@ -296,6 +345,42 @@ def test_k5_k6_k7_kernels_match_twins(cuda, case, h, d):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case,h,d", [
+    ("uniform", 1, 512), ("hubs", 1, 512), ("hubs", 2, 256),
+])
+def test_k5_wide_heads_match_twin(cuda, case, h, d):
+    """K5 alone at H*D = 512 in one or two heads (16 vectors of 4 a lane,
+    32 lanes a head), a split hub row included, against its twin and
+    float64. (K6's c1 is held to its twin by row, which a 512-term fp32
+    dot product does not meet; test_k5_k6_k7_kernels_match_twins covers
+    H*D = 512 in 8 heads.)"""
+    et_host, row_ptr = _pallas_layout(case)
+    et = et_host.to(cuda)
+    n = et.num_nodes
+    rng = np.random.default_rng(9)
+    zs, zd = (torch.from_numpy(rng.normal(size=(n, h * d))
+                               .astype(np.float32)).to(cuda)
+              for _ in range(2))
+    a = torch.from_numpy(rng.normal(size=(h, d)).astype(np.float32)).to(cuda)
+    side = et.dst_side
+    lay = (side.ids_grp[0], side.other_grp[0], side.rel_offsets[0],
+           et.tile_e)
+    before = pallas_fwd.launches
+    out, m, l = pallas_fwd(zs, zd, a, *lay, negative_slope=SLOPE)
+    torch.cuda.synchronize()
+    assert pallas_fwd.launches == before + 1
+    w_out, w_m, w_l = pallas_fwd_plain(zs, zd, a, *lay, negative_slope=SLOPE)
+    w64 = pallas_fwd_plain(zs.double(), zd.double(), a.double(), *lay,
+                           negative_slope=SLOPE)
+    assert _close_by_row(m, w_m)
+    assert _close_f64(out, w_out, w64[0])
+    assert _close_f64(l, w_l, w64[2])
+    no_in = torch.as_tensor(np.diff(row_ptr) == 0, device=cuda)
+    assert bool((out[:n][no_in] == 0).all())
+    assert bool((l[:n][no_in] == 0).all())
+
+
+@pytest.mark.gpu
 def test_pallas_op_head_groups_match_cpu(cuda):
     """20 heads run as two launches of <= 16 heads: the op's output and
     gradients on the card against the op on the CPU (the twins)."""
@@ -346,6 +431,13 @@ def test_minibatch_step_matches_torch_path(cuda):
 CHUNKED_CASES = [
     ("uniform", 4, 64), ("uniform", 1, 16), ("uniform", 20, 8),
     ("zipf-split", 3, 24), ("isolated", 2, 16), ("zero-edge", 3, 24),
+    # K4's lane groups: a width that is not a multiple of 4, H*D = 512 in
+    # one head and in 32, a source row of 300 out-edges (longer than the
+    # ring of slots in flight), 8 rows a warp over slices whose last rows
+    # (and whole last slices) hold no edge
+    ("uniform", 3, 7), ("uniform", 1, 512), ("uniform", 32, 16),
+    ("fan-out", 1, 16), ("fan-out", 2, 64), ("sparse-src", 1, 16),
+    ("sparse-src", 3, 7),
 ]
 
 
