@@ -16,8 +16,9 @@ Phases (any failure exits non-zero):
      clipping; the K1/K2/K3/K4 counters zeroed just before and read just
      after (K4 launched, K3 not); epoch time, peak memory, a profiler
      table, one remat epoch with the same first loss; then K4 against its
-     twin and float64, and K2 without packets against K2 with them, at
-     each layer's shapes on one chunk;
+     twin and float64, K2 without packets against K2 with them, and K1
+     against its twin, at each layer's shapes on one chunk, with K1's, K2's
+     and K4's times beside their bounds, per-edge gather floors and twins;
   4. full-width inference, the first main path: the headline model (3
      layers, heads 4,1,1, outdims 64,32,16, random weights from a seeded
      torch.Generator) at ogbn-arxiv scale on a uniform graph ('arxiv') and
@@ -339,37 +340,61 @@ def k1_inputs(zs, zd, a, st):
             side.rel_off[0])
 
 
-def k1_bound_ms(st_host, num_src_used, num_dst_used, hd, heads):
-    """(bound_ms, bound_by) of one K1 launch: each input read once, each
-    output written once (zs/zd rows only where an edge needs them, gather
-    ids only for real slots), against the operations the real edges need."""
-    rows = st_host.num_dst_tiles * TILE_N
-    e = st_host.num_edges
-    cols = st_host.e_ell // TILE_N
-    nbytes = 4 * ((num_src_used + num_dst_used) * hd + e + rows + cols
-                  + st_host.num_dst_tiles + 1 + hd
-                  + rows * (hd + 2 * heads))
-    return _bound(nbytes, e * hd * K1_OPS_PER_FEATURE)
+def chunk_rows(side, spc, chunk):
+    """The perm rows of one chunk of a SELL side."""
+    return side.perm[chunk * spc * TILE_N: (chunk + 1) * spc * TILE_N]
+
+
+def dst_chunk_counts(st, chunk):
+    """What one K1 or K2 launch on dst chunk `chunk` of the SELL layout st
+    (on the card; chunk 0 of an unchunked layout is all of it) must touch:
+    its real edges, the distinct sources they read, the distinct nodes of
+    its rows with an edge, and its rows, columns and slice offsets."""
+    side = st.dst
+    cnt, rel = side.cnt_grp[chunk].long(), side.rel_off[chunk].long()
+    real = real_slots(side.cnt_grp[chunk])
+    widths = rel[1:] - rel[:-1]
+    first = cnt[rel[:-1].clamp(max=max(cnt.numel() - 1, 0))]
+    row_used = (torch.where(widths > 0, first, 0)[:, None]
+                > torch.arange(TILE_N, device=cnt.device)).reshape(-1)
+    perm = chunk_rows(side, st.spc_dst, chunk)
+    return dict(
+        e=int(real.sum()),
+        n_src=int(torch.unique(side.ids_grp[chunk][real]).numel()),
+        n_dst=int(torch.unique(perm[row_used]).numel()),
+        rows=perm.numel(), cols=int(rel[-1]), offsets=rel.numel())
+
+
+def k1_k2_bounds(c, hd, heads, packets):
+    """{kernel: (bound_ms, bound_by, floor_ms)} of one K1 and one K2 launch
+    with the counts c of dst_chunk_counts. The bound: each input read once
+    (zs rows an edge reads, zd rows, and for K2 g rows, sigma and r, of
+    nodes with an in-edge; the perm rows, the ids of real slots, the column
+    counts and offsets, a), each output written once (K1: out, m, l per
+    row; K2: dzd rows, d_a and, with packets, one c1 row per real edge).
+    The per-edge gather floor: the same with one zs row per real edge in
+    32-byte sectors in place of each used zs row once (no source reuse on a
+    random graph whose zs table outgrows the L2)."""
+    layout = c["e"] + c["rows"] + c["cols"] + c["offsets"]
+    zs_once = c["n_src"] * hd
+    zs_per_edge = c["e"] * (-(-hd * 4 // 32) * 8)  # in floats
+    k1 = c["n_dst"] * hd + layout + hd + c["rows"] * (hd + 2 * heads)
+    k2 = (2 * c["n_dst"] * hd + 2 * c["n_dst"] * heads + layout + 2 * hd
+          + c["rows"] * hd + (c["e"] * hd if packets else 0))
+    out = {}
+    for name, rest, per_feature in (("sell_fwd", k1, K1_OPS_PER_FEATURE),
+                                    ("sell_bwd_dst", k2, K2_OPS_PER_FEATURE)):
+        bound, by = _bound(4 * (zs_once + rest),
+                           c["e"] * hd * per_feature)
+        floor, _ = _bound(4 * (zs_per_edge + rest), 0)
+        out[name] = (bound, by, floor)
+    return out
 
 
 def _bound(nbytes, ops):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def k2_bound_ms(st_host, num_src_used, num_dst_used, hd, heads):
-    """(bound_ms, bound_by) of one K2 launch: zs rows an edge reads, zd and
-    g rows and sigma, r of nodes with an in-edge, the layout (ids of real
-    slots), a; dzd rows, d_a and one c1 row per real edge written."""
-    rows = st_host.num_dst_tiles * TILE_N
-    e = st_host.num_edges
-    cols = st_host.e_ell // TILE_N
-    nbytes = 4 * ((num_src_used + 2 * num_dst_used) * hd
-                  + 2 * num_dst_used * heads + e + rows + cols
-                  + st_host.num_dst_tiles + 1 + 2 * hd
-                  + rows * hd + e * hd)
-    return _bound(nbytes, e * hd * K2_OPS_PER_FEATURE)
 
 
 def k3_bound_ms(st_host, hd):
@@ -543,14 +568,13 @@ def phase_kernels_at_main_path(model, config, runs, card):
     totals = {}
     with torch.inference_mode():
         for name, r in runs.items():
-            st, sth, g = r["st"], r["st_host"], r["graph"]
+            st, g = r["st"], r["graph"]
             n = g.num_nodes
             deg = np.diff(g.row_ptr)
-            num_src_used = int(np.count_nonzero(np.bincount(
-                g.col_idx, minlength=n)))
-            num_dst_used = int(np.count_nonzero(deg))
+            counts = dst_chunk_counts(st, 0)
             x = r["feats"]
-            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0)
+            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                       floor_ms=0.0)
             for l, layer in enumerate(model.layers):
                 zs, zd = layer.project(x, config.precision)
                 a = layer.a.detach().contiguous()
@@ -566,14 +590,13 @@ def phase_kernels_at_main_path(model, config, runs, card):
                 ms = cuda_ms(lambda: sell_fwd(*args, **kw))
                 plain_ms = cuda_ms(lambda: sell_fwd_plain(*args, **kw))
                 hd = zs.shape[1]
-                bound, by = k1_bound_ms(sth, num_src_used, num_dst_used, hd,
-                                        a.shape[0])
-                # what the kernel really reads: one zs row per real edge
-                gather_ms = (g.num_edges * hd * 4) / PEAK_BYTES_PER_S * 1e3
+                bound, by, floor = k1_k2_bounds(
+                    counts, hd, a.shape[0], packets=True)["sell_fwd"]
                 print(f"  {name} layer {l} H*D={hd}: K1 {ms:.4f} ms, bound "
-                      f"{bound:.4f} ms ({by}), per-edge zs reads alone "
-                      f"{gather_ms:.4f} ms, twin {plain_ms:.3f} ms [{card}]")
+                      f"{bound:.4f} ms ({by}), per-edge gather floor "
+                      f"{floor:.4f} ms, twin {plain_ms:.3f} ms [{card}]")
                 tot["ms"] += ms
+                tot["floor_ms"] += floor
                 tot["plain_ms"] += plain_ms
                 tot["bound_ms"] += bound
                 tot["bytes_ms"] += bound if by == "bytes" else 0.0
@@ -591,7 +614,8 @@ def phase_kernels_at_main_path(model, config, runs, card):
                           config=config, impl="sell", edge_tiles=st)
             totals[name] = tot
             print(f"  {name} K1 per forward: {tot['ms']:.4f} ms, bound "
-                  f"{tot['bound_ms']:.4f} ms, twin {tot['plain_ms']:.3f} ms "
+                  f"{tot['bound_ms']:.4f} ms, per-edge gather floor "
+                  f"{tot['floor_ms']:.4f} ms, twin {tot['plain_ms']:.3f} ms "
                   f"[{card}]")
     return max_err, totals
 
@@ -791,18 +815,15 @@ def phase_bwd_kernels_at_main_path(model, config, runs, card):
     rng = np.random.default_rng(3)
     with torch.no_grad():
         for name, r in runs.items():
-            st, sth, g = r["st"], r["st_host"], r["graph"]
-            deg = np.diff(g.row_ptr)
-            num_src_used = int(np.count_nonzero(np.bincount(
-                g.col_idx, minlength=g.num_nodes)))
-            num_dst_used = int(np.count_nonzero(deg))
+            st, sth = r["st"], r["st_host"]
+            counts = dst_chunk_counts(st, 0)
             real = real_slots(st.dst.cnt)
             lib_idx = torch.as_tensor(k3_library_index(sth),
                                       device=real.device)
             rows_src = sth.num_src_tiles * TILE_N
             x = r["feats"]
             tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                           library_ms=0.0) for k in max_err}
+                           library_ms=0.0, floor_ms=0.0) for k in max_err}
             for l, layer in enumerate(model.layers):
                 zs, zd = layer.project(x, config.precision)
                 a = layer.a.detach().contiguous()
@@ -852,24 +873,28 @@ def phase_bwd_kernels_at_main_path(model, config, runs, card):
                         cuda_ms(lambda: sell_bwd_dst(*args, **kw)),
                         cuda_ms(lambda: sell_bwd_dst_plain(*args, **kw),
                                 reps=3, warmup=1),
-                        k2_bound_ms(sth, num_src_used, num_dst_used, hd,
-                                    heads), 0.0),
+                        k1_k2_bounds(counts, hd, heads,
+                                     packets=True)["sell_bwd_dst"], 0.0),
                     "sell_segsum": (
                         cuda_ms(lambda: sell_segsum(*k3_args)),
                         cuda_ms(lambda: sell_segsum_plain(*k3_args),
                                 reps=3, warmup=1),
-                        k3_bound_ms(sth, hd),
+                        (*k3_bound_ms(sth, hd), None),
                         cuda_ms(lambda: torch.zeros(
                             rows_src + 1, hd, device=c1.device
                         ).index_add_(0, lib_idx, c1))),
                 }
-                for k, (ms, plain_ms, (bound, by), lib_ms) in times.items():
+                for k, (ms, plain_ms, (bound, by, floor), lib_ms) in \
+                        times.items():
                     lib_txt = f", index_add_ {lib_ms:.4f} ms" if lib_ms else ""
+                    floor_txt = (f", per-edge gather floor {floor:.4f} ms"
+                                 if floor else "")
                     print(f"  {name} layer {l} H*D={hd}: {k} {ms:.4f} ms, "
-                          f"bound {bound:.4f} ms ({by}), twin "
+                          f"bound {bound:.4f} ms ({by}){floor_txt}, twin "
                           f"{plain_ms:.3f} ms{lib_txt} [{card}]")
                     t = tot[k]
                     t["ms"] += ms
+                    t["floor_ms"] += floor or 0.0
                     t["plain_ms"] += plain_ms
                     t["bound_ms"] += bound
                     t["bytes_ms"] += bound if by == "bytes" else 0.0
@@ -880,7 +905,10 @@ def phase_bwd_kernels_at_main_path(model, config, runs, card):
             totals[name] = tot
             for k, t in tot.items():
                 print(f"  {name} {k} per backward: {t['ms']:.4f} ms, bound "
-                      f"{t['bound_ms']:.4f} ms, twin {t['plain_ms']:.3f} ms"
+                      f"{t['bound_ms']:.4f} ms"
+                      + (f", per-edge gather floor {t['floor_ms']:.4f} ms"
+                         if t["floor_ms"] else "")
+                      + f", twin {t['plain_ms']:.3f} ms"
                       + (f", index_add_ {t['library_ms']:.4f} ms"
                          if t["library_ms"] else "") + f" [{card}]")
     return max_err, totals
@@ -1625,11 +1653,6 @@ def phase_minibatch_entry():
 # ---------------------------------------------------------------------------
 
 
-def chunk_rows(side, spc, chunk):
-    """The perm rows of one chunk of a SELL side."""
-    return side.perm[chunk * spc * TILE_N: (chunk + 1) * spc * TILE_N]
-
-
 def k4_bound_ms(st, chunk, hd, heads):
     """(bound_ms, bound_by, real edges, gather floor ms) of one K4 launch on
     src chunk `chunk` of the SELL layout st (on the card). The bound: the zs
@@ -1765,17 +1788,36 @@ def phase_products_full(dev, card):
                 launches=launches)
 
 
-def phase_k4_at_products_full(pf, card):
-    """K4 against its twin and float64, and K2 on a dst chunk without
-    packets against its launch with them, its twin and float64, at each
-    products-full layer's shapes on chunk 0 (the layer's projections from
-    the start weights, sigma from its chunked forward, a seeded random
-    upstream gradient); each layer's K4 time beside its bound and its
-    twin's."""
+def products_full_layers(pf, seed):
+    """Per products-full layer l: (l, (zs, zd, g, sigma, r, a)), the
+    backward kernels' tables at the layer's shapes: its projections from
+    the start weights, sigma from its chunked forward, a random upstream
+    gradient g (torch.Generator seed `seed`) and r = <g, out>."""
     tr, config = pf["trainer"], pf["config"]
     st = tr.edge_tiles
     model = copy.deepcopy(pf["start"]).to(st.srcs.perm.device)
-    gen = torch.Generator(device=st.srcs.perm.device).manual_seed(4)
+    gen = torch.Generator(device=st.srcs.perm.device).manual_seed(seed)
+    x = tr.features
+    for l, layer in enumerate(model.layers):
+        zs, zd = layer.project(x, config.precision)
+        a = layer.a.detach().contiguous()
+        heads, hd = a.shape[0], zs.shape[1]
+        out, sigma = sell_forward(zs, zd, a, x.shape[0],
+                                  negative_slope=SLOPE, sell_tiles=st)
+        gout = torch.randn(x.shape[0], hd, generator=gen, device=x.device)
+        rr = (gout * out).view(-1, heads, hd // heads).sum(-1)
+        del out
+        yield l, (zs, zd, gout, sigma, rr, a)
+        x = layer(x, None, None, is_last=l == len(model.layers) - 1,
+                  config=config, impl="sell", edge_tiles=st)
+
+
+def phase_k4_at_products_full(pf, card):
+    """K4 against its twin and float64, and K2 on a dst chunk without
+    packets against its launch with them, its twin and float64, at each
+    products-full layer's shapes on chunk 0 (products_full_layers); each
+    layer's K4 time beside its bound and its twin's."""
+    st = pf["trainer"].edge_tiles
     tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
                floor_ms=0.0)
     max_err = 0.0
@@ -1785,18 +1827,8 @@ def phase_k4_at_products_full(pf, card):
              st.dst.cnt_grp[0], st.dst.rel_off[0])
     kw = dict(negative_slope=SLOPE)
     with torch.no_grad():
-        x = tr.features
-        for l, layer in enumerate(model.layers):
-            zs, zd = layer.project(x, config.precision)
-            a = layer.a.detach().contiguous()
-            heads, hd = a.shape[0], zs.shape[1]
-            out, sigma = sell_forward(zs, zd, a, x.shape[0],
-                                      negative_slope=SLOPE, sell_tiles=st)
-            gout = torch.randn(x.shape[0], hd, generator=gen,
-                               device=x.device)
-            rr = (gout * out).view(-1, heads, hd // heads).sum(-1)
-            del out
-            tables = (zs, zd, gout, sigma, rr, a)
+        for l, tables in products_full_layers(pf, seed=4):
+            heads, hd = tables[5].shape[0], tables[0].shape[1]
             tag = f"products-full layer {l} chunk 0"
             dzs = sell_bwd_src(*tables, *lay_s, **kw)
             w_dzs = sell_bwd_src_plain(*tables, *lay_s, **kw)
@@ -1838,13 +1870,84 @@ def phase_k4_at_products_full(pf, card):
             tot["bound_ms"] += bound
             tot["bytes_ms"] += bound if by == "bytes" else 0.0
             tot["floor_ms"] += floor
-            del dzs, tables, zs, zd, gout
-            x = layer(x, None, None, is_last=l == len(model.layers) - 1,
-                      config=config, impl="sell", edge_tiles=st)
+            del dzs, tables
     print(f"  products-full sell_bwd_src, chunk 0 of each layer: "
           f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, per-edge "
           f"gather floor {tot['floor_ms']:.4f} ms, twin "
           f"{tot['plain_ms']:.3f} ms [{card}]")
+    return max_err, tot
+
+
+def phase_k1_k2_at_products_full(pf, card):
+    """K1 against its twin at each products-full layer's shapes on dst
+    chunk 0 (products_full_layers; K2 there is held to its twin and
+    float64 by phase_k4_at_products_full), and each layer's K1 and K2
+    (without packets, as the chunked backward launches it) time beside its
+    bound, per-edge gather floor and twin's time; then the bounds and
+    floors summed over every chunk and layer of one epoch, beside the
+    epoch's profile rows of K1 and K2."""
+    st = pf["trainer"].edge_tiles
+    side = st.dst
+    lay = (chunk_rows(side, st.spc_dst, 0), side.ids_grp[0],
+           side.cnt_grp[0], side.rel_off[0])
+    counts = [dst_chunk_counts(st, c) for c in range(st.num_chunks)]
+    names = ("sell_fwd", "sell_bwd_dst")
+    tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                   floor_ms=0.0) for k in names}
+    epoch = {k: dict(bound_ms=0.0, floor_ms=0.0) for k in names}
+    max_err = 0.0
+    fwd_kw = dict(negative_slope=SLOPE, normalize=not side.split)
+    bwd_kw = dict(negative_slope=SLOPE, emit_c1=False)
+    with torch.no_grad():
+        for l, tables in products_full_layers(pf, seed=5):
+            zs, zd, a = tables[0], tables[1], tables[5]
+            heads, hd = a.shape[0], zs.shape[1]
+            tag = f"products-full layer {l} chunk 0"
+            got = sell_fwd(zs, zd, a, *lay, **fwd_kw)
+            want = sell_fwd_plain(zs, zd, a, *lay, **fwd_kw)
+            for part, gv, wv in zip(("out", "m", "l"), got, want):
+                max_err = max(max_err, compare(
+                    f"{tag} K1 {part} [{tuple(gv.shape)}]", gv, wv,
+                    K1_RTOL, K1_ATOL))
+            del got, want
+            times = {
+                "sell_fwd": (
+                    cuda_ms(lambda: sell_fwd(zs, zd, a, *lay, **fwd_kw)),
+                    cuda_ms(lambda: sell_fwd_plain(zs, zd, a, *lay,
+                                                   **fwd_kw),
+                            reps=2, warmup=1)),
+                "sell_bwd_dst": (
+                    cuda_ms(lambda: sell_bwd_dst(*tables, *lay, **bwd_kw)),
+                    cuda_ms(lambda: sell_bwd_dst_plain(*tables, *lay,
+                                                       **bwd_kw),
+                            reps=2, warmup=1)),
+            }
+            bounds = k1_k2_bounds(counts[0], hd, heads, packets=False)
+            for c in counts:
+                for k, (bound, _, floor) in k1_k2_bounds(
+                        c, hd, heads, packets=False).items():
+                    epoch[k]["bound_ms"] += bound
+                    epoch[k]["floor_ms"] += floor
+            for k, (ms, plain_ms) in times.items():
+                bound, by, floor = bounds[k]
+                print(f"  {tag} H*D={hd}, {counts[0]['e']} real edges: {k} "
+                      f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), per-edge "
+                      f"gather floor {floor:.4f} ms, twin {plain_ms:.3f} ms, "
+                      f"library none [{card}]")
+                t = tot[k]
+                t["ms"] += ms
+                t["plain_ms"] += plain_ms
+                t["bound_ms"] += bound
+                t["bytes_ms"] += bound if by == "bytes" else 0.0
+                t["floor_ms"] += floor
+            del tables, zs, zd
+    for k, t in tot.items():
+        print(f"  products-full {k}, chunk 0 of each layer: {t['ms']:.4f} "
+              f"ms, bound {t['bound_ms']:.4f} ms, per-edge gather floor "
+              f"{t['floor_ms']:.4f} ms, twin {t['plain_ms']:.3f} ms; one "
+              f"epoch ({st.num_chunks} chunks x {len(pf['start'].layers)} "
+              f"layers): bound {epoch[k]['bound_ms']:.4f} ms, per-edge "
+              f"gather floor {epoch[k]['floor_ms']:.4f} ms [{card}]")
     return max_err, tot
 
 
@@ -2164,6 +2267,7 @@ def main() -> int:
     # default chunk budget is a quarter of it
     pf = phase_products_full(dev, card)
     err_k4, k4_totals = phase_k4_at_products_full(pf, card)
+    err_pf_k1, _ = phase_k1_k2_at_products_full(pf, card)
     pf_launches = pf["launches"]
     del pf
     torch.cuda.empty_cache()
@@ -2191,7 +2295,7 @@ def main() -> int:
     pfs = phase_products_sub_full_graph(mb, dev, card)
     err_k8, k8_totals = phase_k8_at_products_sub(mb, pfs, card)
     measured = {
-        "sell_fwd": (totals["arxiv"], max(err_main, err_cases)),
+        "sell_fwd": (totals["arxiv"], max(err_main, err_cases, err_pf_k1)),
         "sell_bwd_dst": (bwd_totals["arxiv"]["sell_bwd_dst"],
                          max(err_bwd["sell_bwd_dst"], err_bwd_cases)),
         "sell_segsum": (bwd_totals["arxiv"]["sell_segsum"],

@@ -1,5 +1,6 @@
-// Lane groups sized to the width: the row layout shared by K4
-// (sell_bwd_src.cu) and K5 (pallas_fwd.cu).
+// Lane groups sized to the width: the row layout shared by K1
+// (sell_fwd.cu), K2 (sell_bwd_dst.cu), K4 (sell_bwd_src.cu) and K5
+// (pallas_fwd.cu).
 //
 // A row of H*D fp32 features is owned by a group of LG lanes (a power of
 // two, at most 32), so a warp holds 32 / LG rows. Inside the group, head h
@@ -124,6 +125,24 @@ struct Lane {
 __device__ __forceinline__ float head_sum(float v, int lph, unsigned mask) {
   for (int o = lph >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
   return v;
+}
+
+// The real-slot count of row r of a SELL-128 slice whose ncols columns
+// start at column c0 (K1, K2, K4). Slices are column-major and
+// length-descending, so slot (column k, row r) is real iff r < cnt[k], and
+// a row's real slots are a prefix of its columns: one binary search for
+// the first column with cnt <= r. The slice's rows share its cnt in L1.
+__device__ __forceinline__ int sell_row_slots(const int* __restrict__ cnt,
+                                              int c0, int ncols, int r) {
+  int lo = 0, hi = ncols;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (__ldg(cnt + c0 + mid) > r)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
 }
 
 // The lanes of this lane's group of `lg` lanes.

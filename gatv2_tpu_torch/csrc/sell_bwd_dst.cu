@@ -17,64 +17,89 @@
 // sums per source row into d_zs. On a chunked layout (the TPU kernel's
 // emit_c1=False, one launch per chunk of slices) c1 is null and no packet
 // is written: K4 (sell_bwd_src.cu) recomputes each edge's packet from the
-// source side instead. dzd and d_a are the same numbers either way.
+// source side instead. dzd and d_a are the same numbers either way. Padding
+// slots are left unwritten in c1 (K3 skips them by the same count); in the
+// masked TPU algebra a padding slot of a row with edges adds exp(-80) * r
+// ~ 1e-35 * r, below fp32 resolution, and a row without edges gets exactly
+// 0, which is written directly.
 //
-// What bounds it on this card: memory. Each real edge reads one zs row and
-// writes one c1 row of H*D fp32 (2 KB per edge at H*D = 256), against about
-// 15 fp32 operations per feature, far below the card's fp32 rate per byte.
+// What bounds it on this card: memory. Each real edge reads one zs row
+// (and, with packets, writes one c1 row) of H*D fp32, against about 15
+// fp32 operations per feature, far below the card's fp32 rate per byte. On
+// a random graph whose zs table (1.25 GB at H*D = 128 on products-full)
+// dwarfs the 50 MB L2, the zs reads are the per-edge gather floor: one row
+// per edge in 32-byte sectors, plus the rows' zd, g, sigma, r and dzd.
 //
-// What this simple design does about it:
-//  - zs rows are read straight through gather_ids and each row's zd, g,
-//    sigma and r once through perm: no pre-gathered [e_ell, H*D] stream and
-//    no packed [sigma | r] block is written and read back, as the TPU path
-//    does (its A2, bdiag, rsig and rr matrices exist for the TPU's 128 lanes
-//    and are dropped);
-//  - one warp per virtual row; lane t holds features t, t+32, ..., so every
-//    zs read and c1 write is coalesced, and the next edge's zs row is loaded
-//    while the current one is processed;
-//  - only the row's real slots are visited: in column-major, length-
-//    descending slices, slot (column k, row r) is real iff r < cnt[k], a
-//    prefix of the row's columns. Padding slots are left unwritten in c1 (K3
-//    skips them by the same count). In the masked TPU algebra a padding slot
-//    of a row with edges adds exp(-80) * r ~ 1e-35 * r, below fp32
-//    resolution, and a row without edges gets exactly 0, which is written
-//    directly;
-//  - each head's two dot products (score and dalpha) are summed by a group
-//    of G = 32/H (power of two) lanes over shared memory, then by shuffles,
-//    so each edge costs H exponentials, not H*D;
-//  - d_a is summed per thread block in a fixed order and written as one
-//    partial per block (no float atomics, so the result is deterministic);
-//    the wrapper sums the partials. Blocks stride over rows so the partials
-//    stay few.
-// Faster variants (several rows per warp, TMA, c1 written in source-row
-// order) come later.
+// The design (a first version gave one warp to each row, summed both head
+// dot products over shared memory and broadcast alpha and de per edge by
+// shuffles, with one zs row in flight: 3.72 / 1.92 / 1.92 ms at
+// H*D = 128 / 32 / 16 on products-full chunk 0 without packets, 37.81 ms
+// of a 152.11 ms epoch):
+//  - lane groups sized to the width (lane_groups.cuh), as in K1: a row gets
+//    ceil(H*D/4) lanes rounded to a power of two, so a warp works on 32 / LG
+//    consecutive rows of one slice; 16-byte vectors when D % 4 == 0 and the
+//    tables are aligned; the row's zd and g vectors and its head's sigma
+//    and r are loaded once per row;
+//  - the score and dalpha head sums are the lane's own sums plus
+//    __shfl_xor_sync rounds inside the head's lanes, and every lane of a
+//    head computes alpha and de itself: no shared memory, no __syncwarp and
+//    no broadcast per edge; with packets, each edge's c1 row is written by
+//    the group's vector stores in slot order;
+//  - a rotating register ring of R = kRing<F> zs rows: while a group
+//    computes edge k, the loads of edges k+1 .. k+R-1 are in flight and the
+//    ids of the next R edges are loaded; the register budget is cut per
+//    width (kMinBlocks). Unlike K1 (one edge at a time, 64 warps an SM),
+//    K2's longer per-edge chain (two head sums, then alpha, de, dzd and
+//    d_a) wants a load in flight during it: a ring of 2 at 4 blocks an SM;
+//  - a row's slot count is one binary search over its slice's cnt
+//    (sell_row_slots); padding slots are never read;
+//  - d_a is deterministic, with no float atomics: each lane sums its own
+//    features over the rows its group takes (blocks stride over the rows in
+//    a group-uniform loop, so the partials stay few); at the end the warp's
+//    groups are added by __shfl_xor_sync over the group-index bits and the
+//    block's warps in warp order through shared memory, one partial per
+//    block, which the wrapper sums in a fixed order.
+// Measured (tools/torch_kernel_variants.py on a synthetic products-full
+// dst chunk 0, without packets; NVIDIA H100 80GB HBM3, 700.00 W): 3.22 /
+// 0.904 / 0.527 ms at H*D = 128 / 32 / 16 and 5.63 ms at 256, where a bare
+// gather of one zs row per real slot takes 2.15 / 0.585 / 0.397 and 4.25
+// ms: within 1.33-1.55x of it (K2 also reads each row's zd and g and does
+// about twice K1's work per edge). A first build of this design, a batch
+// ring (R loads, then R computes) of 4 at 3 blocks, took 4.85 / 1.34 /
+// 0.753 ms; one edge at a time at 6 blocks 3.75 / 1.055 / 0.619; a ring of
+// 4 at 3 blocks 3.61 / 0.981 / 0.565; evict-first zs loads 3.23 / 0.909 /
+// 0.538 ms (no gain at F = 4).
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "lane_groups.cuh"
+
 namespace {
 
+using namespace lane_groups;
+
 constexpr int kTileN = 128;    // rows per SELL slice
-constexpr int kWarps = 8;      // rows in flight per thread block
+constexpr int kBlock = 256;    // threads per block (ops/sell_bwd_dst.py BLOCK)
+constexpr int kWarps = kBlock / 32;
 constexpr int kMaxHd = 512;    // H*D per launch (the op splits heads)
-constexpr int kMaxHeads = 32;  // heads per launch: one lane group each
+constexpr int kMaxHeads = 32;  // heads per launch
 constexpr float kExpClamp = -80.0f;
-constexpr unsigned kFull = 0xffffffffu;
+// zs rows are read with ordinary loads, as in K1 (sell_fwd.cu).
+constexpr bool kZsEvictFirst = false;
 
-template <int NF>
-__device__ __forceinline__ void load_row(float (&z)[NF],
-                                         const float* __restrict__ row,
-                                         int lane, int hd) {
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = lane + 32 * j;
-    z[j] = f < hd ? __ldg(row + f) : 0.f;
-  }
-}
+// zs rows a group keeps in the ring, and the blocks per SM the register
+// budget is cut for, by F = floats per lane: at F = 4 two at 4 blocks (63
+// registers), at F = 8 two at 2 (106; 5.63 ms against 5.94 for one at 4
+// blocks), measured as above; wider lanes keep one row at 1 block.
+template <int F>
+constexpr int kRing = F <= 8 ? 2 : 1;
+template <int F>
+constexpr int kMinBlocks = F <= 4 ? 4 : F <= 8 ? 2 : 1;
 
-template <int NF>  // features per lane: H*D <= 32 * NF
-__global__ void __launch_bounds__(kWarps * 32)
+template <int VEC, int NV>
+__global__ void __launch_bounds__(kBlock, kMinBlocks<NV * VEC>)
 sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const float* __restrict__ g,
                     const float* __restrict__ sigma,
@@ -83,150 +108,124 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const int* __restrict__ gather_ids,
                     const int* __restrict__ cnt,
                     const int* __restrict__ col_off, int rows, int heads,
-                    int head_dim, float slope, float* __restrict__ dzd,
-                    float* __restrict__ da_part, float* __restrict__ c1) {
-  // per-feature terms of the two head sums: a_f * s_act_f and g_f * zs_f
-  __shared__ float part_sc[kWarps][32 * NF];
-  __shared__ float part_dal[kWarps][32 * NF];
-  const int warp = threadIdx.x >> 5;
+                    int head_dim, int lg, int lph, int qph, float slope,
+                    float* __restrict__ dzd, float* __restrict__ da_part,
+                    float* __restrict__ c1) {
+  constexpr int F = NV * VEC;
+  constexpr int R = kRing<F>;
+  __shared__ float s_da[kWarps][kMaxHd];  // each warp's d_a sums
   const int lane = threadIdx.x & 31;
   const int hd = heads * head_dim;
-  // lane groups: G lanes sum head h = lane / G
-  int group = 1;
-  while (group * 2 * heads <= 32) group *= 2;
-  const int h = lane / group;
-  const int gl = lane % group;
-
-  int src_lane[NF];  // a lane of the group owning each feature's head
-  float av[NF];
-  float da_acc[NF];
+  const int gl = lane & (lg - 1);
+  const unsigned mask = group_mask(lane, lg);
+  const int h = gl / lph;
+  const bool own_head = h < heads;
+  Lane<VEC, NV> ln;
+  ln.init(gl, lph, qph, heads, head_dim);
+  float av[F], da_acc[F];
+  ln.load(av, a);
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = lane + 32 * j;
-    src_lane[j] = f < hd ? (f / head_dim) * group : 0;
-    av[j] = f < hd ? a[f] : 0.f;
-    da_acc[j] = 0.f;
-  }
-  float* ps = part_sc[warp];
-  float* pq = part_dal[warp];
+  for (int f = 0; f < F; ++f) da_acc[f] = 0.f;
   const bool emit = c1 != nullptr;  // uniform over the launch
+  const int rows_per_block = kBlock / lg;
 
-  for (int row = blockIdx.x * kWarps + warp; row < rows;
-       row += gridDim.x * kWarps) {  // warp-uniform
+  for (int row = blockIdx.x * rows_per_block + threadIdx.x / lg; row < rows;
+       row += gridDim.x * rows_per_block) {  // group-uniform
     const int r = row % kTileN;
     const int c0 = col_off[row / kTileN];
-    const int ncols = col_off[row / kTileN + 1] - c0;
-    float dacc[NF];
+    const int deg =
+        sell_row_slots(cnt, c0, col_off[row / kTileN + 1] - c0, r);
+    float dacc[F];
 #pragma unroll
-    for (int j = 0; j < NF; ++j) dacc[j] = 0.f;
-
-    if (ncols > 0 && r < cnt[c0]) {
+    for (int f = 0; f < F; ++f) dacc[f] = 0.f;
+    if (deg > 0) {
       const int node = perm[row];
-      const float* zd_row = zd + (size_t)node * hd;
-      const float* g_row = g + (size_t)node * hd;
-      float zdv[NF], gv[NF];
+      float zdv[F], gv[F];
+      ln.load(zdv, zd + (size_t)node * hd);
+      ln.load(gv, g + (size_t)node * hd);
+      const float sig = own_head ? __ldg(sigma + (size_t)node * heads + h)
+                                 : 0.f;
+      const float r_h = own_head ? __ldg(rr + (size_t)node * heads + h) : 0.f;
+      const int* ids = gather_ids + (size_t)c0 * kTileN + r;  // column k: k*128
+      // the ring: slot j holds an edge's zs row from its load to its
+      // compute, and id[j] the source id of the next edge loaded into it;
+      // while edge k is computed, the loads of edges k+1 .. k+R-1 are in
+      // flight and the ids of the next R edges are known
+      int id[R];
+      float z[R][F];
 #pragma unroll
-      for (int j = 0; j < NF; ++j) {
-        const int f = lane + 32 * j;
-        zdv[j] = f < hd ? zd_row[f] : 0.f;
-        gv[j] = f < hd ? g_row[f] : 0.f;
+      for (int j = 0; j < R; ++j)
+        id[j] = j < deg ? __ldg(ids + j * kTileN) : 0;
+#pragma unroll
+      for (int j = 0; j + 1 < R; ++j) {
+        if (j < deg) ln.load(z[j], zs + (size_t)id[j] * hd, kZsEvictFirst);
+        id[j] = j + R < deg ? __ldg(ids + (size_t)(j + R) * kTileN) : 0;
       }
-      const float sig_h = h < heads ? sigma[(size_t)node * heads + h] : 0.f;
-      const float r_h = h < heads ? rr[(size_t)node * heads + h] : 0.f;
-      for (int k0 = 0; k0 < ncols; k0 += 32) {
-        const int k = k0 + lane;
-        const bool real = k < ncols && r < cnt[c0 + k];
-        // real slots are a prefix, so the count is the first non-real lane
-        const int nb = __popc(__ballot_sync(kFull, real));
-        const int my_id =
-            real ? gather_ids[(size_t)(c0 + k) * kTileN + r] : 0;
-        float zn[NF];
-        load_row<NF>(zn, zs + (size_t)__shfl_sync(kFull, my_id, 0) * hd,
-                     lane, hd);
-        for (int t = 0; t < nb; ++t) {
-          float z[NF];
+      for (int k0 = 0; k0 < deg; k0 += R) {
 #pragma unroll
-          for (int j = 0; j < NF; ++j) z[j] = zn[j];
-          const int next = __shfl_sync(kFull, my_id, (t + 1) & 31);
-          if (t + 1 < nb) load_row<NF>(zn, zs + (size_t)next * hd, lane, hd);
-#pragma unroll
-          for (int j = 0; j < NF; ++j) {
-            const int f = lane + 32 * j;
-            if (f < hd) {
-              const float s = z[j] + zdv[j];
-              ps[f] = av[j] * (s > 0.f ? s : slope * s);
-              pq[f] = gv[j] * z[j];
-            }
+        for (int i = 0; i < R; ++i) {
+          const int k = k0 + i;
+          if (k >= deg) break;  // group-uniform
+          const int j = (i + R - 1) % R;  // the slot of edge k + R - 1
+          if (k + R - 1 < deg) {
+            ln.load(z[j], zs + (size_t)id[j] * hd, kZsEvictFirst);
+            const int kn = k + 2 * R - 1;
+            id[j] = kn < deg ? __ldg(ids + (size_t)kn * kTileN) : 0;
           }
-          __syncwarp();
           float sc = 0.f, dal = 0.f;
-          if (h < heads) {
-            for (int d = gl; d < head_dim; d += group) {
-              sc += ps[h * head_dim + d];
-              dal += pq[h * head_dim + d];
-            }
-          }
-          for (int o = group / 2; o > 0; o >>= 1) {
-            sc += __shfl_xor_sync(kFull, sc, o);
-            dal += __shfl_xor_sync(kFull, dal, o);
-          }
-          __syncwarp();  // every read of ps/pq is done before the next edge
-          const float alpha = expf(fminf(fmaxf(sc - sig_h, kExpClamp), 0.f));
-          const float de = alpha * (dal - r_h);
-          float* c1_row =
-              emit ? c1 + ((size_t)(c0 + k0 + t) * kTileN + r) * hd : nullptr;
 #pragma unroll
-          for (int j = 0; j < NF; ++j) {
-            const int f = lane + 32 * j;
-            const float aj = emit ? __shfl_sync(kFull, alpha, src_lane[j]) : 0.f;
-            const float dej = __shfl_sync(kFull, de, src_lane[j]);
-            if (f < hd) {
-              const float s = z[j] + zdv[j];
-              const bool pos = s > 0.f;
-              const float ds = dej * av[j] * (pos ? 1.f : slope);
-              dacc[j] += ds;
-              da_acc[j] += dej * (pos ? s : slope * s);
-              if (emit) c1_row[f] = aj * gv[j] + ds;
-            }
+          for (int f = 0; f < F; ++f) {
+            const float s = z[i][f] + zdv[f];
+            sc += av[f] * (s > 0.f ? s : slope * s);
+            dal += gv[f] * z[i][f];
           }
+          sc = head_sum(sc, lph, mask);
+          dal = head_sum(dal, lph, mask);
+          const float alpha = expf(fminf(fmaxf(sc - sig, kExpClamp), 0.f));
+          const float de = alpha * (dal - r_h);
+          float pk[F];  // this edge's packet c1
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            const float s = z[i][f] + zdv[f];
+            const bool pos = s > 0.f;
+            const float ds = de * av[f] * (pos ? 1.f : slope);
+            // explicit roundings: whether the packet is written (ds used
+            // twice or once) must not change how dzd and d_a are contracted
+            dacc[f] = __fadd_rn(dacc[f], ds);
+            da_acc[f] = fmaf(de, pos ? s : slope * s, da_acc[f]);
+            pk[f] = alpha * gv[f] + ds;
+          }
+          if (emit)
+            ln.store(c1 + ((size_t)(c0 + k) * kTileN + r) * hd, pk);
         }
-        if (nb < 32) break;
       }
     }
-#pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      const int f = lane + 32 * j;
-      if (f < hd) dzd[(size_t)row * hd + f] = dacc[j];
-    }
+    ln.store(dzd + (size_t)row * hd, dacc);
   }
 
-  // the block's d_a partial: the warps' sums added in warp order
-  __syncthreads();  // every warp is done with its part_sc row
+  // the block's d_a partial: the warp's groups added over the group-index
+  // bits (every lane ends with the same sums), then the warps in warp order
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = lane + 32 * j;
-    if (f < hd) part_sc[warp][f] = da_acc[j];
+  for (int f = 0; f < F; ++f)
+    for (int o = lg; o < 32; o <<= 1)
+      da_acc[f] += __shfl_xor_sync(kFull, da_acc[f], o);
+  const int warp = threadIdx.x >> 5;
+  if (lane < lg) {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if (!ln.ok[j]) continue;
+#pragma unroll
+      for (int v = 0; v < VEC; ++v)
+        s_da[warp][ln.off[j] + v] = da_acc[VEC * j + v];
+    }
   }
   __syncthreads();
-  for (int f = threadIdx.x; f < hd; f += kWarps * 32) {
+  for (int f = threadIdx.x; f < hd; f += kBlock) {
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += part_sc[w][f];
+    for (int w = 0; w < kWarps; ++w) s += s_da[w][f];
     da_part[(size_t)blockIdx.x * hd + f] = s;
   }
-}
-
-template <int NF>
-int launch(const float* zs, const float* zd, const float* g,
-           const float* sigma, const float* rr, const float* a,
-           const int* perm, const int* gather_ids, const int* cnt,
-           const int* col_off, int rows, int heads, int head_dim, float slope,
-           int blocks, float* dzd, float* da_part, float* c1,
-           cudaStream_t stream) {
-  sell_bwd_dst_kernel<NF><<<blocks, kWarps * 32, 0, stream>>>(
-      zs, zd, g, sigma, rr, a, perm, gather_ids, cnt, col_off, rows, heads,
-      head_dim, slope, dzd, da_part, c1);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -234,9 +233,9 @@ int launch(const float* zs, const float* zd, const float* g,
 extern "C" {
 
 // Launches K2 on `stream` for `rows` virtual rows (a multiple of 128) with
-// `blocks` thread blocks of 8 warps; da_part holds blocks x H*D partials.
-// c1 may be null: then no packet is written. Returns the cudaError_t of the
-// launch (0 on success).
+// `blocks` thread blocks of kBlock threads, which stride over the rows;
+// da_part holds blocks x H*D partials. c1 may be null: then no packet is
+// written. Returns the cudaError_t of the launch (0 on success).
 int gatv2_sell_bwd_dst(const float* zs, const float* zd, const float* g,
                        const float* sigma, const float* r, const float* a,
                        const int* perm, const int* gather_ids, const int* cnt,
@@ -247,26 +246,18 @@ int gatv2_sell_bwd_dst(const float* zs, const float* zd, const float* g,
   if (rows <= 0 || blocks <= 0 || heads <= 0 || heads > kMaxHeads ||
       head_dim <= 0 || hd > kMaxHd)
     return (int)cudaErrorInvalidValue;
-  const int nf = (hd + 31) / 32;
-  if (nf <= 1)
-    return launch<1>(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-                     rows, heads, head_dim, slope, blocks, dzd, da_part, c1,
-                     stream);
-  if (nf <= 2)
-    return launch<2>(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-                     rows, heads, head_dim, slope, blocks, dzd, da_part, c1,
-                     stream);
-  if (nf <= 4)
-    return launch<4>(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-                     rows, heads, head_dim, slope, blocks, dzd, da_part, c1,
-                     stream);
-  if (nf <= 8)
-    return launch<8>(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-                     rows, heads, head_dim, slope, blocks, dzd, da_part, c1,
-                     stream);
-  return launch<16>(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-                    rows, heads, head_dim, slope, blocks, dzd, da_part, c1,
-                    stream);
+  const Geometry geo = geometry(
+      heads, head_dim,
+      aligned16(zs) && aligned16(zd) && aligned16(g) && aligned16(a) &&
+          aligned16(dzd) && (c1 == nullptr || aligned16(c1)));
+  return dispatch(geo, [&](auto vec, auto nv) {
+    sell_bwd_dst_kernel<decltype(vec)::value, decltype(nv)::value>
+        <<<blocks, kBlock, 0, stream>>>(
+            zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, rows,
+            heads, head_dim, geo.lg, geo.lph, geo.qph, slope, dzd, da_part,
+            c1);
+    return (int)cudaGetLastError();
+  });
 }
 
 const char* gatv2_cuda_error_string(int code) {

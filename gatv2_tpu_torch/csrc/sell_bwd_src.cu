@@ -118,15 +118,7 @@ sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
   // the row's real slots: the first `deg` columns of its slice
   const int r = row % kTileN;
   const int c0 = col_off[row / kTileN];
-  int lo = 0, hi = col_off[row / kTileN + 1] - c0;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (__ldg(cnt + c0 + mid) > r)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  const int deg = lo;
+  const int deg = sell_row_slots(cnt, c0, col_off[row / kTileN + 1] - c0, r);
 
   float acc[F];
 #pragma unroll

@@ -8,181 +8,176 @@
 // accumulating acc = sum exp(score - m) * zs[src], with the reference's
 // exp(clip(score - m, -80, 0)) and +1e-8 denominator. It writes, per row,
 // out = acc / (l + 1e-8) (normalize) or the raw acc (!normalize, for the
-// virtual-row merge), and the compact per-head max m and sum-exp l.
+// virtual-row merge), and the compact per-head max m and sum-exp l. A row
+// without a real edge writes out = 0, m = -1e30 and l = the slice's column
+// count (each masked padding column adds exp(0) = 1 in the reference).
 //
-// What bounds it on this card: memory. Each real edge reads one zs row of
-// H*D fp32 (1 KB at H*D = 256) and a 4-byte gather id and does about a
-// dozen fp32 operations per element, below the card's fp32 rate per byte.
+// What bounds it on this card: memory, and on a random graph not the
+// kernel's byte bound (each zs row read once) but the per-edge gather
+// floor: the zs table (1.25 GB at H*D = 128 on products-full) is far
+// larger than the 50 MB L2 and a random graph's sources have no locality,
+// so each real edge reads one zs row from device memory in 32-byte
+// sectors, plus its 4-byte gather id. Every edge's gather is independent,
+// so what the design has to do is keep enough of them in flight and spend
+// few instructions per edge.
 //
-// What this simple design does about it:
-//  - zs rows are read straight through gather_ids, and each row's zd once
-//    through perm: no pre-gathered [e_ell, H*D] stream is written to and
-//    read back from device memory, as the TPU path does;
-//  - one warp per virtual row; lane t holds features t, t+32, ..., so every
-//    row read is coalesced (128 bytes per warp instruction), and the next
-//    edge's row is loaded while the current one is processed;
-//  - only the row's real slots are read. Slices are length-descending, so
-//    slot (column k, row r) is real iff r < cnt[k]: a prefix of the row's
-//    columns. In the masked reference a padding slot leaves a row with
-//    edges unchanged (its exp(-80) term is below the ulp of l >= 1), and a
-//    row with no edge ends with m = -1e30 and l = the slice's column count,
-//    which is written directly;
-//  - 32 gather ids are loaded at once, one per lane, then broadcast by
-//    shuffle;
-//  - each head's score is summed by a group of G = 32/H (power of two)
-//    lanes over shared memory, then by shuffles; the group's first lane
-//    keeps the head's running max and sum-exp and broadcasts the rescale
-//    factors, so each edge costs 2H exponentials, not 2HD.
-// Faster variants (several rows in flight per warp, TMA) come later.
+// The design (a first version gave one warp to each row, summed heads
+// over shared memory and broadcast the softmax factors per edge from an
+// owner lane, with one zs row in flight: 3.37 / 1.52 / 1.52 ms at
+// H*D = 128 / 32 / 16 on products-full chunk 0, 32.11 ms of a 152.11 ms
+// epoch):
+//  - lane groups sized to the width (lane_groups.cuh): a row gets
+//    ceil(H*D/4) lanes rounded to a power of two (4 lanes at H*D = 16, 8
+//    at 32, 32 at 128 and above), so a warp works on 32 / LG consecutive
+//    rows of one slice (length-descending, so of similar lengths) and no
+//    lane idles at the narrow widths; rows are read as 16-byte vectors
+//    when D % 4 == 0 and the tables are aligned, else 4-byte loads;
+//  - each head's score is the lane's own sum plus __shfl_xor_sync rounds
+//    inside the head's lanes, and every lane of a head keeps the head's
+//    running max and sum-exp itself: no shared memory, no __syncwarp and
+//    no broadcast per edge;
+//  - a register ring of R = kRing<F> edges: a group issues the zs loads of
+//    R edges (and the next R gather ids) before it computes the first of
+//    them, takes the batch's max once and rescales once per batch (R + 1
+//    exponentials per head for R edges); the register budget is cut per
+//    width (kMinBlocks) so that enough warps share an SM to cover the
+//    gathers' latency. Occupancy won over depth (below): at F = 4 floats a
+//    lane, every products-full layer, the ring is one edge deep, with the
+//    next edge's id loaded ahead, at 8 blocks (64 warps) an SM;
+//  - a row's real slots are a prefix of its slice's columns, so its slot
+//    count is one binary search over the slice's cnt (sell_row_slots);
+//    padding slots are never read.
+// Measured (tools/torch_kernel_variants.py on a synthetic products-full
+// dst chunk 0; NVIDIA H100 80GB HBM3, 700.00 W): 2.49 / 0.665 / 0.436 ms at
+// H*D = 128 / 32 / 16 and 4.87 ms at 256, where a bare gather of one zs row
+// per real slot in the same order takes 2.15 / 0.585 / 0.397 and 4.25 ms:
+// the kernel is within 1.10-1.16x of what the memory system delivers for
+// its access pattern. A first build of this design (a ring of 4 at 4
+// blocks at F = 4, 3 at F = 8) took 3.12 / 0.876 / 0.529 and 5.38 ms; a
+// ring of 2 at 6 blocks 2.75 / 0.758 / 0.470; evict-first zs loads
+// 2.46 / 0.681 / 0.460 ms (no gain, so zs is read with ordinary loads).
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
+#include "lane_groups.cuh"
+
 namespace {
 
+using namespace lane_groups;
+
 constexpr int kTileN = 128;    // rows per SELL slice
-constexpr int kWarps = 8;      // rows per thread block
+constexpr int kBlock = 256;    // threads per block
 constexpr int kMaxHd = 512;    // H*D per launch (the wrapper splits heads)
-constexpr int kMaxHeads = 32;  // heads per launch: one lane group each
+constexpr int kMaxHeads = 32;  // heads per launch
 constexpr float kNegInf = -1e30f;
 constexpr float kExpClamp = -80.0f;
 constexpr float kSoftmaxEps = 1e-8f;
-constexpr unsigned kFull = 0xffffffffu;
+// zs rows are read with ordinary loads: a zs row is read by every edge out
+// of its node (about 5 times per products-full chunk), and the narrow
+// layers' tables (157 MB at H*D = 16) are not far above the L2.
+constexpr bool kZsEvictFirst = false;
 
-template <int NF>
-__device__ __forceinline__ void load_row(float (&z)[NF],
-                                         const float* __restrict__ row,
-                                         int lane, int hd) {
-#pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = lane + 32 * j;
-    z[j] = f < hd ? __ldg(row + f) : 0.f;
-  }
-}
+// Edges a group keeps in flight (the register ring), and the blocks per SM
+// the register budget is cut for, by F = floats per lane: at F = 4 one
+// edge at 8 blocks (32 registers), at F = 8 two at 4 (64), measured as
+// above; wider lanes keep fewer blocks.
+template <int F>
+constexpr int kRing = F <= 4 ? 1 : F <= 16 ? 2 : 1;
+template <int F>
+constexpr int kMinBlocks = F <= 4 ? 8 : F <= 8 ? 4 : F <= 16 ? 2 : 1;
 
-template <int NF>  // features per lane: H*D <= 32 * NF
-__global__ void __launch_bounds__(kWarps * 32)
+template <int VEC, int NV>
+__global__ void __launch_bounds__(kBlock, kMinBlocks<NV * VEC>)
 sell_fwd_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                 const float* __restrict__ a, const int* __restrict__ perm,
                 const int* __restrict__ gather_ids,
                 const int* __restrict__ cnt, const int* __restrict__ col_off,
-                int rows, int heads, int head_dim, float slope, int normalize,
-                float* __restrict__ out, float* __restrict__ m_out,
-                float* __restrict__ l_out) {
-  __shared__ float part[kWarps][32 * NF];  // a_f * LeakyReLU(s_f)
-  const int warp = threadIdx.x >> 5;
+                int rows, int heads, int head_dim, int lg, int lph, int qph,
+                float slope, int normalize, float* __restrict__ out,
+                float* __restrict__ m_out, float* __restrict__ l_out) {
+  constexpr int F = NV * VEC;
+  constexpr int R = kRing<F>;
+  const int row = (blockIdx.x * kBlock + threadIdx.x) / lg;
+  if (row >= rows) return;  // group-uniform; the kernel syncs groups only
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= rows) return;  // warp-uniform; the kernel syncs warps only
   const int hd = heads * head_dim;
+  const int gl = lane & (lg - 1);
+  const unsigned mask = group_mask(lane, lg);
+  const int h = gl / lph, sub = gl % lph;
+  Lane<VEC, NV> ln;
+  ln.init(gl, lph, qph, heads, head_dim);
+
   const int r = row % kTileN;
   const int c0 = col_off[row / kTileN];
   const int ncols = col_off[row / kTileN + 1] - c0;
-  // lane groups: G lanes sum head h = lane / G; lane h * G owns its stats
-  int group = 1;
-  while (group * 2 * heads <= 32) group *= 2;
-  const int h = lane / group;
-  const int g = lane % group;
-  const bool owner = g == 0 && h < heads;
+  const int deg = sell_row_slots(cnt, c0, ncols, r);
 
-  int src_lane[NF];  // the lane owning the head of each of this lane's features
-  float acc[NF];
+  float acc[F];
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = lane + 32 * j;
-    src_lane[j] = f < hd ? (f / head_dim) * group : 0;
-    acc[j] = 0.f;
-  }
-  float mh = kNegInf, lh = 0.f;  // the head's stats, on owner lanes
-
-  if (ncols > 0 && r < cnt[c0]) {
-    float zdv[NF], av[NF];
-    const float* zd_row = zd + (size_t)perm[row] * hd;
+  for (int f = 0; f < F; ++f) acc[f] = 0.f;
+  float m = kNegInf, l = 0.f;  // this lane's head's running max and sum-exp
+  if (deg > 0) {
+    float zdv[F], av[F];
+    ln.load(zdv, zd + (size_t)perm[row] * hd);
+    ln.load(av, a);
+    const int* ids = gather_ids + (size_t)c0 * kTileN + r;  // column k: k*128
+    int id[R];  // the batch's source ids, loaded one batch ahead
 #pragma unroll
-    for (int j = 0; j < NF; ++j) {
-      const int f = lane + 32 * j;
-      zdv[j] = f < hd ? zd_row[f] : 0.f;
-      av[j] = f < hd ? a[f] : 0.f;
-    }
-    float* pw = part[warp];
-    for (int k0 = 0; k0 < ncols; k0 += 32) {
-      const int k = k0 + lane;
-      const bool real = k < ncols && r < cnt[c0 + k];
-      // real slots are a prefix, so the count is the first non-real lane
-      const int nb = __popc(__ballot_sync(kFull, real));
-      const int my_id =
-          real ? gather_ids[(size_t)(c0 + k) * kTileN + r] : 0;
-      float zn[NF];
-      load_row<NF>(zn, zs + (size_t)__shfl_sync(kFull, my_id, 0) * hd,
-                   lane, hd);
-      for (int t = 0; t < nb; ++t) {
-        float z[NF];
+    for (int i = 0; i < R; ++i) id[i] = i < deg ? __ldg(ids + i * kTileN) : 0;
+    for (int k0 = 0; k0 < deg; k0 += R) {
+      float z[R][F];
 #pragma unroll
-        for (int j = 0; j < NF; ++j) z[j] = zn[j];
-        const int next = __shfl_sync(kFull, my_id, (t + 1) & 31);
-        if (t + 1 < nb) load_row<NF>(zn, zs + (size_t)next * hd, lane, hd);
+      for (int i = 0; i < R; ++i)
+        if (k0 + i < deg) ln.load(z[i], zs + (size_t)id[i] * hd, kZsEvictFirst);
 #pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          const int f = lane + 32 * j;
-          if (f < hd) {
-            const float s = z[j] + zdv[j];
-            pw[f] = av[j] * (s > 0.f ? s : slope * s);
-          }
-        }
-        __syncwarp();
-        float sc = 0.f;
-        if (h < heads)
-          for (int d = g; d < head_dim; d += group) sc += pw[h * head_dim + d];
-        for (int o = group / 2; o > 0; o >>= 1)
-          sc += __shfl_xor_sync(kFull, sc, o);
-        __syncwarp();  // every read of pw is done before the next edge
-        float c = 1.f, p = 0.f;
-        if (owner) {
-          const float new_m = fmaxf(mh, sc);
-          c = expf(mh - new_m);
-          p = expf(fminf(fmaxf(sc - new_m, kExpClamp), 0.f));
-          lh = c * lh + p;
-          mh = new_m;
-        }
-#pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          const float cj = __shfl_sync(kFull, c, src_lane[j]);
-          const float pj = __shfl_sync(kFull, p, src_lane[j]);
-          acc[j] = cj * acc[j] + pj * z[j];
-        }
+      for (int i = 0; i < R; ++i) {
+        const int k = k0 + R + i;
+        id[i] = k < deg ? __ldg(ids + (size_t)k * kTileN) : 0;
       }
-      if (nb < 32) break;
-    }
-  } else if (owner) {
-    // no real edge: each padding column adds exp(0) = 1 to l, m stays -1e30
-    lh = (float)ncols;
-  }
-
+      float sc[R];
+      float bm = m;
 #pragma unroll
-  for (int j = 0; j < NF; ++j) {
-    const int f = lane + 32 * j;
-    const float lj = __shfl_sync(kFull, lh, src_lane[j]);
-    if (f < hd)
-      out[(size_t)row * hd + f] =
-          normalize ? acc[j] / (lj + kSoftmaxEps) : acc[j];
+      for (int i = 0; i < R; ++i) {
+        if (k0 + i >= deg) break;  // group-uniform
+        float s_h = 0.f;
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          const float s = z[i][f] + zdv[f];
+          s_h += av[f] * (s > 0.f ? s : slope * s);
+        }
+        sc[i] = head_sum(s_h, lph, mask);
+        bm = fmaxf(bm, sc[i]);
+      }
+      const float c = expf(m - bm);
+      l *= c;
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] *= c;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        if (k0 + i >= deg) break;
+        const float p = expf(fminf(fmaxf(sc[i] - bm, kExpClamp), 0.f));
+        l += p;
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] += p * z[i][f];
+      }
+      m = bm;
+    }
+  } else {
+    // no real edge: each padding column adds exp(0) = 1 to l, m stays -1e30
+    l = (float)ncols;
   }
-  if (owner) {
-    m_out[(size_t)row * heads + h] = mh;
-    l_out[(size_t)row * heads + h] = lh;
-  }
-}
 
-template <int NF>
-int launch(const float* zs, const float* zd, const float* a, const int* perm,
-           const int* gather_ids, const int* cnt, const int* col_off,
-           int rows, int heads, int head_dim, float slope, int normalize,
-           float* out, float* m, float* l, cudaStream_t stream) {
-  const int blocks = (rows + kWarps - 1) / kWarps;
-  sell_fwd_kernel<NF><<<blocks, kWarps * 32, 0, stream>>>(
-      zs, zd, a, perm, gather_ids, cnt, col_off, rows, heads, head_dim, slope,
-      normalize, out, m, l);
-  return (int)cudaGetLastError();
+  if (normalize) {
+#pragma unroll
+    for (int f = 0; f < F; ++f) acc[f] = acc[f] / (l + kSoftmaxEps);
+  }
+  ln.store(out + (size_t)row * hd, acc);
+  if (sub == 0 && h < heads) {
+    m_out[(size_t)row * heads + h] = m;
+    l_out[(size_t)row * heads + h] = l;
+  }
 }
 
 }  // namespace
@@ -200,21 +195,18 @@ int gatv2_sell_fwd(const float* zs, const float* zd, const float* a,
   if (rows <= 0 || heads <= 0 || heads > kMaxHeads || head_dim <= 0 ||
       hd > kMaxHd)
     return (int)cudaErrorInvalidValue;
-  const int nf = (hd + 31) / 32;
-  if (nf <= 1)
-    return launch<1>(zs, zd, a, perm, gather_ids, cnt, col_off, rows, heads,
-                     head_dim, slope, normalize, out, m, l, stream);
-  if (nf <= 2)
-    return launch<2>(zs, zd, a, perm, gather_ids, cnt, col_off, rows, heads,
-                     head_dim, slope, normalize, out, m, l, stream);
-  if (nf <= 4)
-    return launch<4>(zs, zd, a, perm, gather_ids, cnt, col_off, rows, heads,
-                     head_dim, slope, normalize, out, m, l, stream);
-  if (nf <= 8)
-    return launch<8>(zs, zd, a, perm, gather_ids, cnt, col_off, rows, heads,
-                     head_dim, slope, normalize, out, m, l, stream);
-  return launch<16>(zs, zd, a, perm, gather_ids, cnt, col_off, rows, heads,
-                    head_dim, slope, normalize, out, m, l, stream);
+  const Geometry geo = geometry(
+      heads, head_dim,
+      aligned16(zs) && aligned16(zd) && aligned16(a) && aligned16(out));
+  const int rows_per_block = kBlock / geo.lg;
+  const int blocks = (rows + rows_per_block - 1) / rows_per_block;
+  return dispatch(geo, [&](auto vec, auto nv) {
+    sell_fwd_kernel<decltype(vec)::value, decltype(nv)::value>
+        <<<blocks, kBlock, 0, stream>>>(
+            zs, zd, a, perm, gather_ids, cnt, col_off, rows, heads, head_dim,
+            geo.lg, geo.lph, geo.qph, slope, normalize, out, m, l);
+    return (int)cudaGetLastError();
+  });
 }
 
 const char* gatv2_cuda_error_string(int code) {

@@ -333,13 +333,19 @@ def suggest_num_chunks_sell(
 ) -> int:
     """Chunk count so SELL edge-space temporaries stay under budget_bytes.
 
-    The JAX package's live-set model of the training backward, kept so
-    both packages chunk a graph alike: unchunked, phase 1 holds zs [E, hd]
-    + the c1 packets [E, hd] and phase 2a the permuted packets [E2, hd];
-    chunked, the widest per-chunk set is phase 2b's [zd | g] stream
-    [E2/G, 2hd] + sr [E2/G, 128]. The port's own chunked backward builds
-    none of those streams (K4 reads the node-order tables itself), so this
-    chunks earlier than the port's live set needs."""
+    The JAX package's live-set formula of the training backward:
+    unchunked, phase 1 holds zs [E, hd] + the c1 packets [E, hd] and phase
+    2a the permuted packets [E2, hd]; chunked, the widest per-chunk set is
+    phase 2b's [zd | g] stream [E2/G, 2hd] + sr [E2/G, 128]. The port's own
+    chunked backward builds none of those streams (K4 reads the node-order
+    tables itself), so this chunks earlier than the port's live set needs.
+
+    The formula is the JAX package's, the counts are not always:
+    suggest_chunks_for_graph passes the widest head group's H*D as it is,
+    where the JAX package rounds it up to a multiple of 128 lanes. At
+    narrow widths the port therefore keeps one chunk at budgets where the
+    JAX package already chunks, and then jumps further: at H*D = 16 it
+    goes from 1 to 4 chunks where the JAX package goes from 1 to 2."""
     if (2 * e_ell + e2_ell) * max_hd * 4 <= budget_bytes:
         return 1
     need = max(e_ell * max_hd, e2_ell * (2 * max_hd + 128)) * 4

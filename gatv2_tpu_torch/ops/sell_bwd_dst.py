@@ -38,10 +38,32 @@ import torch
 from gatv2_tpu_torch.ops.segment import EXP_CLAMP
 from gatv2_tpu_torch.ops.sell_fwd import MAX_HD, MAX_HEADS, NEG_INF, TILE_N
 
-WARPS = 8  # rows in flight per thread block (csrc/sell_bwd_dst.cu kWarps)
+BLOCK = 256  # threads per block (csrc/sell_bwd_dst.cu kBlock)
 # thread blocks per launch at most; blocks stride over the rows, so the d_a
 # partials (one per block) stay at most MAX_BLOCKS x H*D
 MAX_BLOCKS = 4096
+
+
+def rows_per_block(num_heads: int, head_dim: int, *tables) -> int:
+    """The rows one kernel block takes at a time: BLOCK threads over lane
+    groups of csrc/lane_groups.cuh's geometry() (vectors of 4 floats when
+    D is a multiple of 4 and every row table is 16-byte aligned, else 1; a
+    power of two of lanes per head, at most 32 lanes a row). The wrapper
+    sizes the grid by it; the kernel's grid-stride loop covers the rows
+    whatever the block count."""
+    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in tables)
+    qph = head_dim // 4 if head_dim % 4 == 0 and aligned else head_dim
+    cap = 1
+    while cap * 2 * num_heads <= 32:
+        cap *= 2
+    lph = 1
+    while lph < qph and lph < cap:
+        lph *= 2
+    lanes = 1
+    while lanes < num_heads * lph:
+        lanes *= 2
+    return BLOCK // lanes
+
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -167,7 +189,8 @@ def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
     fn = lib.gatv2_sell_bwd_dst
     fn.argtypes = [_P] * 10 + [_I] * 3 + [ctypes.c_float, _I] + [_P] * 4
     fn.restype = _I
-    blocks = min(-(-rows // WARPS), MAX_BLOCKS)
+    per_block = rows_per_block(num_heads, head_dim, zs, zd, g, a, dzd, c1)
+    blocks = min(-(-rows // per_block), MAX_BLOCKS)
     da_part = zs.new_empty((blocks, hd))
     with torch.cuda.device(zs.device):
         stream = torch.cuda.current_stream().cuda_stream

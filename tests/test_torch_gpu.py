@@ -98,6 +98,16 @@ def _sparse_src(n=600):
     return _csr_of(deg, rng.integers(0, 203, size=int(deg.sum())))
 
 
+def _sparse_dst(n=600):
+    """In-edges only into nodes 0..202: the SELL destination side's last
+    slices hold no edge at all, and its second slice ends mid-warp with
+    rows without an edge."""
+    rng = np.random.default_rng(15)
+    deg = np.zeros(n, np.int64)
+    deg[:203] = rng.integers(0, 9, size=203)
+    return _csr_of(deg, rng.integers(0, n, size=int(deg.sum())))
+
+
 def _layout(case):
     if case == "uniform":
         g = random_graph(2000, 14000, 8, 3, seed=11)
@@ -111,6 +121,8 @@ def _layout(case):
         return _fan_out()
     elif case == "sparse-src":
         return _sparse_src()
+    elif case == "sparse-dst":
+        return _sparse_dst()
     else:  # zero-edge
         return np.zeros(11, np.int64), np.zeros(0, np.int32), 10
     return g.row_ptr, g.col_idx, g.num_nodes
@@ -120,6 +132,14 @@ LAYOUT_CASES = [
     ("uniform", 4, 64), ("uniform", 1, 32), ("uniform", 1, 16),
     ("uniform", 20, 8), ("zipf-split", 4, 64), ("zipf-split", 3, 24),
     ("isolated", 2, 16), ("zero-edge", 3, 24),
+    # K1's and K2's lane groups: a width that is not a multiple of 4 (4-byte
+    # loads), H*D = 512 in one head and in 32, split virtual rows
+    # (normalize=False) of a 12,000-edge hub and rows of 256, 257 and 300
+    # edges around the split cap, and 8 rows a warp over slices whose last
+    # rows (and whole last slices) hold no edge
+    ("uniform", 3, 7), ("uniform", 1, 512), ("uniform", 32, 16),
+    ("hubs", 1, 16), ("hubs", 4, 64), ("hubs", 3, 7),
+    ("sparse-dst", 1, 16), ("sparse-dst", 3, 7),
 ]
 
 
@@ -218,8 +238,13 @@ def test_k2_k3_kernels_match_twins(cuda, case, h, d):
     # c1 is per edge, like K1's output. dzd and d_a sum terms
     # de = alpha * (dalpha - r) that cancel (over a node's edges sum(de) = 0
     # per head), so their fp32 rounding can be as large as the result: they
-    # are held against float64, as chip_smoke holds them
-    assert _close_by_row(c1[real], w_c1[real])
+    # are held against float64, as chip_smoke holds them. So is c1 in one
+    # head of 512: its de carries the rounding of two 512-term fp32 dot
+    # products (dalpha and r) that cancel, which the row rule does not allow
+    if d == 512:
+        assert _close_f64(c1[real], w_c1[real], w64[2][real])
+    else:
+        assert _close_by_row(c1[real], w_c1[real])
     assert _close_f64(dzd, w_dzd, w64[0])
     assert _close_f64(da, w_da, w64[1])
     # K3 skips padding slots by count: NaN there must not reach dzs
@@ -349,11 +374,11 @@ def test_k5_k6_k7_kernels_match_twins(cuda, case, h, d):
     ("uniform", 1, 512), ("hubs", 1, 512), ("hubs", 2, 256),
 ])
 def test_k5_wide_heads_match_twin(cuda, case, h, d):
-    """K5 alone at H*D = 512 in one or two heads (16 vectors of 4 a lane,
-    32 lanes a head), a split hub row included, against its twin and
-    float64. (K6's c1 is held to its twin by row, which a 512-term fp32
-    dot product does not meet; test_k5_k6_k7_kernels_match_twins covers
-    H*D = 512 in 8 heads.)"""
+    """K5 at H*D = 512 in one or two heads (16 vectors of 4 a lane, 32
+    lanes a head), a split hub row included, against its twin and float64;
+    then K6 there, with its c1 held to float64 too (a 512-term fp32 dot
+    product misses the row rule that test_k5_k6_k7_kernels_match_twins
+    holds c1 to at H*D = 512 in 8 heads)."""
     et_host, row_ptr = _pallas_layout(case)
     et = et_host.to(cuda)
     n = et.num_nodes
@@ -378,6 +403,22 @@ def test_k5_wide_heads_match_twin(cuda, case, h, d):
     no_in = torch.as_tensor(np.diff(row_ptr) == 0, device=cuda)
     assert bool((out[:n][no_in] == 0).all())
     assert bool((l[:n][no_in] == 0).all())
+    g = torch.from_numpy(rng.normal(size=(n, h * d)).astype(np.float32)).to(
+        cuda)
+    r = (g * out[:n]).view(n, h, d).sum(-1)
+    sr = tpa.sigma_r_table(m + torch.log(l + 1e-8), r)
+    args = (zs, zd, g, sr, a, *lay)
+    before = pallas_bwd_dst.launches
+    dzd, da, c1 = pallas_bwd_dst(*args, negative_slope=SLOPE)
+    torch.cuda.synchronize()
+    assert pallas_bwd_dst.launches == before + 1
+    w_dzd, w_da, w_c1 = pallas_bwd_dst_plain(*args, negative_slope=SLOPE)
+    w64 = pallas_bwd_dst_plain(*(t.double() for t in args[:5]), *lay,
+                               negative_slope=SLOPE)
+    real = side.ids_grp[0] < et.tiles_per_chunk * TILE_N
+    assert _close_f64(c1[real], w_c1[real], w64[2][real])
+    assert _close_f64(dzd, w_dzd, w64[0])
+    assert _close_f64(da, w_da, w64[1])
 
 
 @pytest.mark.gpu

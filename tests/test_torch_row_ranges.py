@@ -1,4 +1,4 @@
-"""The layout facts K4 (csrc/sell_bwd_src.cu) and K5 (csrc/pallas_fwd.cu)
+"""The layout facts K1, K2, K4 (csrc/sell_*.cu) and K5 (csrc/pallas_fwd.cu)
 derive their per-row ranges from, held on the CPU against a numpy
 derivation from the graph's CSR:
 
@@ -11,6 +11,9 @@ derivation from the graph's CSR:
   along a slice (real slots are a prefix of the row's columns). Here the
   count must equal the row's real slots, and the slots' destination ids
   must be the node's out-edges, split rows included.
+- K1 (csrc/sell_fwd.cu) and K2 (csrc/sell_bwd_dst.cu) count a destination
+  row's real slots by the same rule over the destination side: the slots'
+  source ids must be the node's in-edges, split rows included.
 """
 
 import numpy as np
@@ -101,9 +104,10 @@ def test_k5_row_ranges_of_a_sampled_batch():
     assert not (hi - lo)[256:].any()
 
 
-def k4_row_slots(cnt, c0, ncols, r):
-    """The real-slot count of row r of a slice by K4's rule: the first
-    column k of the slice with cnt[c0 + k] <= r (a binary search)."""
+def sell_row_slots(cnt, c0, ncols, r):
+    """The real-slot count of row r of a slice by the rule of K1, K2 and K4
+    (sell_row_slots in csrc/lane_groups.cuh): the first column k of the
+    slice with cnt[c0 + k] <= r (a binary search)."""
     lo, hi = 0, ncols
     while lo < hi:
         mid = (lo + hi) // 2
@@ -114,30 +118,50 @@ def k4_row_slots(cnt, c0, ncols, r):
     return lo
 
 
-@pytest.mark.parametrize("case", ["uniform", "power-law", "sparse"])
-@pytest.mark.parametrize("chunks", [1, 3])
-def test_k4_row_slots_are_the_out_edges(case, chunks):
-    row_ptr, col_idx, n = _csr(case)
-    st = tsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=chunks)
-    side = st.srcs
-    dst_of = np.repeat(np.arange(n), np.diff(row_ptr))
+def slots_by_node(side, spc, num_chunks):
+    """{node: the opposite ids of its rows' real slots} over every chunk of
+    a SELL side, each row's slots counted by sell_row_slots; checks on the
+    way that the column counts never rise along a slice and that the
+    counted slots are the row's real ones, a prefix of its columns."""
     got = {}
-    for c in range(st.num_chunks):
+    for c in range(num_chunks):
         cnt, rel, ids = side.cnt_grp[c], side.rel_off[c], side.ids_grp[c]
-        for s in range(st.spc_src):
+        for s in range(spc):
             c0, ncols = int(rel[s]), int(rel[s + 1] - rel[s])
             col_cnt = cnt[c0:c0 + ncols]
             assert bool((np.diff(col_cnt) <= 0).all())  # never rises
             real = np.arange(TILE_N)[:, None] < col_cnt[None, :]
             for r in range(TILE_N):
-                deg = k4_row_slots(cnt, c0, ncols, r)
+                deg = sell_row_slots(cnt, c0, ncols, r)
                 assert deg == int(real[r].sum())
                 assert bool(real[r, :deg].all())  # a prefix
                 if deg == 0:
                     continue
-                node = int(side.perm[(c * st.spc_src + s) * TILE_N + r])
+                node = int(side.perm[(c * spc + s) * TILE_N + r])
                 got.setdefault(node, []).extend(
                     ids[(c0 + np.arange(deg)) * TILE_N + r].tolist())
+    return got
+
+
+@pytest.mark.parametrize("case", ["uniform", "power-law", "sparse"])
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_k4_row_slots_are_the_out_edges(case, chunks):
+    row_ptr, col_idx, n = _csr(case)
+    st = tsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=chunks)
+    got = slots_by_node(st.srcs, st.spc_src, st.num_chunks)
+    dst_of = np.repeat(np.arange(n), np.diff(row_ptr))
     for node in range(n):
         want = np.sort(dst_of[col_idx == node])
+        assert np.array_equal(np.sort(got.get(node, [])), want), node
+
+
+@pytest.mark.parametrize("case", ["uniform", "power-law", "sparse"])
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_k1_k2_row_slots_are_the_in_edges(case, chunks):
+    row_ptr, col_idx, n = _csr(case)
+    st = tsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=chunks)
+    assert st.dst.split == (case == "power-law")  # split rows covered
+    got = slots_by_node(st.dst, st.spc_dst, st.num_chunks)
+    for node in range(n):
+        want = np.sort(col_idx[row_ptr[node]:row_ptr[node + 1]])
         assert np.array_equal(np.sort(got.get(node, [])), want), node

@@ -1,22 +1,25 @@
-"""Time the port's K4 (csrc/sell_bwd_src.cu) and K5 (csrc/pallas_fwd.cu)
-on the card against variants of their own sources and against a bare
-gather of the rows they read, to show what bounds them.
+"""Time the port's K1 (csrc/sell_fwd.cu), K2 (csrc/sell_bwd_dst.cu), K4
+(csrc/sell_bwd_src.cu) and K5 (csrc/pallas_fwd.cu) on the card against
+variants of their own sources and against a bare gather of the rows they
+read, to show what bounds them.
 
 The variants are built from copies of the sources with one constant
 changed (the ring of edges in flight, the blocks per SM the register budget
-is cut for, the block size, evict-first or ordinary loads of K4's zd and g
+is cut for, the block size, evict-first or ordinary loads of the gathered
 rows); the kernels in the package are not changed. The bare gathers read
-exactly the rows the kernel reads (K4: a zd row, a g row, sigma and r per
-real slot, in the layout's slot order; K5: a zs row per real edge) and add
-them up, with no other work: the time the memory system needs for that
+exactly the rows the kernel reads per real slot or edge, in the layout's
+order (K1, K2 and K5: a zs row; K4: a zd row, a g row, sigma and r) and
+add them up, with no other work: the time the memory system needs for that
 access pattern.
 
 Inputs are synthetic, shaped like chip_smoke.py's main paths:
-products-full chunk 0 for K4 (489,856 source rows of Poisson(25.25)
-out-degree over 2,449,029 nodes, each row's destinations ascending, as the
-SELL source side lays them out) and a products-sub batch for K5 (985,000
-edges into the first 111,000 of 500,096 nodes, as a 1024-seed 10,10,10
-batch fills them). Needs the card and nvcc:
+products-full chunk 0 for K1, K2 and K4 (489,856 rows of Poisson(25.25)
+degree over 2,449,029 nodes: the destination side's rows with their
+sources in random order for K1 and K2, the source side's rows with their
+destinations ascending, as the SELL source side lays them out, for K4) and
+a products-sub batch for K5 (985,000 edges into the first 111,000 of
+500,096 nodes, as a 1024-seed 10,10,10 batch fills them). K2 runs without
+packets, as the chunked backward launches it. Needs the card and nvcc:
 
     python tools/torch_kernel_variants.py
 """
@@ -38,6 +41,7 @@ sys.path.insert(0, str(ROOT))
 
 from gatv2_tpu_torch.ops import build  # noqa: E402
 from gatv2_tpu_torch.ops import pallas_attention as tpa  # noqa: E402
+from gatv2_tpu_torch.ops import sell_bwd_dst as k2  # noqa: E402
 
 OUT = build.BUILD_DIR / "variants"
 PEAK_BYTES_PER_S = 3.35e12
@@ -81,7 +85,26 @@ extern "C" int launch_gather(const int* ids, long n, int hd4, int heads,
 }
 """
 
-# (name, {constant: replacement}) per kernel; "" keeps the source as it is
+# (name, {constant: replacement}) per kernel; {} keeps the source as it is
+K1_VARIANTS = [
+    ("as built", {}),
+    ("ring 4, 3 blocks", {"kRing": "4", "kMinBlocks": "3"}),
+    ("ring 2, 4 blocks", {"kRing": "2", "kMinBlocks": "4"}),
+    ("ring 2, 6 blocks", {"kRing": "2", "kMinBlocks": "6"}),
+    ("ring 1, 6 blocks", {"kRing": "1", "kMinBlocks": "6"}),
+    ("ring 1, 8 blocks", {"kRing": "1", "kMinBlocks": "8"}),
+    ("evict-first zs loads", {"kZsEvictFirst": "true"}),
+]
+K2_VARIANTS = [
+    ("as built", {}),
+    ("ring 4, 3 blocks", {"kRing": "4", "kMinBlocks": "3"}),
+    ("ring 2, 2 blocks", {"kRing": "2", "kMinBlocks": "2"}),
+    ("ring 2, 3 blocks", {"kRing": "2", "kMinBlocks": "3"}),
+    ("ring 2, 4 blocks", {"kRing": "2", "kMinBlocks": "4"}),
+    ("ring 1, 4 blocks", {"kRing": "1", "kMinBlocks": "4"}),
+    ("ring 1, 6 blocks", {"kRing": "1", "kMinBlocks": "6"}),
+    ("evict-first zs loads", {"kZsEvictFirst": "true"}),
+]
 K4_VARIANTS = [
     ("as built", {}),
     ("ring 8, no register cut", {"kRing": "8", "kMinBlocks": "1"}),
@@ -104,11 +127,18 @@ def variant_source(text: str, changes: dict) -> str:
                               r"\g<1>, false)", text)
             assert n == 2, n
             continue
-        pat = (rf"(constexpr int {const} = )[^;]*;" if const == "kBlock"
-               else rf"(template <int F>\nconstexpr int {const} = )[^;]*;")
+        pat = (rf"(template <int F>\nconstexpr int {const} = )[^;]*;"
+               if const in ("kRing", "kMinBlocks")
+               else rf"(constexpr (?:int|bool) {const} = )[^;]*;")
         text, n = re.subn(pat, rf"\g<1>{value};", text)
         assert n == 1, (const, n)
     return text
+
+
+# ptxas's report on each variant's <VEC = 4, NV> instantiations (NV = 1 at
+# H*D = 16, 32 and 128, the products-full layers; NV = 2 at H*D = 256):
+# (name, NV) -> "<registers> regs, <bytes> B spilled"
+REGS: dict[tuple[str, int], str] = {}
 
 
 def compile_lib(name: str, text: str) -> ctypes.CDLL:
@@ -120,6 +150,15 @@ def compile_lib(name: str, text: str) -> ctypes.CDLL:
          str(so), str(src)], capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr[-3000:]}")
+    report = (proc.stdout + proc.stderr).split("Compiling entry function")
+    for part in report:
+        inst = re.search(r"ILi4ELi(\d+)E", part.split("\n", 1)[0])
+        if inst:
+            regs = re.search(r"Used (\d+) registers", part)
+            spill = re.search(r"(\d+) bytes spill stores", part)
+            REGS[name, int(inst.group(1))] = (
+                f"{regs.group(1) if regs else '?'} regs, "
+                f"{spill.group(1) if spill else '?'} B spilled")
     return ctypes.CDLL(str(so))
 
 
@@ -136,7 +175,10 @@ def event_ms(fn, reps=10) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def k4_layout(dev):
+def sell_layout(dev, ascending):
+    """One products-full-shaped SELL chunk: 3,827 slices of 128 rows of
+    Poisson(25.25) degree, length-descending, each row's opposite ids
+    random over 2,449,029 nodes (ascending along the row if `ascending`)."""
     rng = np.random.default_rng(0)
     slices, nd = 3827, 2_449_029
     rows = slices * 128
@@ -153,12 +195,14 @@ def k4_layout(dev):
     c0 = torch.as_tensor(col_off[:-1], device=dev)[r // 128]
     slot = (c0[:, None] + k) * 128 + (r % 128)[:, None]
     real = k < deg_t[:, None]
-    dsts = torch.sort(torch.where(
-        real, torch.randint(0, nd, (rows, maxd), device=dev), nd), 1).values
+    opp = torch.where(real, torch.randint(0, nd, (rows, maxd), device=dev),
+                      nd)
+    if ascending:
+        opp = torch.sort(opp, 1).values
     ids = torch.full((int(col_off[-1]) * 128,), nd, dtype=torch.int32,
                      device=dev)
-    ids[slot[real]] = dsts[real].int()
-    slot_order = torch.sort(slot[real]).values  # column-major, as K4 reads
+    ids[slot[real]] = opp[real].int()
+    slot_order = torch.sort(slot[real]).values  # column-major, as read
     return dict(rows=rows, nd=nd, ids=ids, real_ids=ids[slot_order],
                 perm=torch.arange(rows, dtype=torch.int32, device=dev),
                 cnt=torch.as_tensor(cnt, device=dev),
@@ -192,7 +236,9 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     jobs = {"gather": GATHER_SRC}
-    for kern, file, variants in (("k4", "sell_bwd_src", K4_VARIANTS),
+    for kern, file, variants in (("k1", "sell_fwd", K1_VARIANTS),
+                                 ("k2", "sell_bwd_dst", K2_VARIANTS),
+                                 ("k4", "sell_bwd_src", K4_VARIANTS),
                                  ("k5", "pallas_fwd", K5_VARIANTS)):
         text = (build.CSRC / f"{file}.cu").read_text()
         for i, (_, changes) in enumerate(variants):
@@ -217,7 +263,57 @@ def main() -> int:
                      scratch.data_ptr(), 132 * 16, stream)
         assert err == 0, err
 
-    lay = k4_layout(dev)
+    lay = sell_layout(dev, ascending=False)
+    e = lay["real_ids"].numel()
+    print(f"K1, K2 synthetic products-full dst chunk 0: {lay['rows']} rows, "
+          f"{e} real slots [{card}]")
+    for heads, d in ((4, 64), (2, 64), (1, 32), (1, 16)):
+        hd = heads * d
+        zs, zd, g = (torch.randn(lay["nd"] + 1, hd, device=dev)
+                     for _ in range(3))
+        sig = torch.randn(lay["nd"] + 1, heads, device=dev).abs() + 2
+        r = torch.randn(lay["nd"] + 1, heads, device=dev)
+        a = torch.randn(heads, d, device=dev)
+        out, dzd = (torch.empty(lay["rows"], hd, device=dev)
+                    for _ in range(2))
+        m, l_ = (torch.empty(lay["rows"], heads, device=dev)
+                 for _ in range(2))
+        blocks = min(-(-lay["rows"] // k2.rows_per_block(heads, d, zs)),
+                     k2.MAX_BLOCKS)
+        da_part = torch.empty(blocks, hd, device=dev)
+        sector_floats = -(-hd * 4 // 32) * 8
+        floor = 4 * e * sector_floats / PEAK_BYTES_PER_S * 1e3
+        ms = event_ms(lambda: bare(lay["real_ids"], hd, zs))
+        print(f"  H*D={hd}: bare gather of a zs row per slot {ms:.4f} ms; "
+              f"zs rows per slot in 32-byte sectors at peak {floor:.4f} ms")
+        lay_args = (lay["perm"].data_ptr(), lay["ids"].data_ptr(),
+                    lay["cnt"].data_ptr(), lay["col_off"].data_ptr(),
+                    lay["rows"], heads, d, 0.01)
+        for i, (name, _) in enumerate(K1_VARIANTS):
+            fn = libs[f"k1_{i}"].gatv2_sell_fwd
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+                ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
+            fn.restype = ctypes.c_int
+            args = (zs.data_ptr(), zd.data_ptr(), a.data_ptr(), *lay_args,
+                    1, out.data_ptr(), m.data_ptr(), l_.data_ptr(), stream)
+            ms = event_ms(lambda: fn(*args))
+            print(f"  H*D={hd}: K1 {name}: {ms:.4f} ms "
+                  f"({REGS.get((f'k1_{i}', hd // 128 or 1), '')})")
+        for i, (name, _) in enumerate(K2_VARIANTS):
+            fn = libs[f"k2_{i}"].gatv2_sell_bwd_dst
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
+                ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
+            fn.restype = ctypes.c_int
+            args = (zs.data_ptr(), zd.data_ptr(), g.data_ptr(),
+                    sig.data_ptr(), r.data_ptr(), a.data_ptr(), *lay_args,
+                    blocks, dzd.data_ptr(), da_part.data_ptr(), None, stream)
+            ms = event_ms(lambda: fn(*args))
+            print(f"  H*D={hd}: K2 without packets {name}: {ms:.4f} ms "
+                  f"({REGS.get((f'k2_{i}', hd // 128 or 1), '')})")
+        del zs, zd, g
+        torch.cuda.empty_cache()
+
+    lay = sell_layout(dev, ascending=True)
     e = lay["real_ids"].numel()
     print(f"K4 synthetic products-full chunk 0: {lay['rows']} rows, {e} "
           f"real slots [{card}]")
