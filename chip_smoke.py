@@ -51,23 +51,26 @@ Phases (any failure exits non-zero):
      every layer's shapes (padding packets poisoned with NaN before K7) and
      on extra layouts (20 heads, a hub beside isolated nodes, a batch with
      empty node tiles, no edges), and full-graph Trainer(impl='pallas') on
-     'arxiv' and 'arxiv-pl' against the torch path;
+     'arxiv' and 'arxiv-pl' against the torch path, with a profile of one
+     step of each (on 'arxiv-pl', its hub rows' share by kernel);
  12. chunk invariance: 'arxiv' and 'arxiv-pl' on a forced 3-chunk layout,
      sell (K1, K2, K4) and pallas (K5, K6, K8) Trainers against the torch
-     path's losses, one step's gradients against float64; both ops'
+     path's losses, their epoch times and a profile of the 'arxiv-pl'
+     pallas step, one step's gradients against float64; both ops''
      gradients on chunked extra layouts (20 heads, split hubs beside
      isolated nodes, chunks without an edge, no edges, bf16 streams)
      against the twins and float64;
  13. its times: device step, host sample + tile, the pipeline ratio of
-     tools/bench_minibatch.py, each kernel beside its bound, its twin and,
-     for K7, index_add_; a profiler table; peak memory; and the minibatch
+     tools/bench_minibatch.py, each kernel beside its bound (K5 and K6:
+     and per-edge gather floor), its twin and, for K7, index_add_; a profiler table; peak memory; and the minibatch
      entry point (train --batch-size on karate, then predict --impl pallas
      from its checkpoint);
  14. products-sub full-graph Trainer(impl='pallas') on the chunk count its
      default budget picks, the K5-K8 counters zeroed just before and read
      just after (K8 launched, K7 not), against a sell Trainer from the same
      weights; then K8 against its twin and float64, and K6 without packets
-     against K6 with them, at each layer's shapes on one chunk;
+     against K6 with them, at each layer's shapes on one chunk, with K8's
+     time beside its bound and per-edge gather floor;
  15. one JSON line listing every kernel, the nvidia-smi line, then the
      result line {"ok": true, "device": {...}}.
 
@@ -678,9 +681,12 @@ def phase_forward_times(model, config, runs, dev, card):
                 sell_ms, card)
 
 
-def profile_fn(fn, what, wall_ms, card, reps=5):
-    """Device time per call of fn by kernel (torch.profiler), and the share
-    of the CUDA-event wall time the device was busy."""
+def kernel_rows(fn, reps):
+    """[(ms per call, launches per call, kernel name)] of fn's device
+    kernels over reps calls (torch.profiler). The profiler can miss the
+    kernels launched in its first milliseconds, so each kernel's time per
+    call is its mean per captured launch times its launches per call
+    (captured launches / reps, rounded up)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -693,8 +699,17 @@ def profile_fn(fn, what, wall_ms, card, reps=5):
     for ev in prof.key_averages():
         # device kernels only: a host op's self device time repeats theirs
         t = getattr(ev, "self_device_time_total", 0) or 0
-        if t > 0 and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            rows.append((t / 1e3 / reps, ev.count // reps, ev.key))
+        if t > 0 and ev.count and \
+                str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            per_call = -(-ev.count // reps)
+            rows.append((t / 1e3 / ev.count * per_call, per_call, ev.key))
+    return rows
+
+
+def profile_fn(fn, what, wall_ms, card, reps=5):
+    """Device time per call of fn by kernel (torch.profiler), and the share
+    of the CUDA-event wall time the device was busy."""
+    rows = kernel_rows(fn, reps)
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"{what}, device time by kernel (torch.profiler, {reps} calls) "
@@ -702,6 +717,26 @@ def profile_fn(fn, what, wall_ms, card, reps=5):
           f"({100 * busy / wall_ms:.0f}%)")
     for ms, count, key in rows[:12]:
         print(f"  {ms:8.4f} ms  x{count:<3d} {key[:90]}")
+
+
+def device_ms(fn, kernels, reps=10):
+    """Device time per call of fn spent in the kernels whose names contain
+    one of `kernels` (kernel_rows): the kernels' own time, without the
+    wrapper's host work, which cuda_ms also sees when a launch is short;
+    nan if the profiler captured none of them."""
+    ms = [t for t, _, key in kernel_rows(fn, reps)
+          if any(k in key for k in kernels)]
+    return sum(ms) if ms else float("nan")
+
+
+# the device kernels of each edge-tile wrapper, by name (K6 and K8 also
+# launch the merge of their hub segments)
+DEVICE_KERNELS = {
+    "pallas_fwd": ("pallas_fwd_kernel",),
+    "pallas_bwd_dst": ("pallas_bwd_dst_kernel", "merge_segments"),
+    "pallas_segsum": ("pallas_segsum_kernel",),
+    "pallas_bwd_src": ("pallas_bwd_src_kernel", "merge_segments"),
+}
 
 
 class LossSink:
@@ -1329,21 +1364,24 @@ def phase_minibatch_gradients(mb, dev):
 
 
 def pallas_bounds(e, rows, tiles_n, hd, heads, n_src, n_dst):
-    """K5's per-edge gather floor in ms, and (bound_ms, bound_by) of one K5,
-    K6 and K7 launch: each input read once (zs rows an edge reads, zd/g
-    rows and sigma/r of nodes with an in-edge, each real edge's two ids,
-    the tile offsets, a) and each output written once (out, m, l; dzd, d_a
-    and one c1 row per real edge; dzs), against the operations the real
-    edges need."""
+    """{kernel: per-edge gather floor in ms} of K5 and K6, and (bound_ms,
+    bound_by) of one K5, K6 and K7 launch: each input read once (zs rows an
+    edge reads, zd/g rows and sigma/r of nodes with an in-edge, each real
+    edge's two ids, the tile offsets, a) and each output written once (out,
+    m, l; dzd, d_a and one c1 row per real edge; dzs), against the
+    operations the real edges need."""
     meta = 2 * e + tiles_n + 1
     k5 = 4 * ((n_src + n_dst) * hd + meta + hd + rows * (hd + 2 * heads))
     k6 = 4 * ((n_src + 2 * n_dst) * hd + 2 * heads * n_dst + meta + 2 * hd
               + rows * hd + e * hd)
     k7 = 4 * (e * hd + meta + rows * hd)
-    # K5's per-edge gather floor: one zs row per real edge (no reuse of a
-    # source across edges), the rest as in its bound
-    k5_floor = k5 + 4 * (e - n_src) * hd
-    return k5_floor / PEAK_BYTES_PER_S * 1e3, {
+    # the per-edge gather floors: one zs row read per real edge (no reuse
+    # of a source across edges; K6 also writes its c1 row, in the bound
+    # already), the rest as in the bound
+    zs_again = 4 * (e - n_src) * hd
+    floors = {k: (b + zs_again) / PEAK_BYTES_PER_S * 1e3
+              for k, b in (("pallas_fwd", k5), ("pallas_bwd_dst", k6))}
+    return floors, {
         "pallas_fwd": _bound(k5, e * hd * K5_OPS_PER_FEATURE),
         "pallas_bwd_dst": _bound(k6, e * hd * K6_OPS_PER_FEATURE),
         "pallas_segsum": _bound(k7, e * hd * K7_OPS_PER_FEATURE),
@@ -1359,7 +1397,8 @@ def phase_pallas_kernels_at_main_path(mb, card):
         mb["start"]
     max_err = dict.fromkeys(PALLAS_KERNELS, 0.0)
     tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
-                   library_ms=0.0, floor_ms=0.0) for k in PALLAS_KERNELS}
+                   library_ms=0.0, floor_ms=0.0, device_ms=0.0)
+           for k in PALLAS_KERNELS}
     rng = np.random.default_rng(4)
     e = b.num_edges
     n_src = int(np.unique(b.src[:e]).size)
@@ -1450,8 +1489,15 @@ def phase_pallas_kernels_at_main_path(mb, card):
                 compare_f64(f"{tag} op {part} (torch fp32 as the twin)",
                             kern, twin, ref)
             del res
-            k5_floor, bounds = pallas_bounds(e, rows, tiles.num_node_tiles,
-                                             hd, heads, n_src, n_dst)
+            floors, bounds = pallas_bounds(e, rows, tiles.num_node_tiles,
+                                           hd, heads, n_src, n_dst)
+            calls = {
+                "pallas_fwd": lambda: pallas_fwd(zs, zd, a, *lay, **kw),
+                "pallas_bwd_dst": lambda: pallas_bwd_dst(*args, **kw),
+                "pallas_segsum": lambda: pallas_segsum(*k7),
+            }
+            dev_ms = {k: device_ms(fn, DEVICE_KERNELS[k])
+                      for k, fn in calls.items()}
             times = {
                 "pallas_fwd": (
                     cuda_ms(lambda: pallas_fwd(zs, zd, a, *lay, **kw)),
@@ -1471,25 +1517,28 @@ def phase_pallas_kernels_at_main_path(mb, card):
             }
             for k, (ms, plain_ms, lib_ms) in times.items():
                 bound, by = bounds[k]
+                floor = floors.get(k, 0.0)
                 lib_txt = f", index_add_ {lib_ms:.4f} ms" if lib_ms else ""
-                floor_txt = (f", per-edge gather floor {k5_floor:.4f} ms"
-                             if k == "pallas_fwd" else "")
-                print(f"  {tag} H*D={hd}: {k} {ms:.4f} ms, bound "
-                      f"{bound:.4f} ms ({by}){floor_txt}, twin "
-                      f"{plain_ms:.3f} ms{lib_txt} [{card}]")
+                floor_txt = (f", per-edge gather floor {floor:.4f} ms"
+                             if floor else "")
+                print(f"  {tag} H*D={hd}: {k} {ms:.4f} ms (device "
+                      f"{dev_ms[k]:.4f} ms), bound {bound:.4f} ms ({by})"
+                      f"{floor_txt}, twin {plain_ms:.3f} ms{lib_txt} "
+                      f"[{card}]")
                 t = tot[k]
                 t["ms"] += ms
+                t["device_ms"] += dev_ms[k]
                 t["plain_ms"] += plain_ms
                 t["bound_ms"] += bound
                 t["bytes_ms"] += bound if by == "bytes" else 0.0
                 t["library_ms"] += lib_ms
-                t["floor_ms"] += k5_floor if k == "pallas_fwd" else 0.0
+                t["floor_ms"] += floor
             del got, out, dzd, c1, dzs
             x = layer(x, None, None, is_last=l == len(start.layers) - 1,
                       config=config, impl="pallas", edge_tiles=tiles)
     for k, t in tot.items():
-        print(f"  products-sub {k} per step: {t['ms']:.4f} ms, bound "
-              f"{t['bound_ms']:.4f} ms"
+        print(f"  products-sub {k} per step: {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms"
               + (f", per-edge gather floor {t['floor_ms']:.4f} ms"
                  if t["floor_ms"] else "")
               + f", twin {t['plain_ms']:.3f} ms"
@@ -1599,6 +1648,9 @@ def phase_pallas_full_graph(model, config, runs, dev, card):
         if not all(np.isfinite(got)) or rel > LOSS_RTOL:
             fail(f"{name}: pallas training losses disagree with the torch "
                  f"path")
+        # each kernel's share, the hub rows' on arxiv-pl
+        profile_fn(tr.step, f"{name} full-graph pallas training step",
+                   pallas_ms, card, reps=2)
         launches[name] = counts
         del tr
     return launches
@@ -1684,20 +1736,25 @@ def k4_bound_ms(st, chunk, hd, heads):
 
 
 def k8_bound_ms(et, chunk, hd, heads):
-    """(bound_ms, bound_by, real edges) of one K8 launch on src chunk
-    `chunk` of the edge tiles et (on the card): the zs rows of the chunk's
-    sources with an edge, the zd and g rows and sigma, r of the destinations
-    its edges reach, each read once; each real edge's two ids, the tile
-    offsets, a; the dzs rows written."""
+    """(bound_ms, bound_by, real edges, gather floor ms) of one K8 launch on
+    src chunk `chunk` of the edge tiles et (on the card). The bound: the zs
+    rows of the chunk's sources with an edge, the zd and g rows and sigma,
+    r of the destinations its edges reach, each read once; each real
+    edge's two ids, the tile offsets, a; the dzs rows written. The floor
+    reads the destination side once per edge: a zd and a g row and the two
+    32-byte sectors of its sr row that hold sigma and r."""
     side = et.src_side
     rows = et.padded_src_nodes // et.num_chunks
     real = side.ids_grp[chunk] < rows
     e = int(real.sum())
     n_src = int(torch.unique(side.ids_grp[chunk][real]).numel())
     n_dst = int(torch.unique(side.other_grp[chunk][real]).numel())
-    nbytes = 4 * (n_src * hd + 2 * n_dst * hd + 2 * n_dst * heads + 2 * e
-                  + side.rel_offsets[chunk].numel() + hd + rows * hd)
-    return (*_bound(nbytes, e * hd * K8_OPS_PER_FEATURE), e)
+    rest = 4 * (n_src * hd + 2 * e + side.rel_offsets[chunk].numel() + hd
+                + rows * hd)
+    nbytes = rest + 4 * (2 * n_dst * hd + 2 * n_dst * heads)
+    floor = rest + 4 * e * (2 * hd + 16)
+    return (*_bound(nbytes, e * hd * K8_OPS_PER_FEATURE), e,
+            floor / PEAK_BYTES_PER_S * 1e3)
 
 
 def phase_products_full(dev, card):
@@ -2012,6 +2069,9 @@ def phase_chunk_invariance(model, config, runs, dev, card):
                   f"bytes): launches {counts}; losses {got}, torch {want}, "
                   f"max relative difference {rel:.3e} (tolerance "
                   f"{LOSS_RTOL:g}); epoch {epoch_ms:.3f} ms [{card}]")
+            if impl == "pallas" and name == "arxiv-pl":
+                profile_fn(tr.step, f"{name} pallas training step on "
+                           f"{FORCED_CHUNKS} chunks", epoch_ms, card, reps=2)
             kernels = (CHUNKED_SELL_KERNELS if impl == "sell"
                        else CHUNKED_PALLAS_KERNELS)
             if any(counts.get(k, 0) == 0 for k in kernels):
@@ -2199,7 +2259,8 @@ def phase_k8_at_products_sub(mb, pfs, card):
     dev = et.src_side.ids_grp.device
     model = copy.deepcopy(mb["start"]).to(dev)
     gen = torch.Generator(device=dev).manual_seed(5)
-    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+               floor_ms=0.0, device_ms=0.0)
     max_err = 0.0
     src, dsts = et.src_side, et.dst_side
     lay_s = (src.ids_grp[0], src.other_grp[0], src.rel_offsets[0], et.tile_e)
@@ -2239,22 +2300,30 @@ def phase_k8_at_products_sub(mb, pfs, card):
                 fail(f"{tag}: K6 without packets differs from K6 with them")
             del dzd, dzd0
             ms = cuda_ms(lambda: pallas_bwd_src(*tables, *lay_s, **kw))
+            k8_dev = device_ms(
+                lambda: pallas_bwd_src(*tables, *lay_s, **kw),
+                DEVICE_KERNELS["pallas_bwd_src"])
             plain_ms = cuda_ms(
                 lambda: pallas_bwd_src_plain(*tables, *lay_s, **kw),
                 reps=2, warmup=1)
-            bound, by, e = k8_bound_ms(et, 0, hd, heads)
+            bound, by, e, floor = k8_bound_ms(et, 0, hd, heads)
             print(f"  {tag} H*D={hd}, {e} real edges: pallas_bwd_src "
-                  f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), twin "
+                  f"{ms:.4f} ms (device {k8_dev:.4f} ms), bound {bound:.4f} ms "
+                  f"({by}), per-edge gather floor {floor:.4f} ms, twin "
                   f"{plain_ms:.3f} ms, library none [{card}]")
             tot["ms"] += ms
+            tot["device_ms"] += k8_dev
             tot["plain_ms"] += plain_ms
             tot["bound_ms"] += bound
             tot["bytes_ms"] += bound if by == "bytes" else 0.0
+            tot["floor_ms"] += floor
             del dzs, tables, zs, zd, gout
             x = layer(x, None, None, is_last=l == len(model.layers) - 1,
                       config=config, impl="pallas", edge_tiles=et)
     print(f"  products-sub pallas_bwd_src, chunk 0 of each layer: "
-          f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms, twin "
+          f"{tot['ms']:.4f} ms (device {tot['device_ms']:.4f} ms), bound "
+          f"{tot['bound_ms']:.4f} ms, per-edge "
+          f"gather floor {tot['floor_ms']:.4f} ms, twin "
           f"{tot['plain_ms']:.3f} ms [{card}]")
     return max_err, tot
 

@@ -41,10 +41,14 @@ from gatv2_tpu_torch.ops.pallas_fwd import (
 )
 from gatv2_tpu_torch.ops.segment import EXP_CLAMP, segment_sum
 
-WARPS = 8  # rows in flight per thread block (csrc/pallas_bwd_dst.cu kWarps)
-# thread blocks per launch at most; blocks stride over the rows, so the d_a
-# partials (one per block) stay at most MAX_BLOCKS x H*D
+# tile blocks per launch at most (one per 128-node tile up to it; they
+# stride over the tiles), and segment blocks (csrc/edge_tiles.cuh: rows of
+# more than SEG edges are split over the segments of SEG slots they meet);
+# the d_a partials, one per block, stay at most
+# (MAX_BLOCKS + MAX_SEG_BLOCKS) x H*D
 MAX_BLOCKS = 4096
+SEG = 1024  # slots per segment (csrc/edge_tiles.cuh kSeg)
+MAX_SEG_BLOCKS = 512
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -76,6 +80,17 @@ def pallas_bwd_dst_plain(zs, zd, g, sr, a, dst_ids, src_ids, rel_offsets, te,
     c1 = zs.new_zeros((dst_ids.numel(), hd))
     c1[pos] = alpha.repeat_interleave(head_dim, 1) * gg + ds
     return dzd, da, c1
+
+
+def segment_scratch(slots: int, hd: int, like: torch.Tensor):
+    """(segment blocks, partials [2 * segments, hd] fp32, run ids [2 *
+    segments] int32) of a K6 or K8 launch over `slots` edge slots, on
+    like's device: two partial rows and a (row, end) pair per segment of
+    SEG slots, which the kernel fills before its merge launch reads
+    them."""
+    nseg = -(-slots // SEG)
+    return (min(nseg, MAX_SEG_BLOCKS), like.new_empty((2 * nseg, hd)),
+            torch.empty(2 * nseg, dtype=torch.int32, device=like.device))
 
 
 def pallas_bwd_dst(zs, zd, g, sr, a, dst_ids, src_ids, rel_offsets, te, *,
@@ -110,21 +125,26 @@ def pallas_bwd_dst(zs, zd, g, sr, a, dst_ids, src_ids, rel_offsets, te, *,
 
     lib = load_library("pallas_bwd_dst")
     fn = lib.gatv2_pallas_bwd_dst
-    fn.argtypes = [_P] * 8 + [_I] * 4 + [ctypes.c_float, _I] + [_P] * 4
+    fn.argtypes = ([_P] * 8 + [_I] * 5 + [ctypes.c_float, _I, _I]
+                   + [_P] * 6)
     fn.restype = _I
     rows = (rel_offsets.numel() - 1) * TILE_N
-    blocks = min(-(-rows // WARPS), MAX_BLOCKS)
+    slots = dst_ids.numel()
+    blocks = min(rows // TILE_N, MAX_BLOCKS)
+    seg_blocks, seg_part, seg_meta = segment_scratch(slots, hd, zs)
     dzd = zs.new_empty((rows, hd))
-    da_part = zs.new_empty((blocks, hd))
-    c1 = zs.new_empty((dst_ids.numel(), hd)) if emit_c1 else None
+    da_part = zs.new_empty((blocks + seg_blocks, hd))
+    c1 = zs.new_empty((slots, hd)) if emit_c1 else None
     with torch.cuda.device(zs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             zs.data_ptr(), zd.data_ptr(), g.data_ptr(), sr.data_ptr(),
             a.data_ptr(), dst_ids.data_ptr(), src_ids.data_ptr(),
-            rel_offsets.data_ptr(), int(te), rows, num_heads, head_dim,
-            float(negative_slope), blocks, dzd.data_ptr(), da_part.data_ptr(),
-            c1.data_ptr() if emit_c1 else None, stream,
+            rel_offsets.data_ptr(), int(te), rows, slots, num_heads,
+            head_dim, float(negative_slope), blocks, seg_blocks,
+            dzd.data_ptr(), da_part.data_ptr(),
+            c1.data_ptr() if emit_c1 else None, seg_part.data_ptr(),
+            seg_meta.data_ptr(), stream,
         )
     raise_on_error(lib, err, "pallas_bwd_dst")
     pallas_bwd_dst.launches += 1

@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from gatv2_tpu_torch.ops.pallas_bwd_dst import segment_scratch
 from gatv2_tpu_torch.ops.pallas_fwd import (
     STATS_L,
     TILE_N,
@@ -110,17 +111,20 @@ def pallas_bwd_src(zs, zd, g, sr, a, src_ids, dst_ids, rel_offsets, te, *,
 
     lib = load_library("pallas_bwd_src")
     fn = lib.gatv2_pallas_bwd_src
-    fn.argtypes = [_P] * 8 + [_I] * 4 + [ctypes.c_float] + [_P] * 2
+    fn.argtypes = [_P] * 8 + [_I] * 5 + [ctypes.c_float, _I] + [_P] * 4
     fn.restype = _I
     rows = (rel_offsets.numel() - 1) * TILE_N
+    slots = src_ids.numel()
+    seg_blocks, seg_part, seg_meta = segment_scratch(slots, hd, zs)
     dzs = zs.new_empty((rows, hd))
     with torch.cuda.device(zs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             zs.data_ptr(), zd.data_ptr(), g.data_ptr(), sr.data_ptr(),
             a.data_ptr(), src_ids.data_ptr(), dst_ids.data_ptr(),
-            rel_offsets.data_ptr(), int(te), rows, num_heads, head_dim,
-            float(negative_slope), dzs.data_ptr(), stream,
+            rel_offsets.data_ptr(), int(te), rows, slots, num_heads,
+            head_dim, float(negative_slope), seg_blocks, dzs.data_ptr(),
+            seg_part.data_ptr(), seg_meta.data_ptr(), stream,
         )
     raise_on_error(lib, err, "pallas_bwd_src")
     pallas_bwd_src.launches += 1

@@ -77,6 +77,21 @@ def _hubs(n=2000):
     return _csr_of(deg, rng.integers(0, n, size=int(deg.sum())))
 
 
+def _src_hubs(n=2000):
+    """Out-degree hubs beside short rows: node 0 is the source of 12,000
+    edges, nodes 1-3 of 256, 257 and 300 (around K8's split thresholds),
+    all in source tile 0; the other edges are random among nodes 4.."""
+    rng = np.random.default_rng(16)
+    dst = [rng.integers(0, n, size=6 * n)]
+    src = [rng.integers(4, n, size=6 * n)]
+    for node, count in ((0, 12_000), (1, 256), (2, 257), (3, 300)):
+        dst.append(rng.integers(0, n, size=count))
+        src.append(np.full(count, node))
+    dst, src = np.concatenate(dst), np.concatenate(src)
+    order = np.argsort(dst, kind="stable")
+    return _csr_of(np.bincount(dst, minlength=n), src[order])
+
+
 def _fan_out(n=1000):
     """Node 0 is the source of 300 edges (one per destination 0..299), far
     longer than K4's ring of slots in flight; other edges are random."""
@@ -119,6 +134,8 @@ def _layout(case):
         return _hubs()
     elif case == "fan-out":
         return _fan_out()
+    elif case == "src-hubs":
+        return _src_hubs()
     elif case == "sparse-src":
         return _sparse_src()
     elif case == "sparse-dst":
@@ -530,11 +547,20 @@ def test_k4_kernel_matches_twin_and_k2_without_packets(cuda, case, h, d):
 @pytest.mark.parametrize("case,h,d", [
     ("uniform", 4, 64), ("uniform", 16, 8), ("uniform", 1, 16),
     ("zipf-split", 2, 24), ("isolated", 4, 16), ("zero-edge", 2, 8),
+    # K6's and K8's lane groups and hub splits: a width that is not a
+    # multiple of 4, H*D = 512, a source of 12,000 edges and sources of
+    # 256, 257 and 300 (K8), a destination of 12,000 edges and destinations
+    # of 256, 257 and 300 (K6), split over the block or over segments
+    ("uniform", 3, 7), ("uniform", 1, 512), ("src-hubs", 1, 16),
+    ("src-hubs", 4, 64), ("src-hubs", 3, 7), ("src-hubs", 2, 256),
+    ("hubs", 1, 16), ("hubs", 3, 7), ("hubs", 8, 64),
 ])
 def test_k8_kernel_matches_twin_and_k6_without_packets(cuda, case, h, d):
     """On a 3-chunk edge-tile layout: K8 on every src chunk against its
     twin, held against float64; K6 on every dst chunk without packets
-    gives dzd and d_a equal to its launch with them."""
+    gives dzd and d_a equal to its launch with them, and its c1 matches
+    its twin on the real slots (held to float64 at H*D = 512, where a
+    512-term fp32 dot product misses the row rule)."""
     row_ptr, col_idx, n = _layout(case)
     et = tpa.prepare_edge_tiles(row_ptr, col_idx, n,
                                 num_chunks=3).to(cuda)
@@ -560,6 +586,16 @@ def test_k8_kernel_matches_twin_and_k6_without_packets(cuda, case, h, d):
         torch.cuda.synchronize()
         assert none is None and c1 is not None
         assert torch.equal(dzd0, dzd) and torch.equal(da0, da)
+        w_dzd, w_da, w_c1 = pallas_bwd_dst_plain(*args, negative_slope=SLOPE)
+        w64 = pallas_bwd_dst_plain(*(t.double() for t in args[:5]),
+                                   *args[5:], negative_slope=SLOPE)
+        real = side.ids_grp[c] < rows_c
+        if h * d == 512:
+            assert _close_f64(c1[real], w_c1[real], w64[2][real])
+        else:
+            assert _close_by_row(c1[real], w_c1[real])
+        assert _close_f64(dzd, w_dzd, w64[0])
+        assert _close_f64(da, w_da, w64[1])
         side = et.src_side
         lay = (side.ids_grp[c], side.other_grp[c], side.rel_offsets[c],
                et.tile_e)

@@ -1,11 +1,18 @@
-"""The layout facts K1, K2, K4 (csrc/sell_*.cu) and K5 (csrc/pallas_fwd.cu)
-derive their per-row ranges from, held on the CPU against a numpy
-derivation from the graph's CSR:
+"""The layout facts K1, K2, K4 (csrc/sell_*.cu) and K5-K8
+(csrc/pallas_*.cu) derive their per-row ranges from, held on the CPU
+against a numpy derivation from the graph's CSR:
 
-- K5 reads a node tile's sorted destination ids once and takes each row's
-  edge range [lo, hi) from adjacent differences (padding ids name no row of
-  the tile). Here that rule, written in numpy, must give every node exactly
-  its in-edges, whole layouts, chunked and fixed-budget ones included.
+- K5 and K6 read a node tile's sorted destination ids once and take each
+  row's edge range [lo, hi) from adjacent differences (padding ids name no
+  row of the tile). Here that rule, written in numpy, must give every node
+  exactly its in-edges, whole layouts, chunked and fixed-budget ones
+  included. K8 applies the same rule to the source side's tiles: every
+  source node must get exactly its out-edges.
+- K6 and K8 split rows longer than 256 edges (csrc/edge_tiles.cuh): over
+  the block's lane groups up to 1024 edges, over segment blocks of 1024
+  slots beyond, whose partials a second launch adds in segment order. A
+  mirror of that walk must cover each row's edges once, contiguously and
+  in the order the kernels add them.
 - K4 counts a source row's real slots with one binary search over its
   slice's column counts, which is right only if the counts never rise
   along a slice (real slots are a prefix of the row's columns). Here the
@@ -22,8 +29,10 @@ import pytest
 from gatv2_tpu_torch.data.synthetic import powerlaw_graph, random_graph
 from gatv2_tpu_torch.ops import pallas_attention as tpa
 from gatv2_tpu_torch.ops import sell_attention as tsa
+from gatv2_tpu_torch.ops.pallas_bwd_dst import SEG
 
 TILE_N = 128
+HUB = 256  # csrc/edge_tiles.cuh kHub
 
 
 def _csr(case):
@@ -86,6 +95,147 @@ def test_k5_row_ranges_are_the_in_edges(case, opts):
                     if node < n else np.zeros(0, col_idx.dtype))
             assert np.array_equal(np.sort(src[lo[row]:hi[row]]), want), node
             assert bool((ids[lo[row]:hi[row]] == row).all()), node
+
+
+@pytest.mark.parametrize("case", ["uniform", "power-law", "sparse"])
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_k8_row_ranges_are_the_out_edges(case, chunks):
+    row_ptr, col_idx, n = _csr(case)
+    et = tpa.prepare_edge_tiles(row_ptr, col_idx, n, num_chunks=chunks)
+    side = et.src_side
+    rows_c = et.padded_src_nodes // et.num_chunks
+    dst_of = np.repeat(np.arange(n), np.diff(row_ptr))
+    for c in range(et.num_chunks):
+        ids, dst = side.ids_grp[c], side.other_grp[c]
+        assert bool((ids[(ids < 0) | (ids >= rows_c)] >= rows_c).all())
+        lo, hi = k5_row_ranges(ids, side.rel_offsets[c], et.tile_e)
+        for row in range(rows_c):
+            node = c * rows_c + row
+            want = np.sort(dst_of[col_idx == node])
+            assert np.array_equal(np.sort(dst[lo[row]:hi[row]]), want), node
+            assert bool((ids[lo[row]:hi[row]] == row).all()), node
+
+
+def split_part(lo, hi, q, parts):
+    """Part q of `parts` equal contiguous parts of [lo, hi) (split_part in
+    csrc/edge_tiles.cuh)."""
+    per = -(-(hi - lo) // parts)
+    p_lo = min(hi, lo + q * per)
+    return p_lo, min(hi, p_lo + per)
+
+
+def long_run_at(ids, rel_offsets, te, rows, p):
+    """(row, lo, hi) of the run through slot p if it is longer than SEG
+    slots, else None (long_run_at in csrc/edge_tiles.cuh, its two-load
+    rejection and binary searches included)."""
+    r, half = int(ids[p]), SEG // 2
+    if r >= rows:
+        return None
+    if not ((p >= half and ids[p - half] == r)
+            or (p + half < len(ids) and ids[p + half] == r)):
+        return None
+    t = r // TILE_N
+    a, b = int(rel_offsets[t]) * te, p
+    while a < b:
+        m = (a + b) // 2
+        a, b = (m + 1, b) if ids[m] < r else (a, m)
+    lo = a
+    a, b = p + 1, int(rel_offsets[t + 1]) * te
+    while a < b:
+        m = (a + b) // 2
+        a, b = (m + 1, b) if ids[m] <= r else (a, m)
+    return (r, lo, a) if a - lo > SEG else None
+
+
+def hub_walk(ids, rel_offsets, te, groups):
+    """{row: the slots of its edges in the order K6 and K8 add them}, by
+    the kernels' rule with `groups` lane groups a block: a row of at most
+    HUB edges in one group; up to SEG edges in equal parts over the groups,
+    added in part order; longer rows by the segment blocks (segment_runs:
+    slot 0 the long run through the segment's first slot if it started
+    before, slot 1 the one starting inside), each part over the groups,
+    added by the merge launch in segment order. Checks on the way that
+    every segment partial is read exactly once."""
+    rows = (len(rel_offsets) - 1) * TILE_N
+    lo, hi = k5_row_ranges(ids, rel_offsets, te)
+    order = {}
+    for row in range(rows):
+        n = int(hi[row] - lo[row])
+        if 0 < n <= SEG:
+            parts = [(lo[row], hi[row])] if n <= HUB else [
+                split_part(lo[row], hi[row], q, groups)
+                for q in range(groups)]
+            order[row] = [p for a, b in parts for p in range(a, b)]
+    partials, starts = {}, {}
+    for k in range(-(-len(ids) // SEG)):
+        p0, p1 = k * SEG, min((k + 1) * SEG, len(ids))
+        first = long_run_at(ids, rel_offsets, te, rows, p0)
+        runs = [first if first and first[1] < p0 else None, None]
+        if first and first[1] == p0:
+            runs[1] = first
+        else:
+            last = long_run_at(ids, rel_offsets, te, rows, p1 - 1)
+            if last and (first is None or last[0] != first[0]):
+                runs[1] = last
+        for slot, run in enumerate(runs):
+            if run is None:
+                continue
+            r, a, b = run
+            parts = [split_part(max(a, p0), min(b, p1), q, groups)
+                     for q in range(groups)]
+            partials[k, slot] = (r, [p for x, y in parts
+                                     for p in range(x, y)])
+        if runs[1]:
+            starts[k] = runs[1]
+    for k, (r, _, b) in starts.items():
+        assert r not in order  # the tile blocks left the row alone
+        keys = [(k, 1)] + [(kk, 0) for kk in range(k + 1, (b - 1) // SEG + 1)]
+        order[r] = []
+        for key in keys:
+            row, slots = partials.pop(key)
+            assert row == r, (key, row, r)
+            order[r] += slots
+    assert not partials, partials  # no partial is left unread
+    return order
+
+
+@pytest.mark.parametrize("long_len", [255, 256, 257, 300, 1024, 1025,
+                                      12_000])
+@pytest.mark.parametrize("side", ["dst", "src"])
+def test_hub_split_covers_each_row_once_in_order(long_len, side):
+    """Rows of long_len edges at different slot offsets: node 0 (tile 0)
+    and node 300 (tile 2) as destinations, node 7 and node 450 as sources;
+    the other rows 0-4 edges. On 1 and 3 chunks, with 4 to 32 groups."""
+    rng = np.random.default_rng(long_len)
+    n = 1000
+    others = np.setdiff1d(np.arange(n), [0, 300, 7, 450])
+    dst = [np.repeat(others, rng.integers(0, 5, size=others.size))]
+    src = [rng.choice(others, size=dst[0].size)]
+    for hub_dst in (0, 300):
+        dst.append(np.full(long_len, hub_dst))
+        src.append(rng.choice(others, size=long_len))
+    for hub_src in (7, 450):
+        dst.append(rng.choice(others, size=long_len))
+        src.append(np.full(long_len, hub_src))
+    dst, src = np.concatenate(dst), np.concatenate(src)
+    order = np.argsort(dst, kind="stable")
+    row_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n), out=row_ptr[1:])
+    col_idx = src[order].astype(np.int32)
+    for chunks in (1, 3):
+        et = tpa.prepare_edge_tiles(row_ptr, col_idx, n, num_chunks=chunks)
+        s = et.dst_side if side == "dst" else et.src_side
+        for c in range(et.num_chunks):
+            ids, rel = s.ids_grp[c], s.rel_offsets[c]
+            lo, hi = k5_row_ranges(ids, rel, et.tile_e)
+            for groups in (4, 8, 16, 32):
+                walk = hub_walk(ids, rel, et.tile_e, groups)
+                assert sorted(walk) == np.nonzero(hi > lo)[0].tolist()
+                for row, slots in walk.items():
+                    assert slots == list(range(lo[row], hi[row])), row
+        lengths = np.diff(row_ptr) if side == "dst" else np.bincount(
+            col_idx, minlength=n)
+        assert int(lengths.max()) == long_len
 
 
 def test_k5_row_ranges_of_a_sampled_batch():

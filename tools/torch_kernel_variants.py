@@ -1,27 +1,32 @@
 """Time the port's K1 (csrc/sell_fwd.cu), K2 (csrc/sell_bwd_dst.cu), K4
-(csrc/sell_bwd_src.cu) and K5 (csrc/pallas_fwd.cu) on the card against
-variants of their own sources and against a bare gather of the rows they
-read, to show what bounds them.
+(csrc/sell_bwd_src.cu), K5 (csrc/pallas_fwd.cu), K6 (csrc/pallas_bwd_dst.cu)
+and K8 (csrc/pallas_bwd_src.cu) on the card against variants of their own
+sources and against a bare gather of the rows they read, to show what
+bounds them.
 
 The variants are built from copies of the sources with one constant
 changed (the ring of edges in flight, the blocks per SM the register budget
 is cut for, the block size, evict-first or ordinary loads of the gathered
 rows); the kernels in the package are not changed. The bare gathers read
 exactly the rows the kernel reads per real slot or edge, in the layout's
-order (K1, K2 and K5: a zs row; K4: a zd row, a g row, sigma and r) and
-add them up, with no other work: the time the memory system needs for that
-access pattern.
+order (K1, K2 and K5: a zs row; K6: a zs row, and it writes a c1 row; K4
+and K8: a zd row, a g row, sigma and r) and add them up, with no other
+work: the time the memory system needs for that access pattern.
 
 Inputs are synthetic, shaped like chip_smoke.py's main paths:
 products-full chunk 0 for K1, K2 and K4 (489,856 rows of Poisson(25.25)
 degree over 2,449,029 nodes: the destination side's rows with their
 sources in random order for K1 and K2, the source side's rows with their
-destinations ascending, as the SELL source side lays them out, for K4) and
-a products-sub batch for K5 (985,000 edges into the first 111,000 of
-500,096 nodes, as a 1024-seed 10,10,10 batch fills them). K2 runs without
-packets, as the chunked backward launches it. Needs the card and nvcc:
+destinations ascending, as the SELL source side lays them out, for K4), a
+products-sub batch for K5 and K6 (985,000 edges into the first 111,000 of
+500,096 nodes, as a 1024-seed 10,10,10 batch fills them) and products-sub's
+full-graph source chunk 0 for K8 (250,048 source rows of Poisson(16)
+out-degree, destinations ascending over 500,000 nodes, tile_e 256). K2 runs
+without packets, as the chunked backward launches it, K6 with them, as the
+minibatch backward does. Needs the card and nvcc; the arguments pick
+kernels (default all):
 
-    python tools/torch_kernel_variants.py
+    python tools/torch_kernel_variants.py [k1 k2 k4 k5 k6 k8]
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ sys.path.insert(0, str(ROOT))
 
 from gatv2_tpu_torch.ops import build  # noqa: E402
 from gatv2_tpu_torch.ops import pallas_attention as tpa  # noqa: E402
+from gatv2_tpu_torch.ops import pallas_bwd_dst as k6  # noqa: E402
 from gatv2_tpu_torch.ops import sell_bwd_dst as k2  # noqa: E402
 
 OUT = build.BUILD_DIR / "variants"
@@ -49,15 +55,17 @@ PEAK_BYTES_PER_S = 3.35e12
 GATHER_SRC = r"""
 #include <cuda_runtime.h>
 // One thread per (edge, 16-byte part of a row): read part of each table's
-// row for the edge's id (and its 4-byte per-node values), add them up and
-// store one float per thread, so no load is dead.
+// row for the edge's id (and its 4-byte per-node values, `stride` floats
+// apart), add them up and store one float per thread, so no load is dead;
+// with `rows`, also write the part of t0's row to the edge's row there.
 extern "C" __global__ void gather(const int* __restrict__ ids, long n,
-                                  int hd4, int heads,
+                                  int hd4, int stride,
                                   const float4* __restrict__ t0,
                                   const float4* __restrict__ t1,
                                   const float* __restrict__ s0,
                                   const float* __restrict__ s1,
-                                  float* __restrict__ out) {
+                                  float* __restrict__ out,
+                                  float4* __restrict__ rows) {
   long t = blockIdx.x * (long)blockDim.x + threadIdx.x;
   float acc = 0.f;
   for (; t < n * hd4; t += (long)gridDim.x * blockDim.x) {
@@ -65,22 +73,23 @@ extern "C" __global__ void gather(const int* __restrict__ ids, long n,
     const int part = (int)(t % hd4);
     const long id = __ldg(ids + e);
     float4 v = __ldcs(t0 + id * hd4 + part);
+    if (rows) rows[t] = v;
     acc += v.x + v.y + v.z + v.w;
     if (t1) {
       v = __ldcs(t1 + id * hd4 + part);
       acc += v.x + v.y + v.z + v.w;
     }
     if (s0 && part == 0)
-      acc += __ldg(s0 + id * heads) + __ldg(s1 + id * heads);
+      acc += __ldg(s0 + id * stride) + __ldg(s1 + id * stride);
   }
   out[blockIdx.x * (long)blockDim.x + threadIdx.x] = acc;
 }
-extern "C" int launch_gather(const int* ids, long n, int hd4, int heads,
+extern "C" int launch_gather(const int* ids, long n, int hd4, int stride,
                              const float4* t0, const float4* t1,
                              const float* s0, const float* s1, float* out,
-                             int blocks, cudaStream_t stream) {
-  gather<<<blocks, 256, 0, stream>>>(ids, n, hd4, heads, t0, t1, s0, s1,
-                                     out);
+                             float4* rows, int blocks, cudaStream_t stream) {
+  gather<<<blocks, 256, 0, stream>>>(ids, n, hd4, stride, t0, t1, s0, s1,
+                                     out, rows);
   return (int)cudaGetLastError();
 }
 """
@@ -117,6 +126,30 @@ K5_VARIANTS = [
     ("256 threads, ring 4-8, 2 blocks",
      {"kBlock": "256", "kRing": "(F <= 4 ? 8 : 4)", "kMinBlocks": "1"}),
     ("ring 2, 10 blocks", {"kRing": "2", "kMinBlocks": "10"}),
+]
+K6_VARIANTS = [
+    ("as built", {}),
+    ("ring 1", {"kRing": "1"}),
+    ("ring 3 (F 8)", {"kRing": "(F <= 4 ? 2 : F <= 8 ? 3 : 1)"}),
+    ("ring 4, 6 blocks (F 4) / 3 (F 8)",
+     {"kRing": "(F <= 8 ? 4 : 1)",
+      "kMinBlocks": "(F <= 4 ? 6 : F <= 8 ? 3 : 2)"}),
+    ("ring 2, 5 blocks (F 8)",
+     {"kMinBlocks": "(F <= 4 ? 8 : F <= 8 ? 5 : F <= 16 ? 2 : 1)"}),
+    ("evict-first zs loads", {"kZsEvictFirst": "true"}),
+]
+K8_VARIANTS = [
+    ("as built", {}),
+    ("ring 4 (F 4) / 2 (F 8), 6 blocks",
+     {"kRing": "(F <= 4 ? 4 : F <= 8 ? 2 : 1)",
+      "kMinBlocks": "(F <= 8 ? 6 : F <= 16 ? 3 : 1)"}),
+    ("ring 4, 3 blocks (F 8)",
+     {"kMinBlocks": "(F <= 4 ? 8 : F <= 8 ? 3 : F <= 16 ? 3 : 1)"}),
+    ("ring 1 (F 4)", {"kRing": "(F <= 4 ? 1 : F <= 8 ? 4 : 1)"}),
+    ("ring 4, 5 blocks (F 4)",
+     {"kRing": "(F <= 8 ? 4 : 1)",
+      "kMinBlocks": "(F <= 4 ? 5 : F <= 8 ? 4 : F <= 16 ? 3 : 1)"}),
+    ("ordinary zd/g loads", {"kEvictFirst": "false"}),
 ]
 
 
@@ -226,20 +259,52 @@ def k5_layout(dev):
                 real_src=side.other_grp[0][real].contiguous())
 
 
-def main() -> int:
+def k8_layout(dev):
+    """products-sub's full-graph source chunk 0: 250,048 source rows of
+    Poisson(16) out-degree, each row's destinations ascending over 500,000
+    nodes (the source side's order), as K8 reads it (ids: chunk-relative
+    source rows, other: global destinations)."""
+    rng = np.random.default_rng(1)
+    rows, nd = 250_048, 500_000
+    deg = rng.poisson(16, size=rows)
+    row = np.repeat(np.arange(rows), deg)
+    dst = rng.integers(0, nd, size=row.size)
+    dst = dst[np.lexsort((dst, row))].astype(np.int32)
+    row_ptr = np.zeros(rows + 1, np.int64)
+    np.cumsum(deg, out=row_ptr[1:])
+    et = tpa.prepare_edge_tiles(row_ptr, dst, rows, tile_e=256,
+                                num_src_nodes=nd).to(dev)
+    side = et.dst_side
+    real = side.ids_grp[0] < et.padded_num_nodes
+    return dict(nd=nd, e=int(row.size), ids=side.ids_grp[0],
+                dst=side.other_grp[0], rel=side.rel_offsets[0], te=et.tile_e,
+                real_dst=side.other_grp[0][real].contiguous())
+
+
+ALL = ("k1", "k2", "k4", "k5", "k6", "k8")
+SOURCES = {"k1": ("sell_fwd", K1_VARIANTS), "k2": ("sell_bwd_dst", K2_VARIANTS),
+           "k4": ("sell_bwd_src", K4_VARIANTS),
+           "k5": ("pallas_fwd", K5_VARIANTS),
+           "k6": ("pallas_bwd_dst", K6_VARIANTS),
+           "k8": ("pallas_bwd_src", K8_VARIANTS)}
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
+    wanted = argv or list(ALL)
+    if set(wanted) - set(ALL):
+        print(f"kernels are among {ALL}, got {wanted}", file=sys.stderr)
+        return 2
     OUT.mkdir(parents=True, exist_ok=True)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     jobs = {"gather": GATHER_SRC}
-    for kern, file, variants in (("k1", "sell_fwd", K1_VARIANTS),
-                                 ("k2", "sell_bwd_dst", K2_VARIANTS),
-                                 ("k4", "sell_bwd_src", K4_VARIANTS),
-                                 ("k5", "pallas_fwd", K5_VARIANTS)):
+    for kern in wanted:
+        file, variants = SOURCES[kern]
         text = (build.CSRC / f"{file}.cu").read_text()
         for i, (_, changes) in enumerate(variants):
             jobs[f"{kern}_{i}"] = variant_source(text, changes)
@@ -249,127 +314,227 @@ def main() -> int:
     gather = libs["gather"].launch_gather
     gather.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
                        ctypes.c_int] + [
-        ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
     gather.restype = ctypes.c_int
     dev = torch.device("cuda")
     stream = torch.cuda.current_stream().cuda_stream
     scratch = torch.empty(132 * 16 * 256, device=dev)
 
-    def bare(ids, hd, t0, t1=None, s0=None, s1=None):
-        heads = s0.shape[1] if s0 is not None else 1
+    def bare(ids, hd, t0, t1=None, s0=None, s1=None, stride=1, rows=None):
         ptr = [x.data_ptr() if x is not None else None
                for x in (t0, t1, s0, s1)]
-        err = gather(ids.data_ptr(), ids.numel(), hd // 4, heads, *ptr,
-                     scratch.data_ptr(), 132 * 16, stream)
+        err = gather(ids.data_ptr(), ids.numel(), hd // 4, stride, *ptr,
+                     scratch.data_ptr(),
+                     rows.data_ptr() if rows is not None else None,
+                     132 * 16, stream)
         assert err == 0, err
 
-    lay = sell_layout(dev, ascending=False)
-    e = lay["real_ids"].numel()
-    print(f"K1, K2 synthetic products-full dst chunk 0: {lay['rows']} rows, "
-          f"{e} real slots [{card}]")
-    for heads, d in ((4, 64), (2, 64), (1, 32), (1, 16)):
-        hd = heads * d
-        zs, zd, g = (torch.randn(lay["nd"] + 1, hd, device=dev)
-                     for _ in range(3))
-        sig = torch.randn(lay["nd"] + 1, heads, device=dev).abs() + 2
-        r = torch.randn(lay["nd"] + 1, heads, device=dev)
-        a = torch.randn(heads, d, device=dev)
-        out, dzd = (torch.empty(lay["rows"], hd, device=dev)
-                    for _ in range(2))
-        m, l_ = (torch.empty(lay["rows"], heads, device=dev)
-                 for _ in range(2))
-        blocks = min(-(-lay["rows"] // k2.rows_per_block(heads, d, zs)),
-                     k2.MAX_BLOCKS)
-        da_part = torch.empty(blocks, hd, device=dev)
-        sector_floats = -(-hd * 4 // 32) * 8
-        floor = 4 * e * sector_floats / PEAK_BYTES_PER_S * 1e3
-        ms = event_ms(lambda: bare(lay["real_ids"], hd, zs))
-        print(f"  H*D={hd}: bare gather of a zs row per slot {ms:.4f} ms; "
-              f"zs rows per slot in 32-byte sectors at peak {floor:.4f} ms")
-        lay_args = (lay["perm"].data_ptr(), lay["ids"].data_ptr(),
-                    lay["cnt"].data_ptr(), lay["col_off"].data_ptr(),
-                    lay["rows"], heads, d, 0.01)
-        for i, (name, _) in enumerate(K1_VARIANTS):
-            fn = libs[f"k1_{i}"].gatv2_sell_fwd
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-                ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
-            fn.restype = ctypes.c_int
-            args = (zs.data_ptr(), zd.data_ptr(), a.data_ptr(), *lay_args,
-                    1, out.data_ptr(), m.data_ptr(), l_.data_ptr(), stream)
-            ms = event_ms(lambda: fn(*args))
-            print(f"  H*D={hd}: K1 {name}: {ms:.4f} ms "
-                  f"({REGS.get((f'k1_{i}', hd // 128 or 1), '')})")
-        for i, (name, _) in enumerate(K2_VARIANTS):
-            fn = libs[f"k2_{i}"].gatv2_sell_bwd_dst
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
-                ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
-            fn.restype = ctypes.c_int
-            args = (zs.data_ptr(), zd.data_ptr(), g.data_ptr(),
-                    sig.data_ptr(), r.data_ptr(), a.data_ptr(), *lay_args,
-                    blocks, dzd.data_ptr(), da_part.data_ptr(), None, stream)
-            ms = event_ms(lambda: fn(*args))
-            print(f"  H*D={hd}: K2 without packets {name}: {ms:.4f} ms "
-                  f"({REGS.get((f'k2_{i}', hd // 128 or 1), '')})")
-        del zs, zd, g
-        torch.cuda.empty_cache()
+    def regs(kern, i, hd):
+        return REGS.get((f"{kern}_{i}", max(1, hd // 128)), "")
 
-    lay = sell_layout(dev, ascending=True)
-    e = lay["real_ids"].numel()
-    print(f"K4 synthetic products-full chunk 0: {lay['rows']} rows, {e} "
-          f"real slots [{card}]")
-    for heads, d in ((2, 64), (1, 32), (1, 16)):
-        hd = heads * d
-        zd, g, zs = (torch.randn(lay["nd"] + 1, hd, device=dev)
-                     for _ in range(3))
-        sig = torch.randn(lay["nd"] + 1, heads, device=dev).abs() + 2
-        r = torch.randn(lay["nd"] + 1, heads, device=dev)
-        a = torch.randn(heads, d, device=dev)
-        out = torch.empty(lay["rows"], hd, device=dev)
-        floor = 4 * (e * (2 * hd + 2 * heads + 1) + 2 * lay["rows"] * hd) \
-            / PEAK_BYTES_PER_S * 1e3
-        ms = event_ms(lambda: bare(lay["real_ids"], hd, zd, g, sig, r))
-        print(f"  H*D={hd}: bare gather of zd, g, sigma, r per slot "
-              f"{ms:.4f} ms; per-edge gather floor {floor:.4f} ms")
-        for i, (name, _) in enumerate(K4_VARIANTS):
-            fn = libs[f"k4_{i}"].gatv2_sell_bwd_src
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
-                ctypes.c_float] + [ctypes.c_void_p] * 2
-            fn.restype = ctypes.c_int
-            args = (zs.data_ptr(), zd.data_ptr(), g.data_ptr(),
-                    sig.data_ptr(), r.data_ptr(), a.data_ptr(),
-                    lay["perm"].data_ptr(), lay["ids"].data_ptr(),
-                    lay["cnt"].data_ptr(), lay["col_off"].data_ptr(),
-                    lay["rows"], heads, d, 0.01, out.data_ptr(), stream)
-            ms = event_ms(lambda: fn(*args))
-            print(f"  H*D={hd}: K4 {name}: {ms:.4f} ms")
-        del zd, g, zs
-        torch.cuda.empty_cache()
+    if "k1" in wanted or "k2" in wanted:
+        lay = sell_layout(dev, ascending=False)
+        e = lay["real_ids"].numel()
+        print(f"K1, K2 synthetic products-full dst chunk 0: {lay['rows']} "
+              f"rows, {e} real slots [{card}]")
+        for heads, d in ((4, 64), (2, 64), (1, 32), (1, 16)):
+            hd = heads * d
+            zs, zd, g = (torch.randn(lay["nd"] + 1, hd, device=dev)
+                         for _ in range(3))
+            sig = torch.randn(lay["nd"] + 1, heads, device=dev).abs() + 2
+            r = torch.randn(lay["nd"] + 1, heads, device=dev)
+            a = torch.randn(heads, d, device=dev)
+            out, dzd = (torch.empty(lay["rows"], hd, device=dev)
+                        for _ in range(2))
+            m, l_ = (torch.empty(lay["rows"], heads, device=dev)
+                     for _ in range(2))
+            blocks = min(-(-lay["rows"] // k2.rows_per_block(heads, d, zs)),
+                         k2.MAX_BLOCKS)
+            da_part = torch.empty(blocks, hd, device=dev)
+            sector_floats = -(-hd * 4 // 32) * 8
+            floor = 4 * e * sector_floats / PEAK_BYTES_PER_S * 1e3
+            ms = event_ms(lambda: bare(lay["real_ids"], hd, zs))
+            print(f"  H*D={hd}: bare gather of a zs row per slot {ms:.4f} "
+                  f"ms; zs rows per slot in 32-byte sectors at peak "
+                  f"{floor:.4f} ms")
+            lay_args = (lay["perm"].data_ptr(), lay["ids"].data_ptr(),
+                        lay["cnt"].data_ptr(), lay["col_off"].data_ptr(),
+                        lay["rows"], heads, d, 0.01)
+            for i, (name, _) in enumerate(
+                    K1_VARIANTS if "k1" in wanted else []):
+                fn = libs[f"k1_{i}"].gatv2_sell_fwd
+                fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+                    ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
+                fn.restype = ctypes.c_int
+                args = (zs.data_ptr(), zd.data_ptr(), a.data_ptr(),
+                        *lay_args, 1, out.data_ptr(), m.data_ptr(),
+                        l_.data_ptr(), stream)
+                ms = event_ms(lambda: fn(*args))
+                print(f"  H*D={hd}: K1 {name}: {ms:.4f} ms "
+                      f"({regs('k1', i, hd)})")
+            for i, (name, _) in enumerate(
+                    K2_VARIANTS if "k2" in wanted else []):
+                fn = libs[f"k2_{i}"].gatv2_sell_bwd_dst
+                fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
+                    ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
+                fn.restype = ctypes.c_int
+                args = (zs.data_ptr(), zd.data_ptr(), g.data_ptr(),
+                        sig.data_ptr(), r.data_ptr(), a.data_ptr(),
+                        *lay_args, blocks, dzd.data_ptr(),
+                        da_part.data_ptr(), None, stream)
+                ms = event_ms(lambda: fn(*args))
+                print(f"  H*D={hd}: K2 without packets {name}: {ms:.4f} ms "
+                      f"({regs('k2', i, hd)})")
+            del zs, zd, g
+            torch.cuda.empty_cache()
 
-    lay = k5_layout(dev)
-    rows = (lay["rel"].numel() - 1) * 128
-    print(f"K5 synthetic products-sub batch: {rows} rows, {lay['e']} real "
-          f"edges [{card}]")
-    for heads, d in ((4, 64), (1, 32), (1, 16)):
-        hd = heads * d
-        zs, zd = (torch.randn(lay["n"], hd, device=dev) for _ in range(2))
-        a = torch.randn(heads, d, device=dev)
-        out = torch.empty(rows, hd, device=dev)
-        m, l_ = (torch.empty(rows, heads, device=dev) for _ in range(2))
-        ms = event_ms(lambda: bare(lay["real_src"], hd, zs))
-        print(f"  H*D={hd}: bare gather of a zs row per edge {ms:.4f} ms")
-        for i, (name, _) in enumerate(K5_VARIANTS):
-            fn = libs[f"k5_{i}"].gatv2_pallas_fwd
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-                ctypes.c_float] + [ctypes.c_void_p] * 4
-            fn.restype = ctypes.c_int
-            args = (zs.data_ptr(), zd.data_ptr(), a.data_ptr(),
-                    lay["ids"].data_ptr(), lay["src"].data_ptr(),
-                    lay["rel"].data_ptr(), lay["te"], rows, heads, d, 0.01,
-                    out.data_ptr(), m.data_ptr(), l_.data_ptr(), stream)
-            ms = event_ms(lambda: fn(*args))
-            print(f"  H*D={hd}: K5 {name}: {ms:.4f} ms")
+    if "k4" in wanted:
+        lay = sell_layout(dev, ascending=True)
+        e = lay["real_ids"].numel()
+        print(f"K4 synthetic products-full chunk 0: {lay['rows']} rows, {e} "
+              f"real slots [{card}]")
+        for heads, d in ((2, 64), (1, 32), (1, 16)):
+            hd = heads * d
+            zd, g, zs = (torch.randn(lay["nd"] + 1, hd, device=dev)
+                         for _ in range(3))
+            sig = torch.randn(lay["nd"] + 1, heads, device=dev).abs() + 2
+            r = torch.randn(lay["nd"] + 1, heads, device=dev)
+            a = torch.randn(heads, d, device=dev)
+            out = torch.empty(lay["rows"], hd, device=dev)
+            floor = 4 * (e * (2 * hd + 2 * heads + 1)
+                         + 2 * lay["rows"] * hd) / PEAK_BYTES_PER_S * 1e3
+            ms = event_ms(lambda: bare(lay["real_ids"], hd, zd, g, sig, r,
+                                       stride=heads))
+            print(f"  H*D={hd}: bare gather of zd, g, sigma, r per slot "
+                  f"{ms:.4f} ms; per-edge gather floor {floor:.4f} ms")
+            for i, (name, _) in enumerate(K4_VARIANTS):
+                fn = libs[f"k4_{i}"].gatv2_sell_bwd_src
+                fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
+                    ctypes.c_float] + [ctypes.c_void_p] * 2
+                fn.restype = ctypes.c_int
+                args = (zs.data_ptr(), zd.data_ptr(), g.data_ptr(),
+                        sig.data_ptr(), r.data_ptr(), a.data_ptr(),
+                        lay["perm"].data_ptr(), lay["ids"].data_ptr(),
+                        lay["cnt"].data_ptr(), lay["col_off"].data_ptr(),
+                        lay["rows"], heads, d, 0.01, out.data_ptr(), stream)
+                ms = event_ms(lambda: fn(*args))
+                print(f"  H*D={hd}: K4 {name}: {ms:.4f} ms")
+            del zd, g, zs
+            torch.cuda.empty_cache()
+
+    if "k5" in wanted or "k6" in wanted:
+        lay = k5_layout(dev)
+        rows = (lay["rel"].numel() - 1) * 128
+        slots = lay["ids"].numel()
+        n_dst = int(torch.unique(lay["ids"][lay["ids"] < rows]).numel())
+        print(f"K5, K6 synthetic products-sub batch: {rows} rows, "
+              f"{lay['e']} real edges, {slots} slots [{card}]")
+        for heads, d in ((4, 64), (1, 32), (1, 16)):
+            hd = heads * d
+            zs, zd, g = (torch.randn(lay["n"], hd, device=dev)
+                         for _ in range(3))
+            a = torch.randn(heads, d, device=dev)
+            out = torch.empty(rows, hd, device=dev)
+            m, l_ = (torch.empty(rows, heads, device=dev) for _ in range(2))
+            ms = event_ms(lambda: bare(lay["real_src"], hd, zs))
+            print(f"  H*D={hd}: bare gather of a zs row per edge {ms:.4f} ms")
+            for i, (name, _) in enumerate(
+                    K5_VARIANTS if "k5" in wanted else []):
+                fn = libs[f"k5_{i}"].gatv2_pallas_fwd
+                fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
+                    ctypes.c_float] + [ctypes.c_void_p] * 4
+                fn.restype = ctypes.c_int
+                args = (zs.data_ptr(), zd.data_ptr(), a.data_ptr(),
+                        lay["ids"].data_ptr(), lay["src"].data_ptr(),
+                        lay["rel"].data_ptr(), lay["te"], rows, heads, d,
+                        0.01, out.data_ptr(), m.data_ptr(), l_.data_ptr(),
+                        stream)
+                ms = event_ms(lambda: fn(*args))
+                print(f"  H*D={hd}: K5 {name}: {ms:.4f} ms "
+                      f"({regs('k5', i, hd)})")
+            if "k6" not in wanted:
+                continue
+            # K6 with packets: sr rows of sigma = m + log(l) >= the scores
+            # and random r, c1 one row per slot
+            sr = torch.zeros(lay["n"], 32, device=dev)
+            sr[:, :heads] = torch.randn(lay["n"], heads, device=dev).abs() + 2
+            sr[:, 16:16 + heads] = torch.randn(lay["n"], heads, device=dev)
+            dzd = torch.empty(rows, hd, device=dev)
+            c1 = torch.empty(slots, hd, device=dev)
+            blocks = min(rows // 128, k6.MAX_BLOCKS)
+            seg_blocks, seg_part, seg_meta = k6.segment_scratch(slots, hd, zs)
+            da_part = torch.empty(blocks + seg_blocks, hd, device=dev)
+            c1_rows = torch.empty(lay["e"], hd, device=dev)
+            floor = 4 * (2 * lay["e"] * hd + n_dst * (2 * hd + 32)
+                         + rows * hd + 2 * lay["e"]) / PEAK_BYTES_PER_S * 1e3
+            ms = event_ms(lambda: bare(lay["real_src"], hd, zs, rows=c1_rows))
+            print(f"  H*D={hd}: bare gather of a zs row and store of a c1 row "
+                  f"per edge {ms:.4f} ms; per-edge gather floor {floor:.4f} "
+                  f"ms")
+            for i, (name, _) in enumerate(K6_VARIANTS):
+                fn = libs[f"k6_{i}"].gatv2_pallas_bwd_dst
+                fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                               + [ctypes.c_float] + [ctypes.c_int] * 2
+                               + [ctypes.c_void_p] * 6)
+                fn.restype = ctypes.c_int
+                for packets in ((True, False) if i == 0 else (True,)):
+                    args = (zs.data_ptr(), zd.data_ptr(), g.data_ptr(),
+                            sr.data_ptr(), a.data_ptr(),
+                            lay["ids"].data_ptr(), lay["src"].data_ptr(),
+                            lay["rel"].data_ptr(), lay["te"], rows, slots,
+                            heads, d, 0.01, blocks, seg_blocks,
+                            dzd.data_ptr(), da_part.data_ptr(),
+                            c1.data_ptr() if packets else None,
+                            seg_part.data_ptr(), seg_meta.data_ptr(), stream)
+                    ms = event_ms(lambda: fn(*args))
+                    print(f"  H*D={hd}: K6 {name}"
+                          f"{'' if packets else ' without packets'}: "
+                          f"{ms:.4f} ms ({regs('k6', i, hd)})")
+            del zs, zd, g, c1, c1_rows
+            torch.cuda.empty_cache()
+
+    if "k8" in wanted:
+        lay = k8_layout(dev)
+        rows = (lay["rel"].numel() - 1) * 128
+        slots = lay["ids"].numel()
+        print(f"K8 synthetic products-sub full-graph src chunk 0: {rows} "
+              f"rows, {lay['e']} real edges, {slots} slots [{card}]")
+        for heads, d in ((4, 64), (1, 32), (1, 16)):
+            hd = heads * d
+            zd, g = (torch.randn(lay["nd"], hd, device=dev) for _ in range(2))
+            zs = torch.randn(rows, hd, device=dev)
+            sr = torch.zeros(lay["nd"], 32, device=dev)
+            sr[:, :heads] = torch.randn(lay["nd"], heads,
+                                        device=dev).abs() + 2
+            sr[:, 16:16 + heads] = torch.randn(lay["nd"], heads, device=dev)
+            a = torch.randn(heads, d, device=dev)
+            dzs = torch.empty(rows, hd, device=dev)
+            seg_blocks, seg_part, seg_meta = k6.segment_scratch(slots, hd, zs)
+            floor = 4 * (lay["e"] * (2 * hd + 16 + 1) + 2 * rows * hd) \
+                / PEAK_BYTES_PER_S * 1e3
+            ms = event_ms(lambda: bare(lay["real_dst"], hd, zd, g, sr,
+                                       sr[:, 16:], stride=32))
+            print(f"  H*D={hd}: bare gather of zd, g, sigma, r per edge "
+                  f"{ms:.4f} ms; per-edge gather floor {floor:.4f} ms")
+            for i, (name, _) in enumerate(K8_VARIANTS):
+                fn = libs[f"k8_{i}"].gatv2_pallas_bwd_src
+                fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                               + [ctypes.c_float, ctypes.c_int]
+                               + [ctypes.c_void_p] * 4)
+                fn.restype = ctypes.c_int
+                args = (zs.data_ptr(), zd.data_ptr(), g.data_ptr(),
+                        sr.data_ptr(), a.data_ptr(), lay["ids"].data_ptr(),
+                        lay["dst"].data_ptr(), lay["rel"].data_ptr(),
+                        lay["te"], rows, slots, heads, d, 0.01, seg_blocks,
+                        dzs.data_ptr(), seg_part.data_ptr(),
+                        seg_meta.data_ptr(), stream)
+                ms = event_ms(lambda: fn(*args))
+                print(f"  H*D={hd}: K8 {name}: {ms:.4f} ms "
+                      f"({regs('k8', i, hd)})")
+            del zd, g, zs
+            torch.cuda.empty_cache()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
