@@ -52,7 +52,11 @@ Phases (any failure exits non-zero):
      on extra layouts (20 heads, a hub beside isolated nodes, a batch with
      empty node tiles, no edges), and full-graph Trainer(impl='pallas') on
      'arxiv' and 'arxiv-pl' against the torch path, with a profile of one
-     step of each (on 'arxiv-pl', its hub rows' share by kernel);
+     step of each (on 'arxiv-pl', its hub rows' share by kernel); then K7
+     at each layer of that unchunked 'arxiv-pl' step (its 226,772-edge
+     source hub split over segment blocks) against its twin and float64,
+     padding packets poisoned with NaN, with its time beside its bound,
+     its twin's and index_add_'s;
  12. chunk invariance: 'arxiv' and 'arxiv-pl' on a forced 3-chunk layout,
      sell (K1, K2, K4) and pallas (K5, K6, K8) Trainers against the torch
      path's losses, their epoch times and a profile of the 'arxiv-pl'
@@ -729,12 +733,12 @@ def device_ms(fn, kernels, reps=10):
     return sum(ms) if ms else float("nan")
 
 
-# the device kernels of each edge-tile wrapper, by name (K6 and K8 also
-# launch the merge of their hub segments)
+# the device kernels of each edge-tile wrapper, by name (K6, K7 and K8
+# also launch the merge of their hub segments)
 DEVICE_KERNELS = {
     "pallas_fwd": ("pallas_fwd_kernel",),
     "pallas_bwd_dst": ("pallas_bwd_dst_kernel", "merge_segments"),
-    "pallas_segsum": ("pallas_segsum_kernel",),
+    "pallas_segsum": ("pallas_segsum_kernel", "merge_segments"),
     "pallas_bwd_src": ("pallas_bwd_src_kernel", "merge_segments"),
 }
 
@@ -1388,6 +1392,40 @@ def pallas_bounds(e, rows, tiles_n, hd, heads, n_src, n_dst):
     }
 
 
+def k7_library_index(tiles):
+    """index_add_'s row per destination-sorted packet slot, the library
+    call for K7's function: the edge's src row, padding slots into a spare
+    row past the last one."""
+    side = tiles.dst_side
+    rows = (tiles.src_tile_offsets.numel() - 1) * TILE_N
+    real = side.ids_grp[0] < tiles.tiles_per_chunk * TILE_N
+    return torch.where(real, side.other_grp[0], rows).long()
+
+
+def k7_check(tag, c1, tiles, lib_idx):
+    """K7 on one layer's packets c1 (padding slots poisoned with NaN)
+    against its twin and float64, and index_add_ into lib_idx's rows
+    against float64. Returns (K7's max abs error, K7's arguments, the
+    library call)."""
+    rows = (tiles.src_tile_offsets.numel() - 1) * TILE_N
+    k7 = (c1, tiles.gather_perm, tiles.src_sorted_ids,
+          tiles.src_tile_offsets, tiles.tile_e)
+    dzs = pallas_segsum(*k7)
+    if not bool(torch.isfinite(dzs).all()):
+        fail(f"{tag}: K7 read a padding packet")
+    w_dzs = pallas_segsum_plain(*k7)
+    w64 = pallas_segsum_plain(c1.double(), *k7[1:])
+
+    def library():
+        return torch.zeros(rows + 1, c1.shape[1],
+                           device=c1.device).index_add_(0, lib_idx, c1)
+
+    err = compare_f64(f"{tag} K7 dzs [{tuple(dzs.shape)}]", dzs, w_dzs, w64)
+    compare_f64(f"{tag} index_add_ (library) dzs", library()[:rows], w_dzs,
+                w64)
+    return err, k7, library
+
+
 def phase_pallas_kernels_at_main_path(mb, card):
     """K5, K6 and K7 against their twins, and their times, at each layer's
     shapes of one products-sub batch: the layer's projections, K5's stats,
@@ -1411,9 +1449,7 @@ def phase_pallas_kernels_at_main_path(mb, card):
                tiles.tile_e)
         rows = tiles.padded_num_nodes
         real = side.ids_grp[0] < rows
-        # the library call for K7's function: one index_add_ of every
-        # packet into its edge's src row (padding slots into a spare row)
-        lib_idx = torch.where(real, side.other_grp[0], rows).long()
+        lib_idx = k7_library_index(tiles)
         src_e = torch.as_tensor(b.src[:e], device=x.device)
         dst_e = torch.as_tensor(b.dst[:e], device=x.device)
         for l, layer in enumerate(start.layers):
@@ -1449,22 +1485,8 @@ def phase_pallas_kernels_at_main_path(mb, card):
                             w64[1]))
             del w_dzd, w_c1, w64
             c1[~real] = float("nan")
-            k7 = (c1, tiles.gather_perm, tiles.src_sorted_ids,
-                  tiles.src_tile_offsets, tiles.tile_e)
-            dzs = pallas_segsum(*k7)
-            if not bool(torch.isfinite(dzs).all()):
-                fail(f"{tag}: K7 read a padding packet")
-            w_dzs = pallas_segsum_plain(*k7)
-            w64 = pallas_segsum_plain(c1.double(), *k7[1:])
-            lib = torch.zeros(rows + 1, hd, device=c1.device).index_add_(
-                0, lib_idx, c1)
-            max_err["pallas_segsum"] = max(
-                max_err["pallas_segsum"],
-                compare_f64(f"{tag} K7 dzs [{tuple(dzs.shape)}]", dzs, w_dzs,
-                            w64))
-            compare_f64(f"{tag} index_add_ (library) dzs", lib[:rows], w_dzs,
-                        w64)
-            del w_dzs, w64, lib
+            err, k7, k7_lib = k7_check(tag, c1, tiles, lib_idx)
+            max_err["pallas_segsum"] = max(max_err["pallas_segsum"], err)
             # the op's gradients at this layer: pallas (K5-K7) and the fp32
             # torch path, each against the torch path in float64
             with torch.enable_grad():
@@ -1511,9 +1533,7 @@ def phase_pallas_kernels_at_main_path(mb, card):
                     cuda_ms(lambda: pallas_segsum(*k7)),
                     cuda_ms(lambda: pallas_segsum_plain(*k7), reps=3,
                             warmup=1),
-                    cuda_ms(lambda: torch.zeros(
-                        rows + 1, hd, device=c1.device
-                    ).index_add_(0, lib_idx, c1))),
+                    cuda_ms(k7_lib)),
             }
             for k, (ms, plain_ms, lib_ms) in times.items():
                 bound, by = bounds[k]
@@ -1533,7 +1553,7 @@ def phase_pallas_kernels_at_main_path(mb, card):
                 t["bytes_ms"] += bound if by == "bytes" else 0.0
                 t["library_ms"] += lib_ms
                 t["floor_ms"] += floor
-            del got, out, dzd, c1, dzs
+            del got, out, dzd, c1
             x = layer(x, None, None, is_last=l == len(start.layers) - 1,
                       config=config, impl="pallas", edge_tiles=tiles)
     for k, t in tot.items():
@@ -1621,8 +1641,9 @@ def phase_pallas_cases(dev):
 def phase_pallas_full_graph(model, config, runs, dev, card):
     """Full-graph Trainer(impl='pallas') on both graphs, TRAIN_EPOCHS epochs
     from the same weights, K5-K7 counted; losses against the torch path's
-    Trainers of the training phase; epoch times beside SELL's."""
-    launches = {}
+    Trainers of the training phase; epoch times beside SELL's. Returns each
+    Trainer's (edge tiles, features) by graph."""
+    layouts = {}
     for name, r in runs.items():
         tr = make_trainer(r["graph"], config, "pallas", model, dev)
         et = tr.edge_tiles
@@ -1651,9 +1672,74 @@ def phase_pallas_full_graph(model, config, runs, dev, card):
         # each kernel's share, the hub rows' on arxiv-pl
         profile_fn(tr.step, f"{name} full-graph pallas training step",
                    pallas_ms, card, reps=2)
-        launches[name] = counts
+        layouts[name] = (tr.edge_tiles, tr.features)
         del tr
-    return launches
+    return layouts
+
+
+def phase_k7_at_arxiv_pl(model, config, layout, card):
+    """K7 at each layer's shapes of the unchunked arxiv-pl pallas step,
+    where a source hub of 226,772 edges meets K7's segment split: the
+    layer's projections, K5's stats, a seeded random upstream gradient, K6's
+    packets with their padding slots poisoned with NaN; K7 against its twin
+    and float64, and its time beside its bound, its twin's and index_add_'s.
+    Returns K7's max abs error."""
+    et, x = layout
+    if et.num_chunks != 1:
+        fail(f"arxiv-pl pallas layout has {et.num_chunks} chunks: K7 runs "
+             f"on an unchunked one only")
+    side = et.dst_side
+    lay = (side.ids_grp[0], side.other_grp[0], side.rel_offsets[0],
+           et.tile_e)
+    rows = et.padded_num_nodes
+    real = side.ids_grp[0] < rows
+    e = int(real.sum())
+    n_src = int(torch.unique(side.other_grp[0][real]).numel())
+    n_dst = int(torch.unique(side.ids_grp[0][real]).numel())
+    lib_idx = k7_library_index(et)
+    rng = np.random.default_rng(5)
+    max_err = 0.0
+    tot = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+               library_ms=0.0)
+    with torch.no_grad():
+        for l, layer in enumerate(model.layers):
+            zs, zd = layer.project(x, config.precision)
+            a = layer.a.detach().contiguous()
+            heads, hd = a.shape[0], zs.shape[1]
+            kw = dict(negative_slope=SLOPE)
+            out, m, l_ = pallas_fwd(zs, zd, a, *lay, **kw)
+            gout = torch.as_tensor(rng.standard_normal(
+                (rows, hd), dtype=np.float32), device=zs.device)
+            r = (gout * out).view(rows, heads, hd // heads).sum(-1)
+            sr = tpa.sigma_r_table(m + torch.log(l_ + 1e-8), r)
+            _, _, c1 = pallas_bwd_dst(zs, zd, gout, sr, a, *lay, **kw)
+            c1[~real] = float("nan")
+            tag = f"arxiv-pl pallas layer {l}"
+            err, k7, k7_lib = k7_check(tag, c1, et, lib_idx)
+            max_err = max(max_err, err)
+            bound, by = pallas_bounds(e, rows, et.num_node_tiles, hd, heads,
+                                      n_src, n_dst)[1]["pallas_segsum"]
+            ms = cuda_ms(lambda: pallas_segsum(*k7))
+            dev_ms = device_ms(lambda: pallas_segsum(*k7),
+                               DEVICE_KERNELS["pallas_segsum"])
+            plain_ms = cuda_ms(lambda: pallas_segsum_plain(*k7), reps=3,
+                               warmup=1)
+            lib_ms = cuda_ms(k7_lib)
+            print(f"  {tag} H*D={hd}: pallas_segsum {ms:.4f} ms (device "
+                  f"{dev_ms:.4f} ms), bound {bound:.4f} ms ({by}), twin "
+                  f"{plain_ms:.3f} ms, index_add_ {lib_ms:.4f} ms [{card}]")
+            for k, v in (("ms", ms), ("device_ms", dev_ms),
+                         ("plain_ms", plain_ms), ("bound_ms", bound),
+                         ("library_ms", lib_ms)):
+                tot[k] += v
+            del out, m, l_, gout, sr, c1
+            x = layer(x, None, None, is_last=l == len(model.layers) - 1,
+                      config=config, impl="pallas", edge_tiles=et)
+    print(f"  arxiv-pl pallas_segsum per step: {tot['ms']:.4f} ms (device "
+          f"{tot['device_ms']:.4f} ms), bound {tot['bound_ms']:.4f} ms, twin "
+          f"{tot['plain_ms']:.3f} ms, index_add_ {tot['library_ms']:.4f} ms "
+          f"[{card}]")
+    return max_err
 
 
 def phase_minibatch_entry():
@@ -2357,7 +2443,10 @@ def main() -> int:
     err_pallas, pallas_totals = phase_pallas_kernels_at_main_path(mb, card)
     phase_minibatch_gradients(mb, dev)
     err_pallas_cases = phase_pallas_cases(dev)
-    phase_pallas_full_graph(model, config, runs, dev, card)
+    pallas_layouts = phase_pallas_full_graph(model, config, runs, dev, card)
+    err_k7_pl = phase_k7_at_arxiv_pl(model, config,
+                                     pallas_layouts.pop("arxiv-pl"), card)
+    del pallas_layouts
     phase_chunk_invariance(model, config, runs, dev, card)
     err_chunked_cases = phase_chunked_cases(dev)
     phase_minibatch_entry()
@@ -2373,6 +2462,8 @@ def main() -> int:
     measured.update({k: (pallas_totals[k], max(err_pallas[k],
                                                err_pallas_cases))
                      for k in PALLAS_KERNELS})
+    measured["pallas_segsum"] = (pallas_totals["pallas_segsum"], max(
+        measured["pallas_segsum"][1], err_k7_pl))
     measured["sell_bwd_src"] = (k4_totals, max(err_k4, err_chunked_cases))
     measured["pallas_bwd_src"] = (k8_totals, max(err_k8, err_chunked_cases))
     launches = {k: infer_launches[k] + train_launches[k]

@@ -1,6 +1,7 @@
 // Lane groups sized to the width: the row layout shared by K1
 // (sell_fwd.cu), K2 (sell_bwd_dst.cu), K4 (sell_bwd_src.cu), K5
-// (pallas_fwd.cu), K6 (pallas_bwd_dst.cu) and K8 (pallas_bwd_src.cu).
+// (pallas_fwd.cu), K6 (pallas_bwd_dst.cu), K7 (pallas_segsum.cu, one head
+// of H*D features) and K8 (pallas_bwd_src.cu).
 //
 // A row of H*D fp32 features is owned by a group of LG lanes (a power of
 // two, at most 32), so a warp holds 32 / LG rows. Inside the group, head h

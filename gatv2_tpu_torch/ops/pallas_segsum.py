@@ -19,7 +19,10 @@ Both versions take the same inputs and give the same outputs:
      of its edges.
 
 Padding entries are skipped by their id, never multiplied by a zero mask: a
-packet slot K6 did not write may hold NaN.
+packet slot K6 did not write may hold NaN. The kernel sums each node's
+packets in entry order; a node of more than 32 entries in parts (over the
+block's lane groups, past 1,024 entries over segment blocks), whose sums
+it adds in part order (csrc/edge_tiles.cuh), with no atomics.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import ctypes
 
 import torch
 
+from gatv2_tpu_torch.ops.pallas_bwd_dst import segment_scratch
 from gatv2_tpu_torch.ops.pallas_fwd import (
     MAX_HD,
     TILE_N,
@@ -74,13 +78,16 @@ def pallas_segsum(c1, gather_perm, src_ids, rel_offsets, te):
 
     lib = load_library("pallas_segsum")
     fn = lib.gatv2_pallas_segsum
-    fn.argtypes = [_P] * 4 + [_I] * 3 + [_P] * 2
+    fn.argtypes = [_P] * 4 + [_I] * 5 + [_P] * 4
     fn.restype = _I
+    slots = src_ids.numel()
+    seg_blocks, seg_part, seg_meta = segment_scratch(slots, hd, c1)
     with torch.cuda.device(c1.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             c1.data_ptr(), gather_perm.data_ptr(), src_ids.data_ptr(),
-            rel_offsets.data_ptr(), int(te), rows, hd, dzs.data_ptr(), stream,
+            rel_offsets.data_ptr(), int(te), rows, slots, hd, seg_blocks,
+            dzs.data_ptr(), seg_part.data_ptr(), seg_meta.data_ptr(), stream,
         )
     raise_on_error(lib, err, "pallas_segsum")
     pallas_segsum.launches += 1

@@ -40,6 +40,7 @@ from gatv2_tpu_torch.ops.sell_segsum import sell_segsum, sell_segsum_plain
 from gatv2_tpu_torch.train import optim
 from gatv2_tpu_torch.train.loop import Trainer
 from gatv2_tpu_torch.train.minibatch import MinibatchTrainer
+from test_torch_row_ranges import k7_mirror
 
 SLOPE = 0.2
 
@@ -384,6 +385,42 @@ def test_k5_k6_k7_kernels_match_twins(cuda, case, h, d):
     launched = [k.launches - b for k, b in
                 zip((pallas_fwd, pallas_bwd_dst, pallas_segsum), before)]
     assert launched == [1, 1, 1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,h,d", [
+    ("src-hubs", 1, 16), ("src-hubs", 4, 64), ("src-hubs", 3, 7),
+    ("src-hubs", 2, 256), ("uniform", 1, 512),
+])
+def test_k7_kernel_matches_twin_on_source_hubs(cuda, case, h, d):
+    """K7 on an unchunked layout with sources of 12,000, 256, 257 and 300
+    out-edges (split over the block and over segment blocks) and H*D up to
+    512, on seeded packets with NaN in the padding slots K6 leaves
+    unwritten: against its twin and float64, equal bit for bit to a second
+    launch and to the numpy mirror of its summation order
+    (tests/test_torch_row_ranges.py); rows without an out-edge give 0."""
+    row_ptr, col_idx, n = _layout(case)
+    et = tpa.prepare_edge_tiles(row_ptr, col_idx, n)
+    rng = np.random.default_rng(10)
+    c1 = rng.standard_normal((et.dst_side.ids_grp[0].size, h * d),
+                             dtype=np.float32)
+    c1[et.dst_side.ids_grp[0] >= et.tiles_per_chunk * TILE_N] = np.nan
+    lay = (et.gather_perm, et.src_sorted_ids, et.src_tile_offsets)
+    args = (torch.as_tensor(c1, device=cuda),
+            *(torch.as_tensor(x, device=cuda) for x in lay), et.tile_e)
+    before = pallas_segsum.launches
+    dzs = pallas_segsum(*args)
+    again = pallas_segsum(*args)
+    torch.cuda.synchronize()
+    assert pallas_segsum.launches == before + 2
+    assert torch.equal(dzs, again)
+    assert bool(torch.isfinite(dzs).all())
+    assert _close_f64(dzs, pallas_segsum_plain(*args),
+                      pallas_segsum_plain(args[0].double(), *args[1:]))
+    assert np.array_equal(dzs.cpu().numpy(),
+                          k7_mirror(c1, *lay, et.tile_e))
+    no_out = np.bincount(col_idx, minlength=dzs.shape[0]) == 0
+    assert bool((dzs[torch.as_tensor(no_out, device=cuda)] == 0).all())
 
 
 @pytest.mark.gpu

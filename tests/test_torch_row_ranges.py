@@ -8,11 +8,22 @@ against a numpy derivation from the graph's CSR:
   exactly its in-edges, whole layouts, chunked and fixed-budget ones
   included. K8 applies the same rule to the source side's tiles: every
   source node must get exactly its out-edges.
-- K6 and K8 split rows longer than 256 edges (csrc/edge_tiles.cuh): over
-  the block's lane groups up to 1024 edges, over segment blocks of 1024
-  slots beyond, whose partials a second launch adds in segment order. A
-  mirror of that walk must cover each row's edges once, contiguously and
+- K6, K7 and K8 split rows longer than 256 edges (csrc/edge_tiles.cuh):
+  over the block's lane groups up to 1024 edges, over segment blocks of
+  1024 slots beyond, whose partials a second launch adds in segment order.
+  A mirror of that walk must cover each row's edges once, contiguously and
   in the order the kernels add them.
+- K7 (csrc/pallas_segsum.cu) applies the tile rule and the walk to the
+  unchunked layout's source-sorted entries (src_sorted_ids,
+  src_tile_offsets) and reads each entry's packet through gather_perm:
+  every source node must get exactly the destination-sorted slots of its
+  out-edges. K7 reads a tile's ids a window of 128 slots at a time and
+  jumps over the inside of long runs, whose ends a block-wide search finds
+  (tile_ranges<true>, block_lower_bound): mirrored, that walk must give
+  the same ranges as reading every slot. A numpy mirror of K7's summation
+  order (fp32 sums along the walk, partials added in part and segment
+  order) must match the JAX kernel (_segsum_src, interpret mode) and the
+  port's twin.
 - K4 counts a source row's real slots with one binary search over its
   slice's column counts, which is right only if the counts never rise
   along a slice (real slots are a prefix of the row's columns). Here the
@@ -23,16 +34,21 @@ against a numpy derivation from the graph's CSR:
   source ids must be the node's in-edges, split rows included.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
+from gatv2_tpu.ops import pallas_attention as jpa
 from gatv2_tpu_torch.data.synthetic import powerlaw_graph, random_graph
 from gatv2_tpu_torch.ops import pallas_attention as tpa
 from gatv2_tpu_torch.ops import sell_attention as tsa
 from gatv2_tpu_torch.ops.pallas_bwd_dst import SEG
+from gatv2_tpu_torch.ops.pallas_segsum import pallas_segsum
 
 TILE_N = 128
 HUB = 256  # csrc/edge_tiles.cuh kHub
+K7_SPLIT = 32  # csrc/pallas_segsum.cu kSplitLen
 
 
 def _csr(case):
@@ -147,25 +163,29 @@ def long_run_at(ids, rel_offsets, te, rows, p):
     return (r, lo, a) if a - lo > SEG else None
 
 
-def hub_walk(ids, rel_offsets, te, groups):
-    """{row: the slots of its edges in the order K6 and K8 add them}, by
-    the kernels' rule with `groups` lane groups a block: a row of at most
-    HUB edges in one group; up to SEG edges in equal parts over the groups,
-    added in part order; longer rows by the segment blocks (segment_runs:
-    slot 0 the long run through the segment's first slot if it started
-    before, slot 1 the one starting inside), each part over the groups,
-    added by the merge launch in segment order. Checks on the way that
-    every segment partial is read exactly once."""
+def hub_parts(ids, rel_offsets, te, groups, split=HUB):
+    """{row: its partials in the order K6, K7 and K8 add them, each partial
+    a list of parts in group order, each part a list of slots in the order
+    one lane group adds them}, by the kernels' rule with `groups` lane
+    groups a block: a row of at most `split` edges (HUB for K6 and K8,
+    K7_SPLIT for K7) in one group (one partial of one part); up to SEG
+    edges in equal parts over the groups, which
+    merge_groups adds in part order (one partial); longer rows by the
+    segment blocks (segment_runs: slot 0 the long run through the
+    segment's first slot if it started before, slot 1 the one starting
+    inside), one partial a segment, each over the groups, added by the
+    merge launch in segment order. Checks on the way that every segment
+    partial is read exactly once."""
     rows = (len(rel_offsets) - 1) * TILE_N
     lo, hi = k5_row_ranges(ids, rel_offsets, te)
     order = {}
     for row in range(rows):
         n = int(hi[row] - lo[row])
         if 0 < n <= SEG:
-            parts = [(lo[row], hi[row])] if n <= HUB else [
+            parts = [(lo[row], hi[row])] if n <= split else [
                 split_part(lo[row], hi[row], q, groups)
                 for q in range(groups)]
-            order[row] = [p for a, b in parts for p in range(a, b)]
+            order[row] = [[list(range(a, b)) for a, b in parts]]
     partials, starts = {}, {}
     for k in range(-(-len(ids) // SEG)):
         p0, p1 = k * SEG, min((k + 1) * SEG, len(ids))
@@ -177,14 +197,18 @@ def hub_walk(ids, rel_offsets, te, groups):
             last = long_run_at(ids, rel_offsets, te, rows, p1 - 1)
             if last and (first is None or last[0] != first[0]):
                 runs[1] = last
+        if 0 < p0 and p1 < len(ids) and ids[p0] < rows and \
+                ids[p0 - 1] == ids[p0] == ids[p1]:
+            # K7's shortcut (segment_runs<true>) takes such a segment as
+            # inside one long run, without a search: so must the full rule
+            assert runs[1] is None and runs[0][1] < p0 and runs[0][2] > p1
         for slot, run in enumerate(runs):
             if run is None:
                 continue
             r, a, b = run
             parts = [split_part(max(a, p0), min(b, p1), q, groups)
                      for q in range(groups)]
-            partials[k, slot] = (r, [p for x, y in parts
-                                     for p in range(x, y)])
+            partials[k, slot] = (r, [list(range(x, y)) for x, y in parts])
         if runs[1]:
             starts[k] = runs[1]
     for k, (r, _, b) in starts.items():
@@ -192,20 +216,25 @@ def hub_walk(ids, rel_offsets, te, groups):
         keys = [(k, 1)] + [(kk, 0) for kk in range(k + 1, (b - 1) // SEG + 1)]
         order[r] = []
         for key in keys:
-            row, slots = partials.pop(key)
+            row, parts = partials.pop(key)
             assert row == r, (key, row, r)
-            order[r] += slots
+            order[r].append(parts)
     assert not partials, partials  # no partial is left unread
     return order
 
 
-@pytest.mark.parametrize("long_len", [255, 256, 257, 300, 1024, 1025,
-                                      12_000])
-@pytest.mark.parametrize("side", ["dst", "src"])
-def test_hub_split_covers_each_row_once_in_order(long_len, side):
-    """Rows of long_len edges at different slot offsets: node 0 (tile 0)
-    and node 300 (tile 2) as destinations, node 7 and node 450 as sources;
-    the other rows 0-4 edges. On 1 and 3 chunks, with 4 to 32 groups."""
+def hub_walk(ids, rel_offsets, te, groups, split=HUB):
+    """{row: the slots of its edges in the order K6, K7 and K8 add them}
+    (hub_parts, flattened)."""
+    return {row: [p for partial in parts for part in partial for p in part]
+            for row, parts in hub_parts(ids, rel_offsets, te, groups,
+                                        split).items()}
+
+
+def _long_rows_csr(long_len):
+    """(row_ptr, col_idx, n): rows of long_len edges at different slot
+    offsets, node 0 (tile 0) and node 300 (tile 2) as destinations, node 7
+    and node 450 as sources; the other rows 0-4 edges."""
     rng = np.random.default_rng(long_len)
     n = 1000
     others = np.setdiff1d(np.arange(n), [0, 300, 7, 450])
@@ -221,7 +250,16 @@ def test_hub_split_covers_each_row_once_in_order(long_len, side):
     order = np.argsort(dst, kind="stable")
     row_ptr = np.zeros(n + 1, np.int64)
     np.cumsum(np.bincount(dst, minlength=n), out=row_ptr[1:])
-    col_idx = src[order].astype(np.int32)
+    return row_ptr, src[order].astype(np.int32), n
+
+
+@pytest.mark.parametrize("long_len", [255, 256, 257, 300, 1024, 1025,
+                                      12_000])
+@pytest.mark.parametrize("side", ["dst", "src"])
+def test_hub_split_covers_each_row_once_in_order(long_len, side):
+    """Rows of long_len edges at different slot offsets (_long_rows_csr).
+    On 1 and 3 chunks, with 4 to 32 groups."""
+    row_ptr, col_idx, n = _long_rows_csr(long_len)
     for chunks in (1, 3):
         et = tpa.prepare_edge_tiles(row_ptr, col_idx, n, num_chunks=chunks)
         s = et.dst_side if side == "dst" else et.src_side
@@ -315,3 +353,239 @@ def test_k1_k2_row_slots_are_the_in_edges(case, chunks):
     for node in range(n):
         want = np.sort(col_idx[row_ptr[node]:row_ptr[node + 1]])
         assert np.array_equal(np.sort(got.get(node, [])), want), node
+
+
+def _batch_csr():
+    """A sampled batch's shape: in-edges only into the first 180 of 640
+    nodes, from sources below 290, so source tiles 3 and 4 hold no
+    entry."""
+    rng = np.random.default_rng(8)
+    dst = np.sort(rng.integers(0, 180, size=900))
+    src = rng.integers(0, 290, size=900).astype(np.int32)
+    row_ptr = np.zeros(641, np.int64)
+    np.cumsum(np.bincount(dst, minlength=640), out=row_ptr[1:])
+    return row_ptr, src, 640
+
+
+def _k7_layout(case):
+    """An unchunked layout K7 runs on: _csr's graphs, a fixed-budget batch
+    with empty source tiles, or _long_rows_csr's source rows ("long-<n>")."""
+    if case == "batch":
+        row_ptr, col_idx, n = _batch_csr()
+        return tpa.prepare_edge_tiles(row_ptr, col_idx, n, tile_e=128,
+                                      fixed_edge_tiles=30), n
+    if case.startswith("long-"):
+        row_ptr, col_idx, n = _long_rows_csr(int(case[5:]))
+    else:
+        row_ptr, col_idx, n = _csr(case)
+    return tpa.prepare_edge_tiles(row_ptr, col_idx, n), n
+
+
+@pytest.mark.parametrize("case", ["uniform", "power-law", "sparse", "batch"])
+def test_k7_entries_are_the_out_edge_slots(case):
+    """K7's tile rule on the source-sorted entries gives every source node
+    the destination-sorted slots of exactly its out-edges (through
+    gather_perm); padding entries carry the padded node count."""
+    et, n = _k7_layout(case)
+    assert et.num_chunks == 1
+    ids, perm = et.src_sorted_ids, et.gather_perm
+    rows = (len(et.src_tile_offsets) - 1) * TILE_N
+    assert bool((ids[ids >= n] == rows).all())
+    side = et.dst_side
+    real = side.ids_grp[0] < et.tiles_per_chunk * TILE_N
+    src_of_slot = side.other_grp[0]
+    lo, hi = k5_row_ranges(ids, et.src_tile_offsets, et.tile_e)
+    for row in range(rows):
+        want = np.nonzero(real & (src_of_slot == row))[0]
+        assert np.array_equal(np.sort(perm[lo[row]:hi[row]]), want), row
+        assert bool((ids[lo[row]:hi[row]] == row).all()), row
+    if case == "batch":
+        assert not (hi - lo)[3 * TILE_N:].any()  # empty source tiles
+
+
+@pytest.mark.parametrize("long_len", [32, 33, 255, 256, 257, 300, 1024,
+                                      1025, 12_000])
+def test_k7_hub_walk_covers_each_row_once_in_order(long_len):
+    """The walk over K7's source-sorted entries, with 4 to 32 groups, adds
+    each row's entries once and in entry order: sources 7 and 450 of
+    long_len edges beside rows of 0-4 (32 and 33: around K7's split
+    length)."""
+    et, _ = _k7_layout(f"long-{long_len}")
+    ids, rel = et.src_sorted_ids, et.src_tile_offsets
+    lo, hi = k5_row_ranges(ids, rel, et.tile_e)
+    assert int((hi - lo).max()) == long_len
+    for groups in (4, 8, 16, 32):
+        walk = hub_walk(ids, rel, et.tile_e, groups, K7_SPLIT)
+        assert sorted(walk) == np.nonzero(hi > lo)[0].tolist()
+        for row, slots in walk.items():
+            assert slots == list(range(lo[row], hi[row])), row
+
+
+def block_lower_bound(ids, lo, hi, key):
+    """The first slot of [lo, hi) whose id is >= key, or hi, by the rule of
+    block_lower_bound in csrc/edge_tiles.cuh: each round a probe at the
+    last slot of each of 128 equal parts, the parts found below key
+    skipped; with the number of rounds."""
+    rounds = 0
+    while lo < hi:
+        step = -(-(hi - lo) // TILE_N)
+        x = lo + (np.arange(TILE_N) + 1) * step - 1
+        ok = x < hi
+        below = int((ids[x[ok]] < key).sum())
+        lo += below * step
+        hi = min(hi, lo + step - 1)
+        rounds += 1
+    return lo, rounds
+
+
+def k7_tile_ranges(ids, rel_offsets, te):
+    """([lo, hi) per row, windows read per tile) by K7's walk
+    (tile_ranges<true>): each tile's ids a window of 128 slots at a time,
+    run ends marked where adjacent ids differ; when the run through a
+    window's last slot also fills the next window, its end comes from
+    block_lower_bound and the walk goes on from there."""
+    tiles = len(rel_offsets) - 1
+    lo = np.zeros(tiles * TILE_N, np.int64)
+    hi = np.zeros(tiles * TILE_N, np.int64)
+    windows = np.zeros(tiles, np.int64)
+    for t in range(tiles):
+        t_lo, t_hi = int(rel_offsets[t]) * te, int(rel_offsets[t + 1]) * te
+        base, w = t * TILE_N, t_lo
+        while w < t_hi:
+            windows[t] += 1
+            for p in range(w, min(w + TILE_N, t_hi)):
+                d = int(ids[p])
+                if not base <= d < base + TILE_N:
+                    continue
+                if p == t_lo or ids[p - 1] != d:
+                    lo[d] = p
+                if p + 1 == t_hi or ids[p + 1] != d:
+                    hi[d] = p + 1
+            nxt = w + TILE_N
+            w = nxt
+            if nxt + TILE_N > t_hi or ids[nxt - 1] != ids[nxt + TILE_N - 1]:
+                continue
+            r = int(ids[nxt - 1])
+            w, _ = block_lower_bound(ids, nxt + TILE_N, t_hi, r + 1)
+            if base <= r < base + TILE_N:
+                hi[r] = w
+    return lo, hi, windows
+
+
+def test_block_lower_bound_is_the_lower_bound():
+    """Against np.searchsorted on sorted runs of 1 to 2e5 equal ids, keys
+    below, inside and above them, and empty ranges."""
+    rng = np.random.default_rng(3)
+    ids = np.repeat(np.arange(40), rng.integers(1, 6, size=40))
+    ids = np.sort(np.concatenate([ids, np.full(200_000, 17)]))
+    for lo, hi in ((0, ids.size), (5, 9), (7, 7), (100, 150_000),
+                   (ids.size - 3, ids.size)):
+        for key in (-1, 0, 17, 18, 25, 40, 41):
+            want = lo + int(np.searchsorted(ids[lo:hi], key))
+            got, rounds = block_lower_bound(ids, lo, hi, key)
+            assert got == want, (lo, hi, key)
+            assert rounds <= 3
+
+
+@pytest.mark.parametrize("case", ["uniform", "power-law", "sparse", "batch",
+                                  "long-255", "long-257", "long-300",
+                                  "long-1025", "long-12000"])
+def test_k7_jumping_walk_gives_the_tile_ranges(case):
+    """K7's walk gives every row the run that reading every slot gives
+    (k5_row_ranges), and reads the tiles of the 12,000-edge sources in
+    under a third of their windows."""
+    et, _ = _k7_layout(case)
+    ids, rel, te = et.src_sorted_ids, et.src_tile_offsets, et.tile_e
+    lo, hi, windows = k7_tile_ranges(ids, rel, te)
+    want_lo, want_hi = k5_row_ranges(ids, rel, te)
+    assert np.array_equal(lo, want_lo) and np.array_equal(hi, want_hi)
+    slots = np.diff(rel) * te
+    if case == "long-12000":
+        hub_tiles = slots > 12_000
+        assert hub_tiles.sum() == 2
+        assert bool((3 * windows[hub_tiles] < slots[hub_tiles] // TILE_N)
+                    .all())
+    assert bool((windows <= -(-slots // TILE_N)).all())
+
+
+def k7_groups(hd):
+    """Lane groups a 128-thread K7 block holds: csrc/lane_groups.cuh's
+    geometry(1, hd) with 16-byte vectors when hd is a multiple of 4 (the
+    port's tables are aligned), a power of two of lanes up to 32 a row."""
+    qph = hd // 4 if hd % 4 == 0 else hd
+    lanes = 1
+    while lanes < min(qph, 32):
+        lanes *= 2
+    return TILE_N // lanes
+
+
+def k7_mirror(c1, perm, ids, rel_offsets, te):
+    """K7's dzs in numpy, in its summation order: each part of the walk
+    (hub_parts) summed in fp32 slot by slot from 0, a partial's parts added
+    in group order, a row's partials in segment order; rows without an
+    entry 0. NaN in packets no entry names never reaches it."""
+    hd = c1.shape[1]
+    rows = (len(rel_offsets) - 1) * TILE_N
+    dzs = np.zeros((rows, hd), np.float32)
+    for row, partials in hub_parts(ids, rel_offsets, te, k7_groups(hd),
+                                   K7_SPLIT).items():
+        total = None
+        for parts in partials:
+            merged = None
+            for part in parts:
+                acc = np.zeros(hd, np.float32)
+                for p in part:
+                    acc += c1[perm[p]]
+                merged = acc if merged is None else merged + acc
+            total = merged if total is None else total + merged
+        dzs[row] = total
+    return dzs
+
+
+def _jax_k7(c1, et):
+    """JAX's K7 (_segsum_src, interpret mode) as the JAX op's unchunked
+    backward runs it: the packets lane-padded to 128, permuted to
+    source-sorted order by take(c1, gather_perm)."""
+    hd = c1.shape[1]
+    hd_pad = 128 * -(-hd // 128)
+    c1_pad = jnp.zeros((c1.shape[0], hd_pad), jnp.float32).at[:, :hd].set(
+        jnp.asarray(c1))
+    t = len(et.src_tile_offsets) - 1
+    dzs = jpa._segsum_src(
+        jpa._take(c1_pad, jnp.asarray(et.gather_perm)),
+        jnp.asarray(et.src_sorted_ids)[None, :],
+        jnp.asarray(et.src_tile_offsets), t, te=et.tile_e, hd=hd_pad,
+        precision="highest", interpret=True)
+    return np.asarray(dzs)[:, :hd]
+
+
+@pytest.mark.parametrize("case,hd", [
+    ("uniform", 16), ("power-law", 32), ("sparse", 21), ("batch", 16),
+    ("long-33", 16), ("long-300", 16), ("long-1025", 256),
+    ("long-12000", 16),
+])
+def test_k7_summation_order_matches_jax_and_twin(case, hd):
+    """The mirror of K7's summation order against the JAX kernel and the
+    port's twin on the same seeded packets (finite everywhere: the JAX
+    kernel masks padding by a one-hot product, 0 x packet). Tolerance rtol
+    1e-5, atol 1e-5 x the largest |dzs|: all three are fp32 sums of up to
+    12,000 packets, in three orders (the walk's parts; edge tiles of
+    one-hot products; index_add_ in entry order). With NaN in the padding
+    packets the mirror is unchanged: it never reads them."""
+    et, _ = _k7_layout(case)
+    rng = np.random.default_rng(hd)
+    c1 = rng.standard_normal((et.dst_side.ids_grp[0].size, hd),
+                             dtype=np.float32)
+    args = (et.gather_perm, et.src_sorted_ids, et.src_tile_offsets, et.tile_e)
+    got = k7_mirror(c1, *args)
+    want = _jax_k7(c1, et)
+    tol = dict(rtol=1e-5, atol=1e-5 * max(1.0, float(np.abs(want).max())))
+    np.testing.assert_allclose(got, want, **tol)
+    before = pallas_segsum.launches
+    twin = pallas_segsum(torch.as_tensor(c1), *(torch.as_tensor(a)
+                                                for a in args[:3]), et.tile_e)
+    assert pallas_segsum.launches == before  # the CPU runs the twin
+    np.testing.assert_allclose(got, twin.numpy(), **tol)
+    real = et.dst_side.ids_grp[0] < et.tiles_per_chunk * TILE_N
+    c1[~real] = np.nan
+    assert np.array_equal(k7_mirror(c1, *args), got)

@@ -1,17 +1,20 @@
 """Time the port's K1 (csrc/sell_fwd.cu), K2 (csrc/sell_bwd_dst.cu), K4
-(csrc/sell_bwd_src.cu), K5 (csrc/pallas_fwd.cu), K6 (csrc/pallas_bwd_dst.cu)
-and K8 (csrc/pallas_bwd_src.cu) on the card against variants of their own
-sources and against a bare gather of the rows they read, to show what
-bounds them.
+(csrc/sell_bwd_src.cu), K5 (csrc/pallas_fwd.cu), K6 (csrc/pallas_bwd_dst.cu),
+K7 (csrc/pallas_segsum.cu) and K8 (csrc/pallas_bwd_src.cu) on the card
+against variants of their own sources and against a bare gather of the rows
+they read, to show what bounds them.
 
 The variants are built from copies of the sources with one constant
 changed (the ring of edges in flight, the blocks per SM the register budget
 is cut for, the block size, evict-first or ordinary loads of the gathered
-rows); the kernels in the package are not changed. The bare gathers read
+rows) or, for K7, one piece of code taken out of its source or of the
+shared csrc/edge_tiles.cuh; the kernels in the package are not changed.
+The bare gathers read
 exactly the rows the kernel reads per real slot or edge, in the layout's
 order (K1, K2 and K5: a zs row; K6: a zs row, and it writes a c1 row; K4
-and K8: a zd row, a g row, sigma and r) and add them up, with no other
-work: the time the memory system needs for that access pattern.
+and K8: a zd row, a g row, sigma and r; K7: a c1 row through gather_perm)
+and add them up, with no other work: the time the memory system needs for
+that access pattern.
 
 Inputs are synthetic, shaped like chip_smoke.py's main paths:
 products-full chunk 0 for K1, K2 and K4 (489,856 rows of Poisson(25.25)
@@ -19,14 +22,17 @@ degree over 2,449,029 nodes: the destination side's rows with their
 sources in random order for K1 and K2, the source side's rows with their
 destinations ascending, as the SELL source side lays them out, for K4), a
 products-sub batch for K5 and K6 (985,000 edges into the first 111,000 of
-500,096 nodes, as a 1024-seed 10,10,10 batch fills them) and products-sub's
-full-graph source chunk 0 for K8 (250,048 source rows of Poisson(16)
-out-degree, destinations ascending over 500,000 nodes, tile_e 256). K2 runs
-without packets, as the chunked backward launches it, K6 with them, as the
-minibatch backward does. Needs the card and nvcc; the arguments pick
-kernels (default all):
+500,096 nodes, as a 1024-seed 10,10,10 batch fills them; K7 on its
+source-sorted entries, about 2 a source), products-sub's full-graph source
+chunk 0 for K8 (250,048 source rows of Poisson(16) out-degree,
+destinations ascending over 500,000 nodes, tile_e 256), and for K7 also
+arxiv-pl's unchunked layout (chip_smoke.py's powerlaw_graph: 169,343
+nodes, 1,166,243 edges, a source of 226,772 of them and 89 more of over
+1,024). K2 runs without packets, as the chunked backward launches it, K6
+with them, as the minibatch backward does. Needs the card and nvcc; the
+arguments pick kernels (default all):
 
-    python tools/torch_kernel_variants.py [k1 k2 k4 k5 k6 k8]
+    python tools/torch_kernel_variants.py [k1 k2 k4 k5 k6 k7 k8]
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
+from gatv2_tpu_torch.data.synthetic import powerlaw_graph  # noqa: E402
 from gatv2_tpu_torch.ops import build  # noqa: E402
 from gatv2_tpu_torch.ops import pallas_attention as tpa  # noqa: E402
 from gatv2_tpu_torch.ops import pallas_bwd_dst as k6  # noqa: E402
@@ -151,21 +158,61 @@ K8_VARIANTS = [
       "kMinBlocks": "(F <= 4 ? 5 : F <= 8 ? 4 : F <= 16 ? 3 : 1)"}),
     ("ordinary zd/g loads", {"kEvictFirst": "false"}),
 ]
+K7_VARIANTS = [
+    ("as built", {}),
+    ("ring 2, 16 blocks (F 4)",
+     {"kRing": "(F <= 16 ? (F <= 4 ? 2 : 4) : 2)"}),
+    ("ring 1, 12 blocks (F 8)",
+     {"kRing": "(F <= 8 ? 1 : F <= 16 ? 4 : 2)",
+      "kMinBlocks": "(F <= 4 ? 16 : F <= 8 ? 12 : F <= 16 ? 4 : 2)"}),
+    ("ring 4, 12 blocks (F 4)",
+     {"kRing": "(F <= 16 ? 4 : 2)",
+      "kMinBlocks": "(F <= 4 ? 12 : F <= 8 ? 8 : F <= 16 ? 4 : 2)"}),
+    ("ring 8, 8 blocks (F 4) / 4 (F 8)",
+     {"kRing": "(F <= 8 ? 8 : 2)",
+      "kMinBlocks": "(F <= 4 ? 8 : F <= 16 ? 4 : 2)"}),
+    ("evict-first c1 loads at every width", {"kEvictFirst": "true"}),
+    ("ordinary c1 loads at every width", {"kEvictFirst": "false"}),
+    ("merge one partial at a time", {"kMergeBatch": "1"}),
+    ("merge 64 partials a round", {"kMergeBatch": "64"}),
+    ("rows of > 16 entries split", {"kSplitLen": "16"}),
+    ("rows of > 64 entries split", {"kSplitLen": "64"}),
+    ("rows of > 256 entries split (K6, K8)", {"kSplitLen": "256"}),
+    ("every slot of a tile read (K6, K8)",
+     {"code": (r"tile_ranges<true>", "tile_ranges")}),
+    ("segments inside a run searched too",
+     {"edge_tiles.cuh": (r"  if constexpr \(kBlockWide\) \{\n    if \(p0 > 0"
+                         r".*?\n  \}\n", "")}),
+]
 
 
-def variant_source(text: str, changes: dict) -> str:
+def variant_source(text: str, changes: dict) -> tuple[str, str | None]:
+    """(the kernel's source, the edge_tiles.cuh it includes or None for
+    csrc's) with `changes` made: a constant's new value, or under "code" /
+    "edge_tiles.cuh" a (pattern, replacement) that must match once in the
+    source / the header."""
+    header = None
     for const, value in changes.items():
+        if const in ("code", "edge_tiles.cuh"):
+            target = text if const == "code" else (
+                build.CSRC / const).read_text()
+            target, n = re.subn(value[0], value[1], target, flags=re.S)
+            assert n == 1, (const, n)
+            if const == "code":
+                text = target
+            else:
+                header = target
+            continue
         if const == "once":
             text, n = re.subn(r"(ln\.load\([^;]*base), true\)",
                               r"\g<1>, false)", text)
             assert n == 2, n
             continue
-        pat = (rf"(template <int F>\nconstexpr int {const} = )[^;]*;"
-               if const in ("kRing", "kMinBlocks")
-               else rf"(constexpr (?:int|bool) {const} = )[^;]*;")
+        pat = (rf"((?:template <int F>\n)?constexpr (?:int|bool) {const} = )"
+               r"[^;]*;")
         text, n = re.subn(pat, rf"\g<1>{value};", text)
         assert n == 1, (const, n)
-    return text
+    return text, header
 
 
 # ptxas's report on each variant's <VEC = 4, NV> instantiations (NV = 1 at
@@ -174,9 +221,15 @@ def variant_source(text: str, changes: dict) -> str:
 REGS: dict[tuple[str, int], str] = {}
 
 
-def compile_lib(name: str, text: str) -> ctypes.CDLL:
-    src = OUT / f"{name}.cu"
+def compile_lib(name: str, text: str, header: str | None = None
+                ) -> ctypes.CDLL:
+    """Builds one source (with its own edge_tiles.cuh beside it, which the
+    quoted include finds first, if `header`)."""
+    src = OUT / name / f"{name}.cu"
+    src.parent.mkdir(exist_ok=True)
     src.write_text(text)
+    if header is not None:
+        (src.parent / "edge_tiles.cuh").write_text(header)
     so = OUT / f"{name}.so"
     proc = subprocess.run(
         [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
@@ -256,7 +309,31 @@ def k5_layout(dev):
     real = side.ids_grp[0] < n
     return dict(n=n, e=e, ids=side.ids_grp[0], src=side.other_grp[0],
                 rel=side.rel_offsets[0], te=et.tile_e,
-                real_src=side.other_grp[0][real].contiguous())
+                real_src=side.other_grp[0][real].contiguous(), et=et)
+
+
+def arxiv_pl_layout(dev):
+    """arxiv-pl's unchunked edge tiles (chip_smoke.py's graph): source
+    hubs of up to 226,772 edges."""
+    g = powerlaw_graph(169_343, 1_166_243, 128, 40, seed=0, alpha=1.2)
+    return dict(e=g.num_edges, et=tpa.prepare_edge_tiles(
+        g.row_ptr, g.col_idx, g.num_nodes).to(dev))
+
+
+def device_rows(fn, reps=10):
+    """{kernel name: device ms per call} of fn (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {re.sub(r"^void |\(anonymous namespace\)::", "", ev.key
+                   ).split("(")[0]: ev.self_device_time_total / 1e3 / reps
+            for ev in prof.key_averages()
+            if getattr(ev, "self_device_time_total", 0)}
 
 
 def k8_layout(dev):
@@ -281,11 +358,12 @@ def k8_layout(dev):
                 real_dst=side.other_grp[0][real].contiguous())
 
 
-ALL = ("k1", "k2", "k4", "k5", "k6", "k8")
+ALL = ("k1", "k2", "k4", "k5", "k6", "k7", "k8")
 SOURCES = {"k1": ("sell_fwd", K1_VARIANTS), "k2": ("sell_bwd_dst", K2_VARIANTS),
            "k4": ("sell_bwd_src", K4_VARIANTS),
            "k5": ("pallas_fwd", K5_VARIANTS),
            "k6": ("pallas_bwd_dst", K6_VARIANTS),
+           "k7": ("pallas_segsum", K7_VARIANTS),
            "k8": ("pallas_bwd_src", K8_VARIANTS)}
 
 
@@ -302,14 +380,14 @@ def main(argv) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
-    jobs = {"gather": GATHER_SRC}
+    jobs = {"gather": (GATHER_SRC, None)}
     for kern in wanted:
         file, variants = SOURCES[kern]
         text = (build.CSRC / f"{file}.cu").read_text()
         for i, (_, changes) in enumerate(variants):
             jobs[f"{kern}_{i}"] = variant_source(text, changes)
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
-        libs = dict(zip(jobs, ex.map(lambda kv: compile_lib(*kv),
+        libs = dict(zip(jobs, ex.map(lambda kv: compile_lib(kv[0], *kv[1]),
                                      jobs.items())))
     gather = libs["gather"].launch_gather
     gather.argtypes = [ctypes.c_void_p, ctypes.c_long, ctypes.c_int,
@@ -492,6 +570,55 @@ def main(argv) -> int:
                           f"{ms:.4f} ms ({regs('k6', i, hd)})")
             del zs, zd, g, c1, c1_rows
             torch.cuda.empty_cache()
+
+    if "k7" in wanted:
+        for what, lay in (("products-sub batch", k5_layout(dev)),
+                          ("arxiv-pl layout", arxiv_pl_layout(dev))):
+            et = lay["et"]
+            rows = (et.src_tile_offsets.numel() - 1) * 128
+            slots = et.src_sorted_ids.numel()
+            c1_rows = et.dst_side.ids_grp[0].numel()
+            real_perm = et.gather_perm[et.src_sorted_ids < rows].contiguous()
+            print(f"K7 synthetic {what}: {rows} source rows, {lay['e']} real "
+                  f"entries, {slots} slots [{card}]")
+            for hd in (256, 32, 16):
+                c1 = torch.randn(c1_rows, hd, device=dev)
+                dzs = torch.empty(rows, hd, device=dev)
+                seg_blocks, seg_part, seg_meta = k6.segment_scratch(
+                    slots, hd, c1)
+                bound = 4 * (lay["e"] * (hd + 2) + rows * hd) \
+                    / PEAK_BYTES_PER_S * 1e3
+                ms = event_ms(lambda: bare(real_perm, hd, c1))
+                print(f"  H*D={hd}: bare gather of a c1 row per entry through "
+                      f"gather_perm {ms:.4f} ms; bound {bound:.4f} ms")
+                for i, (name, _) in enumerate(K7_VARIANTS):
+                    fn = libs[f"k7_{i}"].gatv2_pallas_segsum
+                    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                                   + [ctypes.c_void_p] * 4)
+                    fn.restype = ctypes.c_int
+                    args = (c1.data_ptr(), et.gather_perm.data_ptr(),
+                            et.src_sorted_ids.data_ptr(),
+                            et.src_tile_offsets.data_ptr(), et.tile_e, rows,
+                            slots, hd, seg_blocks, dzs.data_ptr(),
+                            seg_part.data_ptr(), seg_meta.data_ptr(), stream)
+                    ms = event_ms(lambda: fn(*args))
+                    print(f"  H*D={hd}: K7 {name}: {ms:.4f} ms "
+                          f"({regs('k7', i, hd)})")
+                    if i:
+                        continue
+                    rows_ms = device_rows(lambda: fn(*args))
+                    print("    device ms by kernel: " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in rows_ms.items()))
+                    # every segment its own block, instead of at most
+                    # k6.MAX_SEG_BLOCKS striding over them
+                    nseg = seg_part.shape[0] // 2
+                    if nseg > seg_blocks:
+                        all_args = args[:8] + (nseg,) + args[9:]
+                        ms = event_ms(lambda: fn(*all_args))
+                        print(f"  H*D={hd}: K7 {name}, {nseg} segment blocks "
+                              f"instead of {seg_blocks}: {ms:.4f} ms")
+                del c1, dzs
+                torch.cuda.empty_cache()
 
     if "k8" in wanted:
         lay = k8_layout(dev)
