@@ -57,6 +57,18 @@ Phases (any failure exits non-zero):
      source hub split over segment blocks) against its twin and float64,
      padding packets poisoned with NaN, with its time beside its bound,
      its twin's and index_add_'s;
+ 11b. the same products-sub minibatch path on per-batch SELL layouts:
+     MinibatchTrainer(impl='sell') from the same start weights (budget
+     500,096 nodes / 1,136,640 edges, fixed geometry 9,136 columns and
+     3,942 slices a side, both sides split), the K1/K2/K3 counters zeroed
+     just before 3 warm-up and 30 timed batches and read just after; the
+     first 5 losses against the torch path's, one batch's gradients
+     against float64, K1-K3 against their twins at every layer's shapes
+     (padding packets poisoned with NaN before K3), each kernel's time
+     beside its bound (real edges only), its twin and, for K3,
+     index_add_, the plain-PyTorch row merges, device step / host sample +
+     layout / pipelined times beside the pallas run's in the same call, a
+     profile, and one exact evaluation through setup_full_graph_sell;
  12. chunk invariance: 'arxiv' and 'arxiv-pl' on a forced 3-chunk layout,
      sell (K1, K2, K4) and pallas (K5, K6, K8) Trainers against the torch
      path's losses, their epoch times and a profile of the 'arxiv-pl'
@@ -68,15 +80,17 @@ Phases (any failure exits non-zero):
      tools/bench_minibatch.py, each kernel beside its bound (K5 and K6:
      and per-edge gather floor), its twin and, for K7, index_add_; a profiler table; peak memory; and the minibatch
      entry point (train --batch-size on karate, then predict --impl pallas
-     from its checkpoint);
+     from its checkpoint; train --impl sell --batch-size with --profile
+     and --debug-nans, its trace file checked);
  14. products-sub full-graph Trainer(impl='pallas') on the chunk count its
      default budget picks, the K5-K8 counters zeroed just before and read
      just after (K8 launched, K7 not), against a sell Trainer from the same
      weights; then K8 against its twin and float64, and K6 without packets
      against K6 with them, at each layer's shapes on one chunk, with K8's
      time beside its bound and per-edge gather floor;
- 15. one JSON line listing every kernel, the nvidia-smi line, then the
-     result line {"ok": true, "device": {...}}.
+ 15. the total seconds, one JSON line listing every kernel, the
+     nvidia-smi line, then the result line
+     {"ok": true, "device": {...}}.
 
 Every time is measured with CUDA events and printed with the card's name
 and power limit.
@@ -212,6 +226,10 @@ K5_OPS_PER_FEATURE = K1_OPS_PER_FEATURE
 K6_OPS_PER_FEATURE = K2_OPS_PER_FEATURE
 K7_OPS_PER_FEATURE = K3_OPS_PER_FEATURE
 SELL_KERNELS = ("sell_fwd", "sell_bwd_dst", "sell_segsum")
+# the per-batch SELL geometry (sell_minibatch_geometry) of that budget:
+# ceil(1,136,640 / 128) + 256 columns and ceil((500,096 + 1,136,640 // 256)
+# / 128) row slices a side
+MB_SELL_COLS, MB_SELL_TILES = 9_136, 3_942
 PALLAS_KERNELS = ("pallas_fwd", "pallas_bwd_dst", "pallas_segsum")
 
 # bench.py's 'products-full' config: random_graph(2449029, 61859140, 100, 47)
@@ -406,10 +424,12 @@ def _bound(nbytes, ops):
 
 def k3_bound_ms(st_host, hd):
     """(bound_ms, bound_by) of one K3 launch: one c1 row and one ell_perm
-    entry per real edge and the src layout read, dzs rows written."""
+    entry per real edge and the src layout's real columns read, dzs rows
+    written (a fixed layout's tail columns and its num_edges of -1 do not
+    count)."""
     rows = st_host.num_src_tiles * TILE_N
-    e = st_host.num_edges
-    cols = st_host.e2_ell // TILE_N
+    e = int(st_host.srcs.cnt.sum())
+    cols = int(st_host.srcs.col_off[-1])
     nbytes = 4 * (e * hd + e + cols + st_host.num_src_tiles + 1 + rows * hd)
     return _bound(nbytes, e * hd * K3_OPS_PER_FEATURE)
 
@@ -733,9 +753,12 @@ def device_ms(fn, kernels, reps=10):
     return sum(ms) if ms else float("nan")
 
 
-# the device kernels of each edge-tile wrapper, by name (K6, K7 and K8
-# also launch the merge of their hub segments)
+# the device kernels of each wrapper, by name (K6, K7 and K8 also launch
+# the merge of their hub segments)
 DEVICE_KERNELS = {
+    "sell_fwd": ("sell_fwd_kernel",),
+    "sell_bwd_dst": ("sell_bwd_dst_kernel",),
+    "sell_segsum": ("sell_segsum_kernel",),
     "pallas_fwd": ("pallas_fwd_kernel",),
     "pallas_bwd_dst": ("pallas_bwd_dst_kernel", "merge_segments"),
     "pallas_segsum": ("pallas_segsum_kernel", "merge_segments"),
@@ -794,20 +817,13 @@ def phase_train_main_path(model, config, runs, dev):
     return launches
 
 
-def param_names(model):
-    names = []
-    for l in range(len(model.layers)):
-        names += [f"layer{l}.a", f"layer{l}.w_dst", f"layer{l}.w_src"]
-    return names + ["w_o"]
-
-
 def phase_gradients(model, config, runs, dev, paths=None):
     """One step's gradients of the loss: each path (by default sell, K1-K3;
     paths(r) maps a label to (impl, tiles, features, labels, num_valid))
     and the fp32 torch path, each against the torch path in float64, per
     parameter."""
     model64 = copy.deepcopy(model).double()
-    names = param_names(model)
+    names = optim.param_names(model)
     if paths is None:
         def paths(r):
             return {"sell": ("sell", r["st"], r["feats"], r["labels"],
@@ -1128,6 +1144,37 @@ def minibatch_trainer(graph, config, splits, impl, dev):
                             splits=splits, device=dev)
 
 
+def drive_minibatch(tr, what, kernels):
+    """Drive the minibatch trainer tr: MB_WARMUP warm-up and MB_TIMED timed
+    batches through the prefetching sampler, every launch counter zeroed
+    just before and read just after; fails unless each of `kernels` was
+    launched and every loss is finite. Returns (the first MB_CHECK
+    batches, the losses, pipelined ms a timed batch, the launches)."""
+    stream = prefetch(iter(tr.sampler), depth=2)
+    kept, losses = [], []
+    torch.cuda.synchronize()
+    zero_counters()
+    for i in range(MB_WARMUP + MB_TIMED):
+        if i == MB_WARMUP:
+            torch.cuda.synchronize()
+            t_timed = time.perf_counter()
+        b = next(stream)
+        if len(kept) < MB_CHECK:
+            kept.append(b)
+        losses.append(tr.train_step(b)[0])  # float(): waits for the step
+    pipelined_ms = (time.perf_counter() - t_timed) * 1e3 / MB_TIMED
+    torch.cuda.synchronize()
+    launches = read_counters()
+    stream.close()  # stops the prefetch thread
+    print(f"{what} launches ({MB_WARMUP + MB_TIMED} batches): {launches}")
+    for name in kernels:
+        if launches[name] == 0:
+            fail(f"kernel {name} was not launched on the {what}")
+    if not all(np.isfinite(losses)):
+        fail(f"{what} losses are not finite: {losses}")
+    return kept, losses, pipelined_ms, launches
+
+
 def phase_minibatch_main_path(dev, card):
     """Drive the minibatch main path: 3 warm-up and 30 timed batches of
     MinibatchTrainer(impl='pallas') through the prefetching sampler, the
@@ -1153,29 +1200,8 @@ def phase_minibatch_main_path(dev, card):
         fail(f"sampler budget {s.max_nodes}/{s.max_edges}, want "
              f"{MB_MAX_NODES}/{MB_MAX_EDGES}")
     start = copy.deepcopy(tr.params)
-    stream = prefetch(iter(s), depth=2)
-    kept, losses = [], []
-    torch.cuda.synchronize()
-    zero_counters()
-    for i in range(MB_WARMUP + MB_TIMED):
-        if i == MB_WARMUP:
-            torch.cuda.synchronize()
-            t_timed = time.perf_counter()
-        b = next(stream)
-        if len(kept) < MB_CHECK:
-            kept.append(b)
-        losses.append(tr.train_step(b)[0])  # float(): waits for the step
-    pipelined_ms = (time.perf_counter() - t_timed) * 1e3 / MB_TIMED
-    torch.cuda.synchronize()
-    launches = read_counters()
-    stream.close()  # stops the prefetch thread
-    print(f"minibatch main path launches ({MB_WARMUP + MB_TIMED} batches): "
-          f"{launches}")
-    for name in PALLAS_KERNELS:
-        if launches[name] == 0:
-            fail(f"kernel {name} was not launched on the minibatch main path")
-    if not all(np.isfinite(losses)):
-        fail(f"minibatch losses are not finite: {losses}")
+    kept, losses, pipelined_ms, launches = drive_minibatch(
+        tr, "minibatch main path", PALLAS_KERNELS)
     edges = [b.num_edges for b in kept]
     print(f"minibatch losses {losses[0]:.6f} -> {losses[-1]:.6f}; real "
           f"edges per batch {edges}, real nodes {[b.num_nodes for b in kept]}")
@@ -1241,7 +1267,9 @@ def phase_minibatch_main_path(dev, card):
              "accuracies are out of range")
     return dict(graph=g, splits=splits, config=config, trainer=tr,
                 start=start, kept=kept, launches=launches,
-                exact_launches=exact_launches)
+                exact_launches=exact_launches,
+                times=dict(step_ms=step_ms, sample_ms=sample_ms,
+                           pipelined_ms=pipelined_ms))
 
 
 def phase_minibatch_losses(mb, dev):
@@ -1262,6 +1290,7 @@ def phase_minibatch_losses(mb, dev):
           f"{LOSS_RTOL:g})")
     if not all(np.isfinite(got)) or rel > LOSS_RTOL:
         fail("pallas minibatch losses disagree with the torch path")
+    mb["torch_losses"] = want
     del ref
 
 
@@ -1271,8 +1300,8 @@ class _Branches:
     path decides the branch of an input near 0 by its rounding, which makes
     its gradient jump there; the float64 reference replays the path's own
     decisions, so the gradients are compared where the piecewise-linear
-    model is smooth. The pallas kernels' branches are recomputed from the
-    op's fp32 inputs, with the kernels' own addition."""
+    model is smooth. The pallas and sell kernels' branches are recomputed
+    from the op's fp32 inputs, with the kernels' own addition."""
 
     def __init__(self, src, dst):
         self.src, self.dst = src.long(), dst.long()
@@ -1287,7 +1316,7 @@ class _Branches:
         return self._leaky_relu(x, negative_slope)
 
     def attention(self, zs, zd, a, *args, **kw):
-        if not self.replay and kw.get("impl") == "pallas":
+        if not self.replay and kw.get("impl") in ("pallas", "sell"):
             h, d = a.shape
             self.masks.append(zs.detach().view(-1, h, d)[self.src]
                               + zd.detach().view(-1, h, d)[self.dst] > 0)
@@ -1310,11 +1339,14 @@ class _Branches:
         self.replay = True
 
 
-def phase_minibatch_gradients(mb, dev):
-    """One batch's gradients: pallas (K5-K7) and the fp32 torch path, each
-    against the torch path in float64 on that path's own LeakyReLU branches
-    (_Branches), per parameter."""
-    tr, b, config = mb["trainer"], mb["kept"][0], mb["config"]
+def phase_minibatch_gradients(mb, dev, impl="pallas", tr=None, b=None):
+    """One batch's gradients: `impl` (pallas: K5-K7; sell: K1-K3, on the
+    trainer tr's own layout of batch b) and the fp32 torch path, each
+    against the torch path in float64 on that path's own LeakyReLU
+    branches (_Branches), per parameter."""
+    tr = mb["trainer"] if tr is None else tr
+    b = mb["kept"][0] if b is None else b
+    config = mb["config"]
     feats, _, _, labels, tiles = tr.batch_args(b)
     x = gather_rows_clip(*feats)
     src = torch.as_tensor(b.src[: b.num_edges], device=dev)
@@ -1322,11 +1354,10 @@ def phase_minibatch_gradients(mb, dev):
     start = mb["start"]
     start64 = copy.deepcopy(start).double()
 
-    def grads(m, xx, impl, et=None):
-        kw = dict(edge_tiles=et) if impl == "pallas" else {}
+    def grads(m, xx, path, et=None):
         loss, _ = loss_fn(m, xx, None if et else src, None if et else dst,
-                          labels, config, impl=impl, num_valid=b.num_seeds,
-                          **kw)
+                          labels, config, impl=path, num_valid=b.num_seeds,
+                          edge_tiles=et)
         return torch.autograd.grad(loss, optim.param_leaves(m))
 
     natural = _Branches(src, dst)  # float64's own branches
@@ -1334,11 +1365,10 @@ def phase_minibatch_gradients(mb, dev):
         loss_fn(start64, x.double(), src, dst, labels, config, impl="torch",
                 num_valid=b.num_seeds)
     runs = {}
-    for name, impl, et in (("pallas", "pallas", tiles),
-                           ("torch", "torch", None)):
+    for name, et in ((impl, tiles), ("torch", None)):
         branches = _Branches(src, dst)
         with branches:
-            g32 = grads(start, x, impl, et)
+            g32 = grads(start, x, name, et)
         with branches:
             g64 = grads(start64, x.double(), "torch")
         flips = sum(int((m32.reshape(m64.shape) != m64).sum())
@@ -1347,24 +1377,303 @@ def phase_minibatch_gradients(mb, dev):
     print("products-sub minibatch gradients, max |error| vs the float64 "
           "torch path on the same path's branches / the parameter's largest "
           f"|gradient| (LeakyReLU inputs whose fp32 sign differs from "
-          f"float64's: pallas {runs['pallas'][2]}, torch "
+          f"float64's: {impl} {runs[impl][2]}, torch "
           f"{runs['torch'][2]}):")
     too_far = []
-    for i, pname in enumerate(param_names(start)):
+    for i, pname in enumerate(optim.param_names(start)):
         errs = {}
         for name, (g32, g64, _) in runs.items():
             scale = float(g64[i].abs().max()) or 1.0
             errs[name] = float((g32[i].double() - g64[i]).abs().max()) / scale
-        ok = errs["pallas"] <= max(GRAD_FACTOR * errs["torch"], GRAD_FLOOR)
-        print(f"  {pname:12s} pallas {errs['pallas']:.3e}  torch "
+        ok = errs[impl] <= max(GRAD_FACTOR * errs["torch"], GRAD_FLOOR)
+        print(f"  {pname:12s} {impl} {errs[impl]:.3e}  torch "
               f"{errs['torch']:.3e}  {'ok' if ok else 'TOO FAR'}")
         if not ok:
             too_far.append(pname)
     if too_far:
-        fail(f"pallas minibatch gradients of {too_far} are more than "
+        fail(f"{impl} minibatch gradients of {too_far} are more than "
              f"{GRAD_FACTOR:g}x the torch path's distance (or "
              f"{GRAD_FLOOR:g}) from float64")
     del start64, runs
+
+
+def phase_minibatch_sell(mb, dev, card):
+    """The sampled-minibatch path on per-batch SELL layouts, on the pallas
+    run's graph, model and start weights: MinibatchTrainer(impl='sell')
+    (its sampler's budget and fixed geometry checked), the K1-K3 counters
+    zeroed just before 3 warm-up and 30 timed batches through prefetch and
+    read just after; the first batches' losses against the torch path's
+    (the same batches: one sampler seed), one batch's gradients against
+    float64, K1-K3 against their twins at each layer's shapes, the step,
+    host and pipeline times beside the pallas run's in the same call, a
+    profile, and one exact evaluation through setup_full_graph_sell."""
+    g, config, splits = mb["graph"], mb["config"], mb["splits"]
+    t0 = time.perf_counter()
+    tr = minibatch_trainer(g, config, splits, "sell", dev)
+    tr.params = copy.deepcopy(mb["start"])
+    s = tr.sampler
+    fixed = s._sell_fixed
+    print(f"products-sub sell minibatch: engine {s.engine}, "
+          f"max_nodes={s.max_nodes} max_edges={s.max_edges}; fixed SELL "
+          f"geometry {fixed}: {fixed[0]} columns a side (e_ell "
+          f"{fixed[0] * TILE_N}), {fixed[2]} slices a side; trainer "
+          f"{time.perf_counter() - t0:.2f} s")
+    if (s.max_nodes, s.max_edges) != (MB_MAX_NODES, MB_MAX_EDGES):
+        fail(f"sell sampler budget {s.max_nodes}/{s.max_edges}, want "
+             f"{MB_MAX_NODES}/{MB_MAX_EDGES}")
+    if fixed != (MB_SELL_COLS, MB_SELL_COLS, MB_SELL_TILES, MB_SELL_TILES):
+        fail(f"sell geometry {fixed}, want {MB_SELL_COLS} columns and "
+             f"{MB_SELL_TILES} slices a side")
+    kept, losses, pipelined_ms, launches = drive_minibatch(
+        tr, "sell minibatch path", SELL_KERNELS)
+    for b, pb in zip(kept, mb["kept"]):
+        t = b.tiles
+        if b.num_edges != pb.num_edges or not np.array_equal(b.src, pb.src) \
+                or not np.array_equal(b.node_ids, pb.node_ids):
+            fail("the sell sampler's batches differ from the pallas run's")
+        if t.num_edges != -1 or not (t.dst.split and t.srcs.split) \
+                or t.e_ell != fixed[0] * TILE_N \
+                or t.num_dst_tiles != fixed[2]:
+            fail("a batch's SellTiles are not in the fixed split geometry")
+    print(f"sell minibatch losses {losses[0]:.6f} -> {losses[-1]:.6f}; "
+          f"real columns per batch {[int(b.tiles.dst.col_off[-1]) for b in kept]} "
+          f"of {fixed[0]}, real dst / src slices "
+          f"{[(int((np.diff(b.tiles.dst.col_off) > 0).sum()), int((np.diff(b.tiles.srcs.col_off) > 0).sum())) for b in kept]} "
+          f"of {fixed[2]}")
+
+    # the first batches from the start weights against the torch path's
+    tr.params = copy.deepcopy(mb["start"])
+    tr.opt_state = optim.init_opt_state(tr.params, "adam")
+    tr.step_count = 0
+    got = [tr.train_step(b)[0] for b in kept]
+    want = mb["torch_losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    print(f"minibatch losses over the first {len(got)} batches: sell {got}, "
+          f"torch {want}; max relative difference {rel:.3e} (tolerance "
+          f"{LOSS_RTOL:g})")
+    if not all(np.isfinite(got)) or rel > LOSS_RTOL:
+        fail("sell minibatch losses disagree with the torch path")
+    phase_minibatch_gradients(mb, dev, impl="sell", tr=tr, b=kept[0])
+    max_err, tot = sell_kernels_at_minibatch(tr, kept[0], mb, card)
+
+    # times, in one call beside the pallas run's: the device step on one
+    # batch replayed (the host-to-device copy of its layout included), in
+    # turns pallas, sell, sell, pallas; host sampling + layout alone; the
+    # pipelined batches above against the step
+    ptr, pb = mb["trainer"], mb["kept"][0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    tr.train_step(kept[0])
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = {"pallas": [], "sell": []}
+    for name in ("pallas", "sell", "sell", "pallas"):
+        t_, b_ = (ptr, pb) if name == "pallas" else (tr, kept[0])
+        steps[name].append(cuda_ms(lambda: t_.train_step(b_), reps=10,
+                                   warmup=1))
+    rng = np.random.default_rng(0)
+    pool = np.nonzero(splits.train)[0]
+    seed_sets = [np.sort(rng.choice(pool, size=MB_BATCH, replace=False))
+                 for _ in range(5)]
+    sample_ms = {}
+    for name, smp in (("pallas", ptr.sampler), ("sell", s)):
+        t0 = time.perf_counter()
+        for seeds in seed_sets:
+            smp.sample(seeds)
+        sample_ms[name] = (time.perf_counter() - t0) * 1e3 / 5
+    b = kept[0]
+    t0 = time.perf_counter()
+    native_loader.sample_batch(
+        s._row_ptr64, g.col_idx, seed_sets[0].astype(np.int32),
+        np.asarray(MB_FANOUTS, np.int32), s.max_nodes, s.max_edges, 1)
+    t1 = time.perf_counter()
+    raw = native_loader.emit_sell_tiles(b.src, b.dst, b.num_edges,
+                                        s.max_nodes, tsa.DEFAULT_SPLIT_CAP,
+                                        fixed)
+    t2 = time.perf_counter()
+    tsa.sell_tiles_from_native(raw, s.max_nodes, fixed)
+    t3 = time.perf_counter()
+    step_ms = float(np.mean(steps["sell"]))
+    p_step = float(np.mean(steps["pallas"]))
+    pt = mb["times"]
+    print(f"host per batch: native sample_batch {(t1 - t0) * 1e3:.1f} ms, "
+          f"native emit_sell_tiles {(t2 - t1) * 1e3:.1f} ms, "
+          f"sell_tiles_from_native {(t3 - t2) * 1e3:.2f} ms "
+          f"({os.cpu_count()} host CPUs)")
+    print(f"products-sub minibatch, sell against pallas in one call: device "
+          f"step sell {steps['sell'][0]:.3f} / {steps['sell'][1]:.3f} ms, "
+          f"pallas {steps['pallas'][0]:.3f} / {steps['pallas'][1]:.3f} ms; "
+          f"host sample + layout sell {sample_ms['sell']:.3f} ms, pallas "
+          f"{sample_ms['pallas']:.3f} ms; pipelined sell {pipelined_ms:.3f} "
+          f"ms per batch (ratio {pipelined_ms / step_ms:.3f}), pallas "
+          f"{pt['pipelined_ms']:.3f} ms (ratio "
+          f"{pt['pipelined_ms'] / p_step:.3f}); sell peak memory "
+          f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above the "
+          f"resident {base / 2**30:.2f} GiB [{card}]")
+    profile_fn(lambda: tr.train_step(kept[0]),
+               "products-sub sell minibatch step", step_ms, card)
+
+    # one exact full-graph evaluation on setup_full_graph_sell's layout
+    k1_before = sell_fwd.launches
+    t0 = time.perf_counter()
+    accs = tr.evaluate_exact()
+    torch.cuda.synchronize()
+    exact_launches = sell_fwd.launches - k1_before
+    st = tr._exact_eval[3]  # the layout evaluate_exact built
+    print(f"products-sub sell evaluate_exact: chunks={st.num_chunks} "
+          f"split={st.dst.split}; first call (layout + forward) "
+          f"{time.perf_counter() - t0:.2f} s, {exact_launches} K1 launches; "
+          f"accuracies {accs} [{card}]")
+    if exact_launches < config.num_layers * st.num_chunks or not all(
+            0.0 <= v <= 1.0 for v in accs.values()):
+        fail("sell evaluate_exact did not run K1 per chunk and layer, or its "
+             "accuracies are out of range")
+    del tr
+    return dict(launches=launches, exact_launches=exact_launches,
+                max_err=max_err, totals=tot)
+
+
+def sell_kernels_at_minibatch(tr, b, mb, card):
+    """K1, K2 and K3 against their twins, and their times, at each layer's
+    shapes of one products-sub batch on its per-batch SELL layout: the
+    layer's projections, sigma from the op's forward, a seeded random
+    upstream gradient; K2's unwritten padding packets (the fixed tail
+    included) poisoned with NaN before K3 reads the packets. Bounds count
+    the real edges only; beside the kernels, the plain-PyTorch row merges
+    of both split sides (_merge_rows_dst, _rows_to_nodes_sum)."""
+    config, start = mb["config"], mb["start"]
+    max_err = dict.fromkeys(SELL_KERNELS, 0.0)
+    tot = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bytes_ms=0.0,
+                   library_ms=0.0, floor_ms=0.0, device_ms=0.0)
+           for k in SELL_KERNELS}
+    merge_ms = dict(merge_rows_dst=0.0, rows_to_nodes_dst=0.0,
+                    rows_to_nodes_src=0.0)
+    rng = np.random.default_rng(6)
+    with torch.no_grad():
+        feats, _, _, _, st = tr.batch_args(b)
+        st_host = b.tiles
+        x = gather_rows_clip(*feats)
+        n = x.shape[0]
+        counts = dst_chunk_counts(st, 0)
+        real = real_slots(st.dst.cnt)
+        lib_idx = torch.as_tensor(k3_library_index(st_host),
+                                  device=real.device)
+        rows_src = st.num_src_tiles * TILE_N
+        lay = (st.dst.perm, st.dst.gather_ids, st.dst.cnt, st.dst.col_off)
+        print(f"  products-sub sell batch: {counts['e']} real edges, "
+              f"{counts['cols']} of {st.e_ell // TILE_N} columns, "
+              f"{counts['rows']} dst rows")
+        for l, layer in enumerate(start.layers):
+            zs, zd = layer.project(x, config.precision)
+            a = layer.a.detach().contiguous()
+            heads, hd = a.shape[0], zs.shape[1]
+            tag = f"products-sub sell layer {l}"
+            kw1 = dict(negative_slope=SLOPE, normalize=False)
+            got = sell_fwd(zs, zd, a, *lay, **kw1)
+            want = sell_fwd_plain(zs, zd, a, *lay, **kw1)
+            for part, gv, wv in zip(("u", "m", "l"), got, want):
+                max_err["sell_fwd"] = max(max_err["sell_fwd"], compare(
+                    f"{tag} K1 {part} [{tuple(gv.shape)}]", gv, wv, K1_RTOL,
+                    K1_ATOL))
+            del want
+            out, sigma = sell_forward(zs, zd, a, n, negative_slope=SLOPE,
+                                      sell_tiles=st)
+            gout = torch.as_tensor(rng.standard_normal(
+                (n, hd), dtype=np.float32), device=zs.device)
+            rr = (gout * out).view(n, heads, hd // heads).sum(-1)
+            args = (zs, zd, gout, sigma, rr, a, *lay)
+            kw = dict(negative_slope=SLOPE)
+            dzd, da, c1 = sell_bwd_dst(*args, **kw)
+            w_dzd, w_da, w_c1 = sell_bwd_dst_plain(*args, **kw)
+            w64 = sell_bwd_dst_plain(*(t.double() for t in args[:6]),
+                                     *args[6:], **kw)
+            max_err["sell_bwd_dst"] = max(
+                max_err["sell_bwd_dst"],
+                compare(f"{tag} K2 c1 real slots [{counts['e']}, {hd}]",
+                        c1[real], w_c1[real], K1_RTOL, K1_ATOL),
+                compare_f64(f"{tag} K2 dzd [{tuple(dzd.shape)}]", dzd,
+                            w_dzd, w64[0]),
+                compare_f64(f"{tag} K2 d_a [{tuple(da.shape)}]", da, w_da,
+                            w64[1]))
+            del w_dzd, w_c1, w64
+            c1[~real] = float("nan")
+            k3 = (c1, st.ell_perm, st.srcs.cnt, st.srcs.col_off)
+            dzs = sell_segsum(*k3)
+            if not bool(torch.isfinite(dzs).all()):
+                fail(f"{tag}: K3 read a padding packet")
+            w_dzs = sell_segsum_plain(*k3)
+            w64_dzs = sell_segsum_plain(c1.double(), *k3[1:])
+
+            def library():
+                return torch.zeros(rows_src + 1, hd, device=c1.device
+                                   ).index_add_(0, lib_idx, c1)
+
+            max_err["sell_segsum"] = max(max_err["sell_segsum"], compare_f64(
+                f"{tag} K3 dzs [{tuple(dzs.shape)}]", dzs, w_dzs, w64_dzs))
+            compare_f64(f"{tag} index_add_ (library) dzs",
+                        library()[:rows_src], w_dzs, w64_dzs)
+            del w_dzs, w64_dzs
+            calls = {
+                "sell_fwd": (lambda: sell_fwd(zs, zd, a, *lay, **kw1),
+                             lambda: sell_fwd_plain(zs, zd, a, *lay, **kw1)),
+                "sell_bwd_dst": (lambda: sell_bwd_dst(*args, **kw),
+                                 lambda: sell_bwd_dst_plain(*args, **kw)),
+                "sell_segsum": (lambda: sell_segsum(*k3),
+                                lambda: sell_segsum_plain(*k3)),
+            }
+            bounds = k1_k2_bounds(counts, hd, heads, packets=True)
+            bounds["sell_segsum"] = (*k3_bound_ms(st_host, hd), 0.0)
+            for k, (fn, twin) in calls.items():
+                ms = cuda_ms(fn)
+                dev_ms = device_ms(fn, DEVICE_KERNELS[k])
+                plain_ms = cuda_ms(twin, reps=3, warmup=1)
+                lib_ms = cuda_ms(library) if k == "sell_segsum" else 0.0
+                bound, by, floor = bounds[k]
+                print(f"  {tag} H*D={hd}: {k} {ms:.4f} ms (device "
+                      f"{dev_ms:.4f} ms), bound {bound:.4f} ms ({by})"
+                      + (f", per-edge gather floor {floor:.4f} ms"
+                         if floor else "")
+                      + f", twin {plain_ms:.3f} ms"
+                      + (f", index_add_ {lib_ms:.4f} ms" if lib_ms else "")
+                      + f" [{card}]")
+                t = tot[k]
+                t["ms"] += ms
+                t["device_ms"] += dev_ms
+                t["plain_ms"] += plain_ms
+                t["bound_ms"] += bound
+                t["bytes_ms"] += bound if by == "bytes" else 0.0
+                t["library_ms"] += lib_ms
+                t["floor_ms"] += floor
+            # the row merges of the split sides, plain PyTorch
+            merges = {
+                "merge_rows_dst": lambda: tsa._merge_rows_dst(
+                    *got, st.dst, st.padded_num_nodes, hd // heads),
+                "rows_to_nodes_dst": lambda: tsa._rows_to_nodes_sum(
+                    dzd, st.dst, st.padded_num_nodes, n),
+                "rows_to_nodes_src": lambda: tsa._rows_to_nodes_sum(
+                    dzs, st.srcs, st.padded_src_nodes, n),
+            }
+            times = {k: cuda_ms(fn) for k, fn in merges.items()}
+            print(f"  {tag} H*D={hd}: row merges (plain PyTorch) "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+                  + f" [{card}]")
+            for k, v in times.items():
+                merge_ms[k] += v
+            del got, out, sigma, dzd, c1, dzs
+            x = layer(x, None, None, is_last=l == len(start.layers) - 1,
+                      config=config, impl="sell", edge_tiles=st)
+    for k, t in tot.items():
+        print(f"  products-sub sell {k} per step: {t['ms']:.4f} ms (device "
+              f"{t['device_ms']:.4f} ms), bound {t['bound_ms']:.4f} ms"
+              + (f", per-edge gather floor {t['floor_ms']:.4f} ms"
+                 if t["floor_ms"] else "")
+              + f", twin {t['plain_ms']:.3f} ms"
+              + (f", index_add_ {t['library_ms']:.4f} ms"
+                 if t["library_ms"] else "") + f" [{card}]")
+    print("  products-sub sell row merges per step: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in merge_ms.items())
+          + f" [{card}]")
+    return max_err, tot
 
 
 def pallas_bounds(e, rows, tiles_n, hd, heads, n_src, n_dst):
@@ -1744,7 +2053,8 @@ def phase_k7_at_arxiv_pl(model, config, layout, card):
 
 def phase_minibatch_entry():
     """python -m gatv2_tpu_torch.train --batch-size on karate with a
-    checkpoint, then predict --impl pallas from that checkpoint."""
+    checkpoint, then predict --impl pallas from that checkpoint; then
+    train --impl sell --batch-size with --profile DIR and --debug-nans."""
     arch = ["--num-layers", "2", "--heads", "4,1", "--outdims", "16,16"]
     common = ["--dataset", "karate", "--data-root", "./data", *arch]
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1784,6 +2094,33 @@ def phase_minibatch_entry():
                 or int(m.group(1)) < 2:
             fail("predict --impl pallas from the checkpoint did not run K5 "
                  "or wrote no predictions")
+        prof = pathlib.Path(tmp, "prof")
+        proc = subprocess.run(
+            [sys.executable, "-m", "gatv2_tpu_torch.train", *common,
+             "--epochs", "2", "--optimizer", "adam", "--lr", "0.01",
+             "--clip", "--seed", "1", "--impl", "sell", "--batch-size",
+             "32", "--fanouts", "5,5", "--profile", str(prof),
+             "--debug-nans"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = proc.stdout.strip().splitlines()
+        print("minibatch train --impl sell --profile --debug-nans: "
+              + " | ".join(lines[-8:]))
+        if proc.returncode != 0:
+            fail(f"minibatch sell train exited {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        if sum(l.startswith("Avg Loss: ") for l in lines) != 2 or \
+                f"Profiling to {prof}/" not in lines:
+            fail("minibatch sell train did not print 2 epochs and its "
+                 "profile directory")
+        for tag, kname in (("K1", "sell_fwd"), ("K2", "sell_bwd_dst"),
+                           ("K3", "sell_segsum")):
+            m = re.search(rf"{tag} {kname} launches: (\d+)", proc.stdout)
+            if not m or int(m.group(1)) < 2:
+                fail(f"minibatch sell train did not show its {tag} launches")
+        traces = sorted(prof.glob("*")) if prof.is_dir() else []
+        print(f"  --profile wrote {[(t.name, t.stat().st_size) for t in traces]}")
+        if not traces or min(t.stat().st_size for t in traces) == 0:
+            fail("--profile wrote no trace file")
 
 
 # ---------------------------------------------------------------------------
@@ -2415,6 +2752,7 @@ def phase_k8_at_products_sub(mb, pfs, card):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     card = phase_device()  # the nvidia-smi name and power limit
     dev = torch.device("cuda", 0)
     phase_build()
@@ -2442,6 +2780,8 @@ def main() -> int:
     phase_minibatch_losses(mb, dev)
     err_pallas, pallas_totals = phase_pallas_kernels_at_main_path(mb, card)
     phase_minibatch_gradients(mb, dev)
+    mb_sell = phase_minibatch_sell(mb, dev, card)
+    torch.cuda.empty_cache()
     err_pallas_cases = phase_pallas_cases(dev)
     pallas_layouts = phase_pallas_full_graph(model, config, runs, dev, card)
     err_k7_pl = phase_k7_at_arxiv_pl(model, config,
@@ -2452,12 +2792,16 @@ def main() -> int:
     phase_minibatch_entry()
     pfs = phase_products_sub_full_graph(mb, dev, card)
     err_k8, k8_totals = phase_k8_at_products_sub(mb, pfs, card)
+    sell_err = mb_sell["max_err"]
     measured = {
-        "sell_fwd": (totals["arxiv"], max(err_main, err_cases, err_pf_k1)),
+        "sell_fwd": (totals["arxiv"], max(err_main, err_cases, err_pf_k1,
+                                          sell_err["sell_fwd"])),
         "sell_bwd_dst": (bwd_totals["arxiv"]["sell_bwd_dst"],
-                         max(err_bwd["sell_bwd_dst"], err_bwd_cases)),
+                         max(err_bwd["sell_bwd_dst"], err_bwd_cases,
+                             sell_err["sell_bwd_dst"])),
         "sell_segsum": (bwd_totals["arxiv"]["sell_segsum"],
-                        max(err_bwd["sell_segsum"], err_bwd_cases)),
+                        max(err_bwd["sell_segsum"], err_bwd_cases,
+                            sell_err["sell_segsum"])),
     }
     measured.update({k: (pallas_totals[k], max(err_pallas[k],
                                                err_pallas_cases))
@@ -2467,7 +2811,8 @@ def main() -> int:
     measured["sell_bwd_src"] = (k4_totals, max(err_k4, err_chunked_cases))
     measured["pallas_bwd_src"] = (k8_totals, max(err_k8, err_chunked_cases))
     launches = {k: infer_launches[k] + train_launches[k]
-                for k in SELL_KERNELS}
+                + mb_sell["launches"][k] for k in SELL_KERNELS}
+    launches["sell_fwd"] += mb_sell["exact_launches"]
     launches.update({k: mb["launches"][k] for k in PALLAS_KERNELS})
     launches["pallas_fwd"] += mb["exact_launches"]
     for k in CHUNKED_SELL_KERNELS:
@@ -2494,7 +2839,9 @@ def main() -> int:
           "chunk 0 of one products-full backward (K4) or of chunk 0 of one "
           "products-sub full-graph backward (K8); launches: K1-K3 on the "
           "inference and full-graph training main paths (both graphs' "
-          f"forwards, {TRAIN_EPOCHS} training epochs on each graph), K5-K7 "
+          f"forwards, {TRAIN_EPOCHS} training epochs on each graph) and on "
+          f"the sell minibatch path ({MB_WARMUP + MB_TIMED} batches; K1 also "
+          "its exact evaluation), K5-K7 "
           f"on the minibatch main path ({MB_WARMUP + MB_TIMED} batches) and, "
           "for K5, its exact evaluation; K1, K2 and K4 also on the "
           f"products-full main path ({TRAIN_EPOCHS} epochs), K5, K6 and K8 "
@@ -2502,6 +2849,8 @@ def main() -> int:
           "epochs); library_ms: K1, K2, K4, K5, K6 and K8 have no single "
           "PyTorch call that computes their fused function, K3's and K7's "
           "is index_add_")
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps(line))
     print(card)
     print(json.dumps({"ok": True, "device": {

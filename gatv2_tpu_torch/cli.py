@@ -32,15 +32,8 @@ def _resolve_impl(args) -> str:
 
 # flag -> (is it set?, its ROADMAP.md section 1 item)
 _UNPORTED = {
-    "--impl sell with --batch-size": (
-        lambda a: a.impl == "sell" and a.batch_size > 0,
-        "item 2, minibatch SELL"),
     "--mesh": (lambda a: a.mesh > 0, "item 3, multi-GPU"),
     "--overlap": (lambda a: a.overlap, "item 3, multi-GPU"),
-    "--profile": (lambda a: a.profile is not None,
-                  "item 4, the bench and its tooling"),
-    "--debug-nans": (lambda a: a.debug_nans,
-                     "item 4, the bench and its tooling"),
 }
 
 
@@ -135,9 +128,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rematerialize layers in the backward pass "
                         "(torch.utils.checkpoint; no effect on inference)")
     p.add_argument("--debug-nans", action="store_true",
-                   help="fail fast on NaN/Inf")
+                   help="fail fast on NaN/Inf: check the loss and every "
+                        "gradient each step (autograd anomaly mode in the "
+                        "backward) and raise FloatingPointError")
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
-                   help="capture a profiler trace into DIR")
+                   help="capture a torch.profiler trace of training into "
+                        "DIR")
     p.add_argument("--save-weights", type=str, default=None, metavar="DIR",
                    help="dump final weights as text into DIR")
     p.add_argument("--load-weights", type=str, default=None, metavar="DIR",
@@ -218,6 +214,7 @@ def _finish(args: argparse.Namespace) -> tuple[ModelConfig, TrainConfig, argpars
         checkpoint_dir=args.checkpoint_dir,
         checkpoint_every=args.checkpoint_every,
         resume=args.resume,
+        debug_nans=args.debug_nans,
     )
     try:
         warnings = train_config.validate()

@@ -109,6 +109,9 @@ class TrainConfig:
     checkpoint_dir: str | None = None
     checkpoint_every: int = 0  # epochs; 0 = off
     resume: bool = False
+    # --debug-nans: every step checks the loss and the gradients and raises
+    # FloatingPointError at the first non-finite value (optim.gradients)
+    debug_nans: bool = False
 
     def validate(self) -> list[str]:
         """Returns warnings; raises on errors (mirrors the reference)."""

@@ -17,7 +17,12 @@ the JAX package's batches byte for byte:
     exactly as the JAX package's does.
 With emit_tiles='pallas' each batch carries its fixed-budget EdgeTiles,
 emitted by the native library on the native engine (an emission that does
-not fit raises) and by prepare_edge_tiles on the python engine.
+not fit raises) and by prepare_edge_tiles on the python engine. With
+emit_tiles='sell' it carries its SellTiles, both sides split, in the
+geometry sell_minibatch_geometry fixes for the whole batch stream: the
+native engine emits them with native emit_sell_tiles only (the numpy build
+costs far more per batch at Products scale), the python engine builds them
+with prepare_minibatch_sell_tiles.
 """
 
 from __future__ import annotations
@@ -32,13 +37,6 @@ import numpy as np
 
 from gatv2_tpu_torch.data.graph import Graph
 
-SELL_MINIBATCH_MISSING = (
-    "emit_tiles='sell' (per-batch SELL layouts for impl='sell' minibatch "
-    "training) is not yet ported: it is queued in ROADMAP.md (section 1, "
-    "item 2, minibatch SELL); use emit_tiles='pallas' (impl='pallas')"
-)
-
-
 @dataclasses.dataclass(frozen=True)
 class MiniBatch:
     features: np.ndarray | None  # [max_nodes, F] host-gathered rows, or
@@ -49,7 +47,8 @@ class MiniBatch:
     num_seeds: int  # loss normaliser
     num_nodes: int  # real nodes in this batch
     num_edges: int  # real edges in this batch
-    tiles: object = None  # EdgeTiles (emit_tiles mode; fixed shapes)
+    tiles: object = None  # EdgeTiles or SellTiles (emit_tiles mode; fixed
+    #   shapes)
     node_ids: np.ndarray | None = None  # [max_nodes] global ids (pad: 0)
 
 
@@ -69,7 +68,7 @@ class NeighborSampler:
         seed_nodes: np.ndarray | None = None,  # restrict seeds (e.g. a
         #   train split); default: every node once per epoch
         emit_tiles: bool | str = False,  # True/'pallas': attach each
-        #   batch's fixed-shape EdgeTiles
+        #   batch's fixed-shape EdgeTiles; 'sell': its SellTiles
         gather_features: bool = False,  # True: gather feature rows on the
         #   host into each batch; False: batches carry node_ids only
         budget: str = "auto",  # static-shape budget policy:
@@ -119,11 +118,9 @@ class NeighborSampler:
             max_edges = min(max_edges, graph.num_edges)
         if emit_tiles is True:
             emit_tiles = "pallas"
-        if emit_tiles == "sell":
-            raise NotImplementedError(SELL_MINIBATCH_MISSING)
-        if emit_tiles not in (False, None, "pallas"):
+        if emit_tiles not in (False, None, "pallas", "sell"):
             raise ValueError(
-                f"emit_tiles must be False or True/'pallas', got "
+                f"emit_tiles must be False, True/'pallas' or 'sell', got "
                 f"{emit_tiles!r}")
         self.emit_tiles = emit_tiles or False
         self.gather_features = gather_features
@@ -141,6 +138,13 @@ class NeighborSampler:
         self.max_edges = max(
             edge_multiple, -(-max_edges // edge_multiple) * edge_multiple)
         self._tile_budget = self.max_edges // 128 + self.max_nodes // 128
+        if self.emit_tiles == "sell":
+            from gatv2_tpu_torch.ops.sell_attention import (
+                sell_minibatch_geometry,
+            )
+
+            self._sell_fixed = sell_minibatch_geometry(self.max_nodes,
+                                                       self.max_edges)
 
     def _probe_budgets(self, edge_multiple: int, *, rounds: int = 4,
                        margin: float = 1.35):
@@ -191,6 +195,8 @@ class NeighborSampler:
              else self._sample_python(seeds))
         if not self.emit_tiles:
             return b
+        if self.emit_tiles == "sell":
+            return dataclasses.replace(b, tiles=self._sell_tiles(b))
         from gatv2_tpu_torch.ops.pallas_attention import (
             edge_tiles_from_native,
             prepare_edge_tiles,
@@ -213,6 +219,25 @@ class NeighborSampler:
                 row_ptr, b.src[: b.num_edges], self.max_nodes, tile_e=128,
                 fixed_edge_tiles=self._tile_budget)
         return dataclasses.replace(b, tiles=tiles)
+
+    def _sell_tiles(self, b: MiniBatch):
+        """Batch b's SellTiles in the stream's fixed geometry."""
+        from gatv2_tpu_torch.ops.sell_attention import (
+            DEFAULT_SPLIT_CAP,
+            prepare_minibatch_sell_tiles,
+            sell_tiles_from_native,
+        )
+
+        if self.engine == "native":
+            from gatv2_tpu_torch.utils import native_loader
+
+            raw = native_loader.emit_sell_tiles(
+                b.src, b.dst, b.num_edges, self.max_nodes, DEFAULT_SPLIT_CAP,
+                self._sell_fixed)
+            return sell_tiles_from_native(raw, self.max_nodes,
+                                          self._sell_fixed)
+        return prepare_minibatch_sell_tiles(
+            b.src, b.dst, b.num_edges, self.max_nodes, self._sell_fixed)
 
     def _sample_native(self, seeds: np.ndarray) -> MiniBatch:
         from gatv2_tpu_torch.utils import native_loader

@@ -8,7 +8,10 @@ widest row. A 128-edge column then holds at most one edge per destination
 row, so the softmax and the aggregation accumulate per row. Rows whose
 degree exceeds the split cap become several virtual rows (power-law hubs);
 their partial softmax states are merged back per node with the
-online-softmax rescale.
+online-softmax rescale. Sampled minibatch training builds one layout per
+batch (prepare_minibatch_sell_tiles, or the native emitter through
+sell_tiles_from_native) with a geometry fixed for the whole batch stream
+(sell_minibatch_geometry) and both sides split.
 
 Padding semantics the op and its kernel keep:
   - padding slots carry the opposite side's padded node count as gather
@@ -45,6 +48,7 @@ from gatv2_tpu_torch.ops.sell_fwd import (
     sell_fwd,
 )
 from gatv2_tpu_torch.ops.sell_segsum import sell_segsum
+from gatv2_tpu_torch.utils.native_loader import sell_output_lengths
 
 _SIDE_ARRAYS = (
     "perm", "inv", "vsort", "sids", "gather_ids", "cnt", "col_off",
@@ -153,15 +157,19 @@ class SellTiles:
         )
 
 
-def _vrow_lengths(deg: np.ndarray, split_cap: int | None):
+def _vrow_lengths(deg: np.ndarray, split_cap: int | None, force=False):
     """Virtual-row decomposition of a degree profile.
 
     Returns (split, vnode [nvr], vlen [nvr], vbase [num_rows+1]): unsplit
     sides get exactly one row per node (including empty nodes), split
-    sides get ceil(deg/cap) rows per NONEMPTY node."""
+    sides get ceil(deg/cap) rows per NONEMPTY node. force=True selects
+    split mode even below the cap (per-batch layouts need one mode for the
+    whole batch stream)."""
     num_rows = len(deg)
     split = split_cap is not None and (
-        num_rows > 0 and deg.size > 0 and int(deg.max(initial=0)) > split_cap
+        force
+        or (num_rows > 0 and deg.size > 0
+            and int(deg.max(initial=0)) > split_cap)
     )
     if not split:
         vbase = np.arange(num_rows + 1, dtype=np.int64)
@@ -195,20 +203,36 @@ def _side_geometry(deg: np.ndarray, num_chunks: int, split_cap=None):
 
 
 def _build_sell_side(ptr, opp_ids, num_rows, opp_pad_rows, num_chunks,
-                     split_cap=None):
+                     fixed=None, split_cap=None, force_split=False):
     """One side's SELL layout from its CSR view.
 
     ptr [num_rows+1], opp_ids [E]: the opposite endpoint of each edge in
     this side's sorted order. Returns (_SellSide, slot[E] int64 — each
     edge's ELL slot, in this side's edge order, for cross-side permutes —
-    e_ell, t2 row slices, spc slices per chunk, node_pad)."""
+    e_ell, t2 row slices, spc slices per chunk, node_pad).
+
+    fixed=(cols, tiles): force the edge arrays' total column count and the
+    row-slice count (ValueError if the real layout needs more), so every
+    array keeps one shape across graphs that share the tuple; the tail
+    columns are padding and never streamed."""
     ptr = np.asarray(ptr, np.int64)
     deg = np.diff(ptr)
     num_edges = int(ptr[-1])
-    split, vnode, vlen, vbase = _vrow_lengths(deg, split_cap)
+    split, vnode, vlen, vbase = _vrow_lengths(deg, split_cap,
+                                              force=force_split)
     nvr = len(vnode)
     t_real = max(1, -(-max(nvr, 1) // TILE_N))
     g = max(1, num_chunks)
+    if fixed is not None:
+        # forced before the chunk rounding, so t2 = g * ceil(tiles / g) is
+        # the same for every graph that shares the fixed tuple
+        fixed_cols, fixed_tiles = fixed
+        if t_real > fixed_tiles:
+            raise ValueError(
+                f"fixed tiles={fixed_tiles} too small: this side needs "
+                f"{t_real} row slices"
+            )
+        t_real = fixed_tiles
     spc = -(-t_real // g)
     t2 = g * spc
     rows_pad = t2 * TILE_N
@@ -259,6 +283,13 @@ def _build_sell_side(ptr, opp_ids, num_rows, opp_pad_rows, num_chunks,
     col_off = np.zeros(t2 + 1, np.int64)
     np.cumsum(widths, out=col_off[1:])
     e_ell = max(int(col_off[-1]) * TILE_N, TILE_N)
+    if fixed is not None:
+        if e_ell > fixed_cols * TILE_N:
+            raise ValueError(
+                f"fixed_cols={fixed_cols} too small: this layout needs "
+                f"{e_ell // TILE_N} columns"
+            )
+        e_ell = fixed_cols * TILE_N
 
     gather = np.full(e_ell, opp_pad_rows, np.int32)
     # per-column valid-row counts: column c of a slice holds real edges in
@@ -382,14 +413,25 @@ def prepare_sell_tiles(
     num_nodes: int,
     num_src_nodes: int | None = None,
     num_chunks: int = 1,
+    fixed: tuple[int, int, int, int] | None = None,
     split_cap: int | None = DEFAULT_SPLIT_CAP,
+    force_split: tuple[bool, bool] = (False, False),
 ) -> SellTiles:
     """Build the two-sided SELL-128 layout from CSR (host side, once per
-    graph); every leaf is a numpy array. num_src_nodes: bipartite edge sets
-    (col_idx holds global source ids while row_ptr covers local
-    destinations); default monopartite. num_chunks=G groups each side's
-    slices into G balanced chunks. split_cap: rows above this degree split
-    into virtual rows (None disables)."""
+    graph or per sampled batch). Every leaf is a numpy array until
+    SellTiles.to(device) moves the layout (the JAX package's as_numpy=True
+    is therefore the only mode and has no option here).
+
+    num_src_nodes: bipartite edge sets (col_idx holds global source ids
+    while row_ptr covers local destinations); default monopartite.
+    num_chunks=G groups each side's slices into G balanced chunks.
+    split_cap: rows above this degree split into virtual rows (None
+    disables). force_split=(dst, src): split that side's rows even below
+    the cap. fixed=(dst_cols, src_cols, dst_tiles, src_tiles): force both
+    sides' total column and row-slice counts, so that layouts built for
+    different edge sets have identical shapes (ValueError if one needs
+    more); num_edges is then -1 and pad_overhead 0.0, the same for every
+    layout of the tuple."""
     row_ptr = np.asarray(row_ptr, np.int64)
     col_idx = np.asarray(col_idx, np.int32)
     ns = num_nodes if num_src_nodes is None else num_src_nodes
@@ -398,21 +440,35 @@ def prepare_sell_tiles(
         ns, np.int64
     )
 
+    fx_d = fx_s = None
+    if fixed is not None:
+        fx_d = (fixed[0], fixed[2])
+        fx_s = (fixed[1], fixed[3])
+
     # each side's padding slots point at the OTHER side's appended zero
-    # row, so both sides' padded node grids are fixed up front
+    # row, so both sides' padded node grids are fixed up front; an unsplit
+    # side's node grid is its row grid (chunk padding and a fixed slice
+    # count can extend it)
     node_pad_d = max(TILE_N, -(-num_nodes // TILE_N) * TILE_N)
     node_pad_s = max(TILE_N, -(-ns // TILE_N) * TILE_N)
     deg_d = np.diff(row_ptr)
-    split_d, _, _, _ = _vrow_lengths(deg_d, split_cap)
-    split_s, _, _, _ = _vrow_lengths(deg_s.astype(np.int64), split_cap)
+    split_d, _, _, _ = _vrow_lengths(deg_d, split_cap, force=force_split[0])
+    split_s, _, _, _ = _vrow_lengths(deg_s.astype(np.int64), split_cap,
+                                     force=force_split[1])
     if not split_d:
-        node_pad_d = _side_geometry(deg_d, num_chunks)[0] * TILE_N
+        t2_d0 = _side_geometry(deg_d, num_chunks)[0]
+        if fixed is not None:
+            t2_d0 = max(t2_d0, fixed[2])
+        node_pad_d = t2_d0 * TILE_N
     if not split_s:
-        node_pad_s = _side_geometry(deg_s, num_chunks)[0] * TILE_N
+        t2_s0 = _side_geometry(deg_s, num_chunks)[0]
+        if fixed is not None:
+            t2_s0 = max(t2_s0, fixed[3])
+        node_pad_s = t2_s0 * TILE_N
 
     dst_side, slot_d, e_ell, t2_d, spc_d, node_pad_d = _build_sell_side(
         row_ptr, col_idx, num_nodes, node_pad_s, num_chunks,
-        split_cap=split_cap,
+        fixed=fx_d, split_cap=split_cap, force_split=force_split[0],
     )
 
     # CSC view: edges stably re-sorted by src
@@ -424,7 +480,7 @@ def prepare_sell_tiles(
     )
     src_side, slot_s, e2_ell, t2_s, spc_s, node_pad_s = _build_sell_side(
         sptr, dst_all[order], ns, node_pad_d, num_chunks,
-        split_cap=split_cap,
+        fixed=fx_s, split_cap=split_cap, force_split=force_split[1],
     )
     g = max(1, num_chunks)
     if g > 1:
@@ -444,8 +500,8 @@ def prepare_sell_tiles(
         num_src_tiles=t2_s,
         e_ell=e_ell,
         e2_ell=e2_ell,
-        num_edges=num_edges,
-        pad_overhead=e_ell / max(num_edges, 1),
+        num_edges=-1 if fixed is not None else num_edges,
+        pad_overhead=0.0 if fixed is not None else e_ell / max(num_edges, 1),
         num_chunks=g,
         spc_dst=spc_d,
         spc_src=spc_s,
@@ -507,6 +563,98 @@ def setup_full_graph_sell(
         padded[:n] = labels
         labels, num_valid = padded, n
     return st, feats, labels, num_valid
+
+
+def sell_minibatch_geometry(
+    max_nodes: int, max_edges: int, split_cap: int = DEFAULT_SPLIT_CAP
+) -> tuple[int, int, int, int]:
+    """Fixed (dst_cols, src_cols, dst_tiles, src_tiles) covering ANY
+    subgraph with <= max_nodes nodes and <= max_edges edges under forced
+    virtual-row splitting, so that per-batch prepare_sell_tiles(fixed=...)
+    has one shape across a sampler's whole batch stream and never raises
+    for a batch inside the budget.
+
+    cols bound: e_ell = sum_s 128*w_s with slice widths w_s taken from
+    length-descending rows, so for s >= 1 every row of slice s-1 has
+    vlen >= w_s and 128*w_s <= slice s-1's edge total; summing,
+    sum_{s>=1} 128*w_s <= E. Forced splitting caps w_0 <= split_cap.
+    Hence cols <= ceil(E/128) + split_cap.
+
+    tiles bound: virtual rows = sum over nonempty nodes of ceil(deg/cap)
+    <= #nonempty + E/cap <= min(max_nodes, E) + E/cap."""
+    cols = -(-max_edges // TILE_N) + split_cap
+    nvr = min(max_nodes, max_edges) + max_edges // split_cap
+    tiles = -(-max(nvr, 1) // TILE_N)
+    return (cols, cols, tiles, tiles)
+
+
+def prepare_minibatch_sell_tiles(
+    src: np.ndarray, dst: np.ndarray, num_edges: int, max_nodes: int,
+    fixed: tuple[int, int, int, int],
+) -> SellTiles:
+    """Per-batch SELL layout of a sampled subgraph (impl='sell' minibatch
+    training): a local-id edge list whose first num_edges entries are real
+    and sorted by dst (ValueError otherwise, as the native emitter fails),
+    the fixed geometry of sell_minibatch_geometry, both sides split."""
+    real = np.asarray(dst[:num_edges])
+    if real.size and (np.diff(real) < 0).any():
+        raise ValueError(
+            "prepare_minibatch_sell_tiles: the real edges must be sorted by "
+            "dst (NeighborSampler emits them so)")
+    row_ptr = np.zeros(max_nodes + 1, np.int64)
+    np.cumsum(np.bincount(real, minlength=max_nodes), out=row_ptr[1:])
+    return prepare_sell_tiles(
+        row_ptr, np.asarray(src[:num_edges]), max_nodes,
+        num_chunks=1, fixed=fixed, split_cap=DEFAULT_SPLIT_CAP,
+        force_split=(True, True),
+    )
+
+
+def sell_tiles_from_native(
+    raw: dict, max_nodes: int, fixed: tuple[int, int, int, int]
+) -> SellTiles:
+    """Assemble a SellTiles from native emit_sell_tiles output (see
+    utils/native_loader.py; byte-identical to prepare_minibatch_sell_tiles).
+    Every raw array must be int32 of the length the fixed geometry gives
+    it (ValueError otherwise)."""
+    cols_d, cols_s, tiles_d, tiles_s = fixed
+    node_pad = max(TILE_N, -(-max_nodes // TILE_N) * TILE_N)
+    dummy = np.zeros(1, np.int32)
+    for key, n in sell_output_lengths(fixed).items():
+        a = raw[key]
+        if a.dtype != np.int32 or a.shape != (n,):
+            raise ValueError(
+                f"sell_tiles_from_native: {key} is {a.dtype}{a.shape}, the "
+                f"fixed geometry {fixed} needs int32[{n}]")
+
+    def side(tag):
+        gather, cnt, col_off = (raw[f"{k}_{tag}"]
+                                for k in ("gather", "cnt", "col_off"))
+        return _SellSide(
+            perm=raw[f"perm_{tag}"], inv=dummy, vsort=raw[f"vsort_{tag}"],
+            sids=raw[f"sids_{tag}"], gather_ids=gather, cnt=cnt,
+            col_off=col_off, ids_grp=gather[None], cnt_grp=cnt[None],
+            rel_off=col_off[None], split=True,
+        )
+
+    return SellTiles(
+        dst=side("d"),
+        srcs=side("s"),
+        ell_perm=raw["ell_perm"],
+        num_nodes=max_nodes,
+        num_src_nodes=max_nodes,
+        num_dst_tiles=tiles_d,
+        num_src_tiles=tiles_s,
+        e_ell=cols_d * TILE_N,
+        e2_ell=cols_s * TILE_N,
+        num_edges=-1,  # the fixed-mode aux of prepare_sell_tiles
+        pad_overhead=0.0,
+        num_chunks=1,
+        spc_dst=tiles_d,
+        spc_src=tiles_s,
+        node_pad_dst=node_pad,
+        node_pad_src=node_pad,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -10,17 +10,39 @@ sampled-minibatch training on one device.
 
 Runs on the CUDA device, where --impl auto is 'sell' full-graph (the SELL
 kernels K1, K2 and K3) and 'pallas' with --batch-size (the edge-tile
-kernels K5, K6 and K7), unless given --device cpu ('torch'). Prints the JAX
-package's console lines and, on impl 'sell' or 'pallas', how many times
-each kernel was launched. Flags of paths not ported yet (--mesh,
---overlap, --profile, --debug-nans, --impl sell with --batch-size) exit
-with an error naming their ROADMAP.md item.
+kernels K5, K6 and K7), unless given --device cpu ('torch'); --impl sell
+--batch-size trains on per-batch SELL layouts through K1, K2 and K3.
+Prints the JAX package's console lines and, on impl 'sell' or 'pallas',
+how many times each kernel was launched. --profile DIR writes a
+torch.profiler trace of the training run into DIR; --debug-nans raises
+FloatingPointError at the first non-finite loss, backward value or
+gradient. Flags of paths not ported yet (--mesh, --overlap) exit with an
+error naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import pathlib
 import sys
+
+
+def _profiler(device):
+    """torch.profiler over host ops and, on a CUDA device, its kernels."""
+    import torch.profiler as tp
+
+    acts = [tp.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(tp.ProfilerActivity.CUDA)
+    return tp.profile(activities=acts)
+
+
+def _export_trace(prof, directory: str) -> None:
+    """Write the profile as a Chrome trace, DIR/trace.json."""
+    out = pathlib.Path(directory)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "trace.json"))
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -116,17 +138,24 @@ def main(argv: list[str] | None = None) -> int:
         (("K5", pallas_fwd), ("K6", pallas_bwd_dst), ("K7", pallas_segsum)),
     )
     launches0 = [[k.launches for _, k in line] for line in kernel_lines]
-    every = train_config.checkpoint_every
-    if train_config.checkpoint_dir and every > 0:
-        while trainer.epoch < train_config.epochs:
-            trainer.run(min(every, train_config.epochs - trainer.epoch))
-            ckpt.save(train_config.checkpoint_dir, trainer.params,
-                      trainer.opt_state, trainer.epoch, meta=meta)
-    elif train_config.epochs > trainer.epoch:
-        trainer.run(train_config.epochs - trainer.epoch)
-        if train_config.checkpoint_dir:
-            ckpt.save(train_config.checkpoint_dir, trainer.params,
-                      trainer.opt_state, trainer.epoch, meta=meta)
+    with contextlib.ExitStack() as stack:
+        if args.profile:
+            prof = _profiler(device)
+            # registered first, so it runs after the profiler has stopped
+            stack.callback(_export_trace, prof, args.profile)
+            stack.enter_context(prof)
+            print(f"Profiling to {args.profile}/")
+        every = train_config.checkpoint_every
+        if train_config.checkpoint_dir and every > 0:
+            while trainer.epoch < train_config.epochs:
+                trainer.run(min(every, train_config.epochs - trainer.epoch))
+                ckpt.save(train_config.checkpoint_dir, trainer.params,
+                          trainer.opt_state, trainer.epoch, meta=meta)
+        elif train_config.epochs > trainer.epoch:
+            trainer.run(train_config.epochs - trainer.epoch)
+            if train_config.checkpoint_dir:
+                ckpt.save(train_config.checkpoint_dir, trainer.params,
+                          trainer.opt_state, trainer.epoch, meta=meta)
     if train_config.impl in ("sell", "pallas"):
         for line, counts0 in zip(kernel_lines, launches0):
             print(", ".join(

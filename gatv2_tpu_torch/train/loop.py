@@ -128,14 +128,14 @@ class Trainer:
 
     def step(self) -> tuple[float, float]:
         """One epoch: loss, gradients, update. Returns (loss, accuracy)."""
-        leaves = optim.param_leaves(self._params)
         loss, acc = loss_fn(
             self._params, self.features, self.src, self.dst, self.labels,
             self.model_config, num_valid=self.num_valid, **self._forward_kw(),
         )
-        grads = torch.autograd.grad(loss, leaves)
-        optim.apply_updates(leaves, list(grads), self.opt_state, self.epoch,
-                            self.train_config)
+        grads = optim.gradients(loss, self._params,
+                                debug_nans=self.train_config.debug_nans)
+        optim.apply_updates(optim.param_leaves(self._params), grads,
+                            self.opt_state, self.epoch, self.train_config)
         return float(loss.detach()), float(acc)
 
     def run(self, epochs: int | None = None) -> dict[str, float]:

@@ -5,7 +5,9 @@ Pairs with data.sampling.NeighborSampler. The loss is computed over seed
 nodes only (labels are -1 elsewhere); Adam bias correction is indexed by the
 global STEP count here (the full-graph Trainer indexes it by epoch, as the
 reference does). On impl='pallas' each batch's fixed-shape EdgeTiles go to
-the device once and the model runs K5 forward and K6/K7 backward on them.
+the device once and the model runs K5 forward and K6/K7 backward on them;
+on impl='sell' each batch's SellTiles (fixed geometry, both sides split) do,
+and the model runs K1 forward and K2/K3 backward.
 
 Features: with feature_residency='device' the whole feature table stays on
 the device and each batch gathers its rows there by node id (an
@@ -58,14 +60,15 @@ def make_minibatch_step(
         if device_gather:
             feat_table, node_ids = features
             features = gather_rows_clip(feat_table, node_ids)
-        leaves = optim.param_leaves(params)
         loss, acc = loss_fn(
             params, features, src, dst, labels, model_config,
             impl=train_config.impl, num_valid=num_seeds,
             edge_tiles=edge_tiles,
         )
-        grads = torch.autograd.grad(loss, leaves)
-        optim.apply_updates(leaves, list(grads), opt_state, t, train_config)
+        grads = optim.gradients(loss, params,
+                                debug_nans=train_config.debug_nans)
+        optim.apply_updates(optim.param_leaves(params), grads, opt_state, t,
+                            train_config)
         return params, opt_state, loss.detach(), acc
 
     return step
@@ -136,7 +139,7 @@ class MinibatchTrainer:
         return NeighborSampler(
             self.graph, tc.batch_size, fanouts, seed=seed,
             engine=tc.sampler_engine, seed_nodes=seed_nodes,
-            emit_tiles="pallas" if tc.impl == "pallas" else False,
+            emit_tiles=tc.impl if tc.impl in ("pallas", "sell") else False,
             budget=tc.sample_budget,
             gather_features=tc.feature_residency == "host",
         )
@@ -150,8 +153,8 @@ class MinibatchTrainer:
     def batch_args(self, b: MiniBatch) -> tuple:
         """(features, src, dst, labels, edge_tiles) of a batch on the
         device, as the step takes them. impl='torch' gets the real edges
-        only (its segment ops take no padding id); 'pallas' reads its edges
-        from the tiles."""
+        only (its segment ops take no padding id); 'pallas' and 'sell' read
+        their edges from the batch's tiles, copied to the device here."""
         dev = self.device
         if self._device_gather:
             feats = (self._feat_table, torch.as_tensor(b.node_ids, device=dev))
@@ -203,8 +206,9 @@ class MinibatchTrainer:
         """Split accuracies from ONE exact full-graph forward: every node
         aggregates its full in-neighbourhood, the reference's evaluation
         semantics. Deterministic, unlike the sampled evaluate(). impl
-        'pallas' runs through setup_full_graph's layout (chunked when the
-        device's budget asks for it: the forward runs K5 per chunk)."""
+        'pallas' runs through setup_full_graph's layout and 'sell' through
+        setup_full_graph_sell's (chunked when the device's budget asks for
+        it: the forward runs K5 or K1 per chunk)."""
         if self.splits is None:
             raise ValueError("MinibatchTrainer built without splits")
         if self._exact_eval is None:
@@ -227,6 +231,14 @@ class MinibatchTrainer:
 
             et, feats, _, _ = setup_full_graph(graph, mc.heads, mc.out_dims,
                                                device=dev)
+            et = et.to(dev)
+        elif impl == "sell":
+            from gatv2_tpu_torch.ops.sell_attention import (
+                setup_full_graph_sell,
+            )
+
+            et, feats, _, _ = setup_full_graph_sell(
+                graph, mc.heads, mc.out_dims, device=dev)
             et = et.to(dev)
         else:
             src = torch.as_tensor(graph.src, device=dev)

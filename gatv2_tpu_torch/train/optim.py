@@ -35,6 +35,43 @@ def param_leaves(params: GATv2) -> list[torch.Tensor]:
     return leaves
 
 
+def param_names(params: GATv2) -> list[str]:
+    """The names of param_leaves(params), in the same order."""
+    return [f"layers.{l}.{k}" for l in range(len(params.layers))
+            for k in ("a", "w_dst", "w_src")] + ["w_o"]
+
+
+def _check_finite(what: str, t: torch.Tensor) -> None:
+    if not bool(torch.isfinite(t).all()):
+        raise FloatingPointError(f"--debug-nans: non-finite value in {what}")
+
+
+def gradients(loss: torch.Tensor, params: GATv2, *,
+              debug_nans: bool = False) -> list[torch.Tensor]:
+    """d loss / d param_leaves(params).
+
+    debug_nans=True (the CLI's --debug-nans, the counterpart of the JAX
+    package's jax_debug_nans) raises FloatingPointError at the first
+    non-finite value: in the loss, inside the backward (autograd's anomaly
+    mode names the function that returned NaN) or in a parameter's
+    gradient, naming which. It syncs with the device for each check; with
+    debug_nans=False nothing is checked and nothing waits."""
+    leaves = param_leaves(params)
+    if not debug_nans:
+        return list(torch.autograd.grad(loss, leaves))
+    _check_finite("the loss", loss)
+    try:
+        with torch.autograd.set_detect_anomaly(True):
+            grads = torch.autograd.grad(loss, leaves)
+    except RuntimeError as e:
+        if "nan values" not in str(e):
+            raise
+        raise FloatingPointError(f"--debug-nans: {e}") from e
+    for name, g in zip(param_names(params), grads):
+        _check_finite(f"the gradient of {name}", g)
+    return list(grads)
+
+
 def init_opt_state(params: GATv2, optimizer: str) -> dict:
     """{"m": [...], "v": [...]} zeros per leaf for Adam; {} for SGD."""
     if optimizer == "adam":

@@ -113,6 +113,18 @@ def _get_lib() -> ctypes.CDLL:
         _I32, _I32, _I32, _I32,  # src_sorted_ids, gather_perm, dst_of_src,
         #                          src_tile_offsets
     ]
+    # looked up, not required: a library without it keeps every other
+    # native path, and only emit_sell_tiles raises
+    sell = getattr(lib, "emit_sell_tiles", None)
+    if sell is not None:
+        sell.restype = _LL
+        sell.argtypes = (
+            [_I32, _I32]  # src, dst
+            + [_LL] * 7  # num_edges, max_nodes, split_cap, cols_d, cols_s,
+            #              tiles_d, tiles_s
+            + [_I32] * 13  # per side perm, vsort, sids, gather, cnt,
+            #                col_off; then ell_perm
+        )
     lib.gather_rows_f32.restype = None
     lib.gather_rows_f32.argtypes = [
         ctypes.POINTER(ctypes.c_float),  # src
@@ -243,6 +255,55 @@ def emit_tiles(
             f"native emit_tiles: fixed budget {fixed_edge_tiles} tiles x "
             f"te={te} does not fit (or bad inputs: {num_edges} edges, "
             f"{max_nodes} nodes)"
+        )
+    return out
+
+
+def sell_output_lengths(fixed: tuple[int, int, int, int]) -> dict:
+    """emit_sell_tiles' int32 outputs in its argument order, with their
+    lengths under fixed = (cols_d, cols_s, tiles_d, tiles_s): per side
+    ('d', 's') perm, vsort and sids [tiles*128], gather [cols*128], cnt
+    [cols] and col_off [tiles+1]; then ell_perm [cols_s*128]."""
+    cols_d, cols_s, tiles_d, tiles_s = fixed
+    out = {}
+    for tag, cols, tiles in (("d", cols_d, tiles_d), ("s", cols_s, tiles_s)):
+        out.update({
+            f"perm_{tag}": tiles * 128, f"vsort_{tag}": tiles * 128,
+            f"sids_{tag}": tiles * 128, f"gather_{tag}": cols * 128,
+            f"cnt_{tag}": cols, f"col_off_{tag}": tiles + 1,
+        })
+    out["ell_perm"] = cols_s * 128
+    return out
+
+
+def emit_sell_tiles(
+    src: np.ndarray,  # [>=num_edges] int32, local ids
+    dst: np.ndarray,  # [>=num_edges] int32, dst-sorted
+    num_edges: int,
+    max_nodes: int,
+    split_cap: int,
+    fixed: tuple[int, int, int, int],  # (cols_d, cols_s, tiles_d, tiles_s)
+) -> dict:
+    """Native fixed-geometry SELL layout of one sampled batch
+    (native/sampler.cpp emit_sell_tiles), byte-identical to
+    ops.sell_attention.prepare_minibatch_sell_tiles. Returns a dict of
+    int32 arrays (sell_output_lengths) for sell_tiles_from_native; raises
+    RuntimeError when the library lacks the symbol and ValueError when the
+    fixed geometry does not fit or the edges are not dst-sorted."""
+    fn = getattr(_get_lib(), "emit_sell_tiles", None)
+    if fn is None:
+        raise RuntimeError(
+            f"native library {library_path().name} has no emit_sell_tiles")
+    src = np.ascontiguousarray(src, np.int32)
+    dst = np.ascontiguousarray(dst, np.int32)
+    out = {k: np.empty(n, np.int32)
+           for k, n in sell_output_lengths(fixed).items()}
+    rc = fn(_i32p(src), _i32p(dst), num_edges, max_nodes, split_cap,
+            *fixed, *(_i32p(a) for a in out.values()))
+    if rc != 0:
+        raise ValueError(
+            f"native emit_sell_tiles: fixed geometry {fixed} does not fit "
+            f"(or bad inputs: {num_edges} edges, {max_nodes} nodes)"
         )
     return out
 

@@ -1,7 +1,8 @@
-"""Card-only tests of the port: the CUDA kernels K1-K4 (SELL) and K5-K8
-(edge tiles) against their plain twins, K2's and K6's launches without
-packets (chunked layouts) against their launches with them, a model
-forward, a training step and a minibatch step that go through them. They
+"""Card-only tests of the port: the CUDA kernels K1-K4 (SELL, also on
+per-batch minibatch layouts) and K5-K8 (edge tiles) against their plain
+twins, K2's and K6's launches without packets (chunked layouts) against
+their launches with them, a model forward, a training step and minibatch
+steps (edge tiles and SELL) that go through them. They
 carry the `gpu` marker and skip without a CUDA device. Run them on the
 machine with the card:
 
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from gatv2_tpu_torch.config import ModelConfig, TrainConfig
+from gatv2_tpu_torch.data.sampling import NeighborSampler
 from gatv2_tpu_torch.data.synthetic import powerlaw_graph, random_graph
 from gatv2_tpu_torch.models.gatv2 import init_params, model_forward
 from gatv2_tpu_torch.ops import pallas_attention as tpa
@@ -499,28 +501,127 @@ def test_pallas_op_head_groups_match_cpu(cuda):
                                    atol=1e-5 * float(want.abs().max()))
 
 
-@pytest.mark.gpu
-def test_minibatch_step_matches_torch_path(cuda):
-    """Two SGD minibatch steps through K5-K7 against impl='torch' on the
-    same batches from the same weights, with the launches counted."""
+def _minibatch_steps_against_torch(cuda, impl, counters):
+    """Two SGD minibatch steps through `impl`'s kernels against
+    impl='torch' on the same batches from the same weights, with the
+    launches counted (one of each kernel per layer and step)."""
     g = random_graph(3000, 24000, 16, 4, seed=9)
     mc = ModelConfig(num_layers=2, heads=(4, 1), out_dims=(16, 8),
                      num_classes=g.num_classes, in_dim=g.feature_dim)
     start = init_params(mc, torch.Generator().manual_seed(4))
-    counters = (pallas_fwd, pallas_bwd_dst, pallas_segsum)
     losses = {}
-    for impl in ("pallas", "torch"):
+    for run in (impl, "torch"):
         tc = TrainConfig(epochs=1, optimizer="sgd", lr=0.5, clip=True, seed=0,
-                         batch_size=256, fanouts=(5, 5), impl=impl)
+                         batch_size=256, fanouts=(5, 5), impl=run)
         tr = MinibatchTrainer(g, mc, tc, log_fn=lambda _: None, device=cuda)
         tr.params = copy.deepcopy(start)
         batches = iter(tr.sampler)
         before = [k.launches for k in counters]
-        losses[impl] = [tr.train_step(next(batches))[0] for _ in range(2)]
+        losses[run] = [tr.train_step(next(batches))[0] for _ in range(2)]
         torch.cuda.synchronize()
         launched = [k.launches - b for k, b in zip(counters, before)]
-        assert launched == ([4, 4, 4] if impl == "pallas" else [0, 0, 0])
-    np.testing.assert_allclose(losses["pallas"], losses["torch"], rtol=1e-5)
+        assert launched == ([4, 4, 4] if run == impl else [0, 0, 0])
+    np.testing.assert_allclose(losses[impl], losses["torch"], rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_minibatch_step_matches_torch_path(cuda):
+    """Two SGD minibatch steps through K5-K7 against impl='torch'."""
+    _minibatch_steps_against_torch(
+        cuda, "pallas", (pallas_fwd, pallas_bwd_dst, pallas_segsum))
+
+
+@pytest.mark.gpu
+def test_sell_minibatch_step_matches_torch_path(cuda):
+    """Two SGD minibatch steps through K1-K3 on per-batch SELL layouts
+    against impl='torch'."""
+    _minibatch_steps_against_torch(
+        cuda, "sell", (sell_fwd, sell_bwd_dst, sell_segsum))
+
+
+def _minibatch_sell_layout(case):
+    """(SellTiles, node count) of a per-batch SELL layout: both sides
+    split, the fixed geometry's tail columns and empty slices. 'sampled':
+    a sampled batch; 'hub', 'flat', 'zero-edge': the JAX package's
+    adversarial batches (tests/test_minibatch_sell.py); 'src-hub': a
+    batch whose source 0 has 600 out-edges (three virtual source rows,
+    the last with 88) beside random edges."""
+    if case == "sampled":
+        s = NeighborSampler(random_graph(3000, 24000, 8, 3, seed=9), 256,
+                            (5, 5), seed=0, engine="python",
+                            emit_tiles="sell")
+        return next(iter(s)).tiles, s.max_nodes
+    n, e = (1024, 2048) if case == "src-hub" else (256, 512)
+    fixed = tsa.sell_minibatch_geometry(n, e)
+    if case == "hub":
+        src, dst, num = np.arange(e) % n, np.zeros(e), e
+    elif case == "flat":
+        src, dst, num = np.zeros(e), np.sort(np.arange(e) % n), e
+    elif case == "zero-edge":
+        src, dst, num = np.zeros(e), np.full(e, n), 0
+    else:
+        rng = np.random.default_rng(21)
+        src = np.concatenate([np.zeros(600), rng.integers(1, n, e - 600)])
+        dst = rng.integers(0, n, e)
+        order = np.argsort(dst, kind="stable")
+        src, dst, num = src[order], dst[order], e
+    st = tsa.prepare_minibatch_sell_tiles(
+        src.astype(np.int32), dst.astype(np.int32), num, n, fixed)
+    return st, n
+
+
+MINIBATCH_SELL_CASES = [
+    ("sampled", 4, 64), ("sampled", 1, 16), ("hub", 2, 16), ("flat", 1, 16),
+    ("zero-edge", 3, 24), ("src-hub", 4, 16), ("src-hub", 1, 32),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,h,d", MINIBATCH_SELL_CASES)
+def test_k1_k2_k3_on_minibatch_sell_layouts(cuda, case, h, d):
+    """K1, K2 (with packets) and K3 on forced-split fixed layouts against
+    their twins, the cancelling sums and K3 against float64; K3 never
+    reads a padding packet (poisoned with NaN), also past col_off[-1]."""
+    st_host, n = _minibatch_sell_layout(case)
+    st = st_host.to(cuda)
+    assert st.dst.split and st.srcs.split and st.num_edges == -1
+    rng = np.random.default_rng(6)
+    zs, zd, g = (torch.from_numpy(rng.normal(size=(n, h * d))
+                                  .astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    a = torch.from_numpy(rng.normal(size=(h, d)).astype(np.float32)).to(cuda)
+    side = st.dst
+    lay = (side.perm, side.gather_ids, side.cnt, side.col_off)
+    kw = dict(negative_slope=SLOPE, normalize=False)
+    before = [k.launches for k in (sell_fwd, sell_bwd_dst, sell_segsum)]
+    got = sell_fwd(zs, zd, a, *lay, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, sell_fwd_plain(zs, zd, a, *lay, **kw)):
+        assert _close_by_row(x, y)
+    out, sigma = tsa.sell_forward(zs, zd, a, n, negative_slope=SLOPE,
+                                  sell_tiles=st)
+    r = (g * out).view(n, h, d).sum(-1)
+    args = (zs, zd, g, sigma, r, a, *lay)
+    dzd, da, c1 = sell_bwd_dst(*args, negative_slope=SLOPE)
+    torch.cuda.synchronize()
+    w_dzd, w_da, w_c1 = sell_bwd_dst_plain(*args, negative_slope=SLOPE)
+    w64 = sell_bwd_dst_plain(*(t.double() for t in args[:6]), *args[6:],
+                             negative_slope=SLOPE)
+    real = _real_slots(side.cnt)
+    assert c1.shape[0] == st.e_ell  # the fixed tail included
+    assert _close_by_row(c1[real], w_c1[real])
+    assert _close_f64(dzd, w_dzd, w64[0])
+    assert _close_f64(da, w_da, w64[1])
+    c1[~real] = float("nan")
+    k3_args = (c1, st.ell_perm, st.srcs.cnt, st.srcs.col_off)
+    dzs = sell_segsum(*k3_args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dzs).all())
+    assert _close_f64(dzs, sell_segsum_plain(*k3_args),
+                      sell_segsum_plain(c1.double(), *k3_args[1:]))
+    launched = [k.launches - b for k, b in
+                zip((sell_fwd, sell_bwd_dst, sell_segsum), before)]
+    assert launched == [2, 1, 1]  # K1 once more inside sell_forward
 
 
 CHUNKED_CASES = [

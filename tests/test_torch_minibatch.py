@@ -1,7 +1,8 @@
 """The port's minibatch training (train/minibatch.py) against the JAX
 package's MinibatchTrainer, on the CPU: two epochs of impl='pallas' (the
 port through the plain twins of K5, K6 and K7, the JAX package in Pallas
-interpret mode) from the same parameters, carried across as numpy, on the
+interpret mode) and of impl='sell' (the twins of K1, K2 and K3 on per-batch
+SELL layouts) from the same parameters, carried across as numpy, on the
 same python-engine batches; sampled and exact evaluation; and
 `python -m gatv2_tpu_torch.train --batch-size ...`.
 
@@ -71,14 +72,20 @@ def _trainers(dataset, batch_size, **train_kw):
     return tt, jt
 
 
-@pytest.mark.parametrize("dataset,batch_size", [("karate", 4),
-                                                ("digits", 256)])
-def test_minibatch_trainer_matches_jax(dataset, batch_size):
+@pytest.mark.parametrize("dataset,batch_size,impl", [
+    pytest.param("karate", 4, "pallas", id="karate-4"),
+    pytest.param("digits", 256, "pallas", id="digits-256"),
+    pytest.param("karate", 4, "sell", id="karate-4-sell"),
+    pytest.param("digits", 256, "sell", id="digits-256-sell"),
+])
+def test_minibatch_trainer_matches_jax(dataset, batch_size, impl):
     """Two epochs of Adam (bias correction at the global step) with
     clipping: the same number of steps, per-step losses within 1e-5
     relative; then sampled and exact evaluation from the trained weights
-    give the JAX package's accuracies."""
-    tt, jt = _trainers(dataset, batch_size)
+    give the JAX package's accuracies. impl='pallas': edge tiles (the twins
+    of K5-K7); impl='sell': per-batch SELL layouts (the twins of K1-K3),
+    with exact evaluation on setup_full_graph_sell's layout."""
+    tt, jt = _trainers(dataset, batch_size, impl=impl)
     t_losses, j_losses = _record_losses(tt), _record_losses(jt)
     t_last, j_last = tt.run(), jt.run()
     assert len(t_losses) == len(j_losses) == 2 * tt.sampler.batches_per_epoch()

@@ -135,8 +135,13 @@ def test_cli_matches_jax_surface(capsys):
     assert jcli.parse_args(["--batch-size", "8"])[1].impl == "pallas"
     assert tcli.parse_args(["--batch-size", "8", "--device", "cpu"])[1].impl \
         == "torch"
-    with pytest.raises(SystemExit, match="minibatch SELL"):
-        tcli.parse_args(["--impl", "sell", "--batch-size", "8"])
+    # --impl sell with --batch-size parses as in the JAX package (minibatch
+    # SELL); the multi-GPU flags exit naming their ROADMAP.md item
+    for cli in (tcli, jcli):
+        tc = cli.parse_args(["--impl", "sell", "--batch-size", "8"])[1]
+        assert (tc.impl, tc.batch_size) == ("sell", 8)
+    with pytest.raises(SystemExit, match="multi-GPU"):
+        tcli.parse_args(["--mesh", "2"])
 
 
 def test_port_imports_no_jax():

@@ -17,6 +17,7 @@ from gatv2_tpu.utils import native_loader as jnative
 from gatv2_tpu_torch.data import io as tio
 from gatv2_tpu_torch.data import sampling as tsampling
 from gatv2_tpu_torch.data.synthetic import random_graph
+from gatv2_tpu_torch.ops import sell_attention as tsa
 from gatv2_tpu_torch.utils import native_loader as tnative
 from test_torch_predict import DATA
 
@@ -56,6 +57,11 @@ def _assert_batches_equal(tb, jb):
             assert t == j, f.name
     if jb.tiles is None:
         assert tb.tiles is None
+        return
+    if isinstance(tb.tiles, tsa.SellTiles):
+        from test_torch_sell import assert_same_sell_layout
+
+        assert_same_sell_layout(tb.tiles, jb.tiles)
         return
     from test_torch_edge_tiles import _assert_same_layout
 
@@ -112,9 +118,15 @@ def test_sampler_guards():
     with pytest.raises(ValueError, match="budget"):
         tsampling.NeighborSampler(g, 16, (3,), engine="python",
                                   budget="tight")
-    with pytest.raises(NotImplementedError, match="minibatch SELL"):
+    with pytest.raises(ValueError, match="emit_tiles"):
         tsampling.NeighborSampler(g, 16, (3,), engine="python",
+                                  emit_tiles="ell")
+    # 'sell' attaches each batch's SellTiles in the stream's fixed geometry
+    s = tsampling.NeighborSampler(g, 16, (3,), engine="python",
                                   emit_tiles="sell")
+    b = s.sample(np.arange(16))
+    assert isinstance(b.tiles, tsa.SellTiles)
+    assert b.tiles.e_ell == s._sell_fixed[0] * tsa.TILE_N
     # every batch's tiles have one fixed shape, and the epoch covers every
     # node once as a seed
     s = tsampling.NeighborSampler(g, 64, (4, 4), engine="python",

@@ -57,6 +57,22 @@ LAYOUTS = {
 }
 
 
+def assert_same_sell_layout(got, want):
+    """The port's SellTiles `got` and the JAX package's `want`: every leaf
+    numpy on the port's side and byte-equal, every static field equal."""
+    for side in ("dst", "srcs"):
+        gs, ws = getattr(got, side), getattr(want, side)
+        assert gs.split == ws.split
+        for f in tsa._SIDE_ARRAYS:
+            a, b = getattr(gs, f), np.asarray(getattr(ws, f))
+            assert isinstance(a, np.ndarray), (side, f)
+            assert a.dtype == b.dtype and a.shape == b.shape, (side, f)
+            assert a.tobytes() == b.tobytes(), (side, f)
+    assert got.ell_perm.tobytes() == np.asarray(want.ell_perm).tobytes()
+    for f in _STATIC:
+        assert getattr(got, f) == getattr(want, f), f
+
+
 @pytest.mark.parametrize("case", sorted(LAYOUTS))
 def test_layout_leaves_byte_equal(case):
     make, chunks = LAYOUTS[case]
@@ -65,16 +81,7 @@ def test_layout_leaves_byte_equal(case):
     want = jsa.prepare_sell_tiles(
         row_ptr, col_idx, n, num_chunks=chunks, as_numpy=True
     )
-    for side in ("dst", "srcs"):
-        gs, ws = getattr(got, side), getattr(want, side)
-        assert gs.split == ws.split
-        for f in tsa._SIDE_ARRAYS:
-            a, b = getattr(gs, f), np.asarray(getattr(ws, f))
-            assert a.dtype == b.dtype and a.shape == b.shape, (side, f)
-            assert a.tobytes() == b.tobytes(), (side, f)
-    assert got.ell_perm.tobytes() == np.asarray(want.ell_perm).tobytes()
-    for f in _STATIC:
-        assert getattr(got, f) == getattr(want, f), f
+    assert_same_sell_layout(got, want)
     if case == "zipf-split":
         assert got.dst.split and got.srcs.split
 

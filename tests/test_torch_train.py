@@ -10,6 +10,7 @@ rtol = atol = 1e-6."""
 
 import dataclasses
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -345,10 +346,11 @@ def test_resume_continues_adam_t(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_train_entry_point_cpu(tmp_path):
+def test_train_entry_point_cpu(tmp_path, capsys):
     """python -m gatv2_tpu_torch.train --device cpu on karate: the JAX
     package's console lines, a checkpoint, then predict from it; unported
-    flags exit naming their ROADMAP.md item."""
+    flags exit naming their ROADMAP.md item; --impl sell --batch-size
+    trains (on the CPU through the twins of K1-K3) to finite losses."""
     common = ["--dataset", "karate", "--data-root", DATA, "--num-layers", "2",
               "--heads", "2,1", "--outdims", "8,4", "--device", "cpu"]
     ck = tmp_path / "ck"
@@ -379,11 +381,85 @@ def test_train_entry_point_cpu(tmp_path):
     assert r.returncode == 0, r.stderr[-2000:]
     assert "Loaded checkpoint at epoch 3" in r.stdout
     assert np.loadtxt(tmp_path / "p" / "predictions.txt").shape == (34,)
-    for flag in (["--mesh", "2"], ["--impl", "sell", "--batch-size", "8"],
-                 ["--overlap"], ["--profile", str(tmp_path)],
-                 ["--debug-nans"]):
+    for flag in (["--mesh", "2"], ["--overlap"]):
         with pytest.raises(SystemExit, match="ROADMAP.md"):
             tmain.main([*common, *flag])
+    capsys.readouterr()
+    assert tmain.main([*common, "--epochs", "2", "--seed", "2", "--impl",
+                       "sell", "--batch-size", "8", "--fanouts", "3,3",
+                       "--sampler-engine", "python"]) == 0
+    losses = _avg_losses(capsys.readouterr().out)
+    assert len(losses) == 2 and np.isfinite(losses).all()
+
+
+def _avg_losses(out: str) -> list[float]:
+    return [float(re.search(r"Avg Loss: (\S+),", l).group(1))
+            for l in out.splitlines() if l.startswith("Avg Loss: ")]
+
+
+def test_train_profile_writes_a_trace(tmp_path, capsys):
+    """--profile DIR: a torch.profiler trace of the training run in DIR."""
+    prof = tmp_path / "prof"
+    assert tmain.main(["--dataset", "karate", "--data-root", DATA,
+                       "--num-layers", "2", "--heads", "2,1", "--outdims",
+                       "8,4", "--epochs", "1", "--seed", "1", "--device",
+                       "cpu", "--impl", "sell", "--profile", str(prof)]) == 0
+    assert f"Profiling to {prof}/" in capsys.readouterr().out.splitlines()
+    traces = list(prof.iterdir())
+    assert [t.name for t in traces] == ["trace.json"]
+    assert "traceEvents" in json.loads(traces[0].read_text())
+
+
+@pytest.mark.parametrize("mode", [
+    [],
+    ["--impl", "sell", "--batch-size", "8", "--fanouts", "3,3",
+     "--sampler-engine", "python"],
+], ids=["full-graph", "minibatch-sell"])
+def test_debug_nans_raises_on_a_nan_feature(tmp_path, capsys, mode):
+    """A copy of karate with one NaN feature on a train node: --debug-nans
+    raises FloatingPointError naming the loss; without the flag the run
+    prints its usual lines, with a NaN loss."""
+    data = tmp_path / "data"
+    (data / "karate").mkdir(parents=True)
+    for f in (pathlib.Path(DATA) / "karate").iterdir():
+        (data / "karate" / f.name).write_bytes(f.read_bytes())
+    feats = np.loadtxt(data / "karate" / "features.txt", dtype=np.float32)
+    feats[2, 0] = np.nan  # node 2 is in train_mask.txt
+    np.savetxt(data / "karate" / "features.txt", feats, fmt="%g")
+    argv = ["--dataset", "karate", "--data-root", str(data), "--num-layers",
+            "2", "--heads", "2,1", "--outdims", "8,4", "--epochs", "2",
+            "--seed", "1", "--device", "cpu", *mode]
+    with pytest.raises(FloatingPointError, match="the loss"):
+        tmain.main([*argv, "--debug-nans"])
+    capsys.readouterr()
+    assert tmain.main(argv) == 0
+    out = capsys.readouterr().out
+    assert len(_avg_losses(out)) == 2 and np.isnan(_avg_losses(out)).any()
+    assert "Final Test Accuracy: " in out
+
+
+def test_debug_nans_in_the_backward():
+    """optim.gradients(debug_nans=True) on finite losses: an infinite
+    gradient raises FloatingPointError naming its parameter, a NaN made
+    inside the backward one naming the autograd function (anomaly mode);
+    without the flag both gradients come back as they are."""
+    g = tio.load_dataset("karate", DATA)
+    cfg = tconfig.ModelConfig(**ARCH, num_classes=g.num_classes,
+                              in_dim=g.feature_dim)
+    model = tmodel.init_params(cfg, torch.Generator().manual_seed(3))
+
+    def loss(scale):
+        every = sum(p.sum() for p in toptim.param_leaves(model)) * 0
+        w = model.w_o[0, 0]
+        # 0, with an infinite derivative
+        return every + scale * torch.sqrt(w - w.detach())
+
+    for scale, match in ((1, "the gradient of w_o"), (0, "SqrtBackward0")):
+        assert torch.isfinite(loss(scale))
+        grads = toptim.gradients(loss(scale), model)
+        assert not torch.isfinite(grads[-1]).all()
+        with pytest.raises(FloatingPointError, match=match):
+            toptim.gradients(loss(scale), model, debug_nans=True)
 
 
 @pytest.mark.parametrize("impl", ["torch", "sell"])
