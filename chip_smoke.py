@@ -88,7 +88,28 @@ Phases (any failure exits non-zero):
      weights; then K8 against its twin and float64, and K6 without packets
      against K6 with them, at each layer's shapes on one chunk, with K8's
      time beside its bound and per-edge gather floor;
- 15. the total seconds, one JSON line listing every kernel, the
+ 15. multi-GPU on the one card: a pool of 2 ranks sharing cuda:0 over
+     gloo (the Transport: line; each collective the port calls run once on
+     CUDA tensors), which is no measure of multi-GPU speed. Sharded arxiv
+     training at full width (ShardedTrainer, 3 epochs from phase 5's
+     weights) on sell, pallas and torch with and without --overlap on a
+     2-rank 'graph' mesh, and sell on a 1x2 'head' mesh; sell with
+     --overlap on arxiv-pl, whose hubs hand it to the single pass: each
+     rank's counters zeroed just before and read just after, K1-K3 or
+     K5-K7 launched on every rank of their routes and K1 / K5 with
+     normalize=False on the merge routes, the losses against phase 5's
+     single-process sell Trainer; one sharded step's gradients on every
+     arxiv route against float64; every kernel launch of the sharded
+     layer's ops on shard 0's layouts (each route's per-shard bipartite
+     tiles and overlap pair, arxiv-pl's split single pass), layer by
+     layer: K1 / K5 with normalize=False per pass and K2 + K3 / K6 + K7
+     against the merged stats on the merge routes, each against its twin
+     on the arguments the op gave it, with its time beside its bound; K5
+     with normalize=False on a split hub beside rows without an edge;
+     data-parallel products-sub minibatch training
+     (pallas, then sell, 5 super-steps) against a single-process oracle
+     of seed-weighted group steps; and `train --mesh 2` on karate;
+ 16. the total seconds, one JSON line listing every kernel, the
      nvidia-smi line, then the result line
      {"ok": true, "device": {...}}.
 
@@ -134,7 +155,12 @@ from gatv2_tpu_torch.ops.pallas_bwd_src import (
     pallas_bwd_src,
     pallas_bwd_src_plain,
 )
-from gatv2_tpu_torch.ops.pallas_fwd import pallas_fwd, pallas_fwd_plain
+from gatv2_tpu_torch.ops.pallas_fwd import (
+    NEG_INF,
+    pallas_fwd,
+    pallas_fwd_plain,
+    real_edges,
+)
 from gatv2_tpu_torch.ops.pallas_segsum import pallas_segsum, pallas_segsum_plain
 from gatv2_tpu_torch.ops.sell_attention import (
     TILE_N,
@@ -149,7 +175,12 @@ from gatv2_tpu_torch.ops.sell_fwd import sell_fwd, sell_fwd_plain
 from gatv2_tpu_torch.ops.sell_segsum import sell_segsum, sell_segsum_plain
 from gatv2_tpu_torch.train import optim
 from gatv2_tpu_torch.train.loop import Trainer
-from gatv2_tpu_torch.train.minibatch import MinibatchTrainer, gather_rows_clip
+from gatv2_tpu_torch.parallel import multihost, sharded
+from gatv2_tpu_torch.train.minibatch import (
+    DataParallelMinibatchTrainer,
+    MinibatchTrainer,
+    gather_rows_clip,
+)
 from gatv2_tpu_torch.utils import native_loader
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -370,24 +401,31 @@ def chunk_rows(side, spc, chunk):
     return side.perm[chunk * spc * TILE_N: (chunk + 1) * spc * TILE_N]
 
 
-def dst_chunk_counts(st, chunk):
-    """What one K1 or K2 launch on dst chunk `chunk` of the SELL layout st
-    (on the card; chunk 0 of an unchunked layout is all of it) must touch:
+def sell_counts(perm, ids, cnt, rel):
+    """What one K1 or K2 launch on a SELL side's rows must touch, from the
+    launch's own perm rows, gather ids, column counts and slice offsets:
     its real edges, the distinct sources they read, the distinct nodes of
     its rows with an edge, and its rows, columns and slice offsets."""
-    side = st.dst
-    cnt, rel = side.cnt_grp[chunk].long(), side.rel_off[chunk].long()
-    real = real_slots(side.cnt_grp[chunk])
+    cnt, rel = cnt.long(), rel.long()
+    real = real_slots(cnt)
     widths = rel[1:] - rel[:-1]
     first = cnt[rel[:-1].clamp(max=max(cnt.numel() - 1, 0))]
     row_used = (torch.where(widths > 0, first, 0)[:, None]
                 > torch.arange(TILE_N, device=cnt.device)).reshape(-1)
-    perm = chunk_rows(side, st.spc_dst, chunk)
     return dict(
-        e=int(real.sum()),
-        n_src=int(torch.unique(side.ids_grp[chunk][real]).numel()),
+        e=int(real.sum()), n_src=int(torch.unique(ids[real]).numel()),
         n_dst=int(torch.unique(perm[row_used]).numel()),
         rows=perm.numel(), cols=int(rel[-1]), offsets=rel.numel())
+
+
+def dst_chunk_counts(st, chunk):
+    """sell_counts of one K1 or K2 launch on dst chunk `chunk` of the SELL
+    layout st (on the card; chunk 0 of an unchunked layout is all of
+    it)."""
+    side = st.dst
+    return sell_counts(chunk_rows(side, st.spc_dst, chunk),
+                       side.ids_grp[chunk], side.cnt_grp[chunk],
+                       side.rel_off[chunk])
 
 
 def k1_k2_bounds(c, hd, heads, packets):
@@ -458,6 +496,8 @@ def real_slots(cnt):
 def zero_counters():
     for k in KERNELS.values():
         k["fn"].launches = 0
+    # K1's and K5's launches with normalize=False (the merged-softmax ops)
+    sell_fwd.raw_launches = pallas_fwd.raw_launches = 0
 
 
 def read_counters():
@@ -817,11 +857,11 @@ def phase_train_main_path(model, config, runs, dev):
     return launches
 
 
-def phase_gradients(model, config, runs, dev, paths=None):
+def phase_gradients(model, config, runs, dev, paths=None, given=None):
     """One step's gradients of the loss: each path (by default sell, K1-K3;
-    paths(r) maps a label to (impl, tiles, features, labels, num_valid))
-    and the fp32 torch path, each against the torch path in float64, per
-    parameter."""
+    paths(r) maps a label to (impl, tiles, features, labels, num_valid);
+    `given` adds {label: gradients} computed elsewhere) and the fp32 torch
+    path, each against the torch path in float64, per parameter."""
     model64 = copy.deepcopy(model).double()
     names = optim.param_names(model)
     if paths is None:
@@ -839,6 +879,7 @@ def phase_gradients(model, config, runs, dev, paths=None):
         labels = r["labels"][:n]
         got = {label: grads(model, feats, None, None, lab, impl, tiles, nv)
                for label, (impl, tiles, feats, lab, nv) in paths(r).items()}
+        got.update(given or {})
         g_torch = grads(model, r["feats"][:n], r["src"], r["dst"], labels,
                         "torch")
         g64 = grads(model64, r["feats"][:n].double(), r["src"], r["dst"],
@@ -2751,6 +2792,653 @@ def phase_k8_at_products_sub(mb, pfs, card):
     return max_err, tot
 
 
+# ---------------------------------------------------------------------------
+# multi-GPU on one card: ranks sharing cuda:0 over gloo
+# ---------------------------------------------------------------------------
+
+# the mesh of the sharded and data-parallel phases: 2 ranks on the one card
+MESH_RANKS = 2
+# (impl, --overlap, head_shards) of the sharded arxiv routes: mesh 2 over
+# 'graph' on each impl with and without the overlap layer, then 1 x 2 over
+# 'head' (layer 0's 4 heads split 2 + 2)
+SHARDED_ROUTES = [("sell", False, 1), ("sell", True, 1), ("pallas", False, 1),
+                  ("pallas", True, 1), ("torch", False, 1),
+                  ("torch", True, 1), ("sell", False, 2)]
+# the data-parallel phase's super-steps (2 products-sub batches each)
+DP_STEPS = 5
+_RANK_GRAPHS = {}  # per rank process: graphs built once for all its jobs
+
+
+def _rank_graph(name):
+    if name not in _RANK_GRAPHS:
+        if name == "products-sub":
+            g = random_graph(**PRODUCTS_SUB)
+            _RANK_GRAPHS[name] = (g, random_splits(g.num_nodes,
+                                                   (0.6, 0.2, 0.2), seed=0))
+        else:
+            _RANK_GRAPHS[name] = make_graph(name)
+    return _RANK_GRAPHS[name]
+
+
+def _counters():
+    c = read_counters()
+    c["sell_fwd normalize=False"] = sell_fwd.raw_launches
+    c["pallas_fwd normalize=False"] = pallas_fwd.raw_launches
+    return c
+
+
+def _weights(model):
+    return [p.detach().cpu().numpy() for p in optim.param_leaves(model)]
+
+
+def _load_weights(model, leaves):
+    with torch.no_grad():
+        for p, v in zip(optim.param_leaves(model), leaves):
+            p.copy_(torch.as_tensor(v, device=p.device))
+
+
+def rank_transport(info):
+    """(the Transport: line, this rank's device, the collectives the port
+    calls, each run once here on CUDA tensors of this rank's device, and
+    whether each gave the right result) of a pool rank. The port stages
+    nothing through host memory itself: the backend must take them all."""
+    import torch.distributed as dist
+
+    from gatv2_tpu_torch.parallel import collectives as cc
+
+    n, r, dev = info.world_size, info.rank, info.device
+    x = torch.arange(4.0, device=dev) + r
+    checks = {
+        "all_reduce": (lambda: cc.all_reduce_sum(x, None),
+                       sum(torch.arange(4.0) + k for k in range(n))),
+        "broadcast": (lambda: (dist.broadcast(y := x.clone(), 0), y)[1],
+                      torch.arange(4.0)),
+        "all_gather_into_tensor": (
+            lambda: cc.all_gather_dim0(x, None),
+            torch.cat([torch.arange(4.0) + k for k in range(n)])),
+        "reduce_scatter_tensor": (
+            lambda: cc.reduce_scatter_dim0(torch.arange(4.0 * n,
+                                                        device=dev), None),
+            n * torch.arange(4.0 * r, 4.0 * (r + 1))),
+        "all_to_all_single": (
+            lambda: cc.all_to_all_dim0(
+                (torch.arange(2.0 * n, device=dev) + 10 * r).view(n, 2),
+                None).reshape(-1),
+            torch.cat([torch.arange(2.0 * r, 2.0 * (r + 1)) + 10 * k
+                       for k in range(n)])),
+    }
+    ok = {k: bool(torch.equal(fn().cpu(), want))
+          for k, (fn, want) in checks.items()}
+    return multihost.transport_line(info), str(dev), ok
+
+
+def rank_sharded(info, name, impl, overlap, head_shards, weights, grads,
+                 profile):
+    """One sharded route on this rank: ShardedTrainer on graph `name` with
+    the arxiv model from `weights`, TRAIN_EPOCHS epochs with the launch
+    counters zeroed just before and read just after. With grads, one step's
+    gradients at the start weights first (full shape, head shards
+    gathered); with profile, one more epoch under torch.profiler after
+    them. Returns the trainer's log lines, losses, epoch ms, set-up
+    seconds, launches, the gradients and the profile."""
+    g = _rank_graph(name)
+    config = ModelConfig(num_layers=3, heads=HEADS, out_dims=OUTDIMS,
+                         num_classes=ARXIV["num_classes"],
+                         in_dim=ARXIV["feature_dim"])
+    tc = TrainConfig(epochs=TRAIN_EPOCHS, optimizer="adam", lr=0.01,
+                     clip=True, seed=0, impl=impl)
+    logs = []
+    t0 = time.perf_counter()
+    tr = sharded.ShardedTrainer(g, config, tc, MESH_RANKS, log_fn=logs.append,
+                                overlap=overlap, head_shards=head_shards,
+                                device=info.device)
+    full = init_params(config, torch.Generator())
+    _load_weights(full, weights)
+    tr.params = full
+    setup_s = time.perf_counter() - t0
+    full_grads = None
+    if grads:
+        loss, _ = tr._step.loss_fn(tr.params, tr.features, tr.labels)
+        gl = sharded.sharded_gradients(loss, tr.params, config, tr.mesh)
+        mask = sharded._sharded_leaf_mask(config, tr.mesh)
+        full_grads = [sharded._gather_leaf(x, m, tr.mesh).cpu().numpy()
+                      for x, m in zip(gl, mask)]
+    torch.cuda.synchronize()
+    zero_counters()
+    losses, ms = [], []
+    for _ in range(TRAIN_EPOCHS):
+        rec = tr.run(1)
+        losses.append(rec["loss"])
+        ms.append(rec["ms"])
+    torch.cuda.synchronize()
+    launches = _counters()
+    prof_out = None
+    if profile:
+        # one more epoch under torch.profiler: the device's busy time, and
+        # the host rows that take the most of the epoch
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            wall = tr.run(1)["ms"]
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        busy = sum((getattr(e, "self_device_time_total", 0) or 0)
+                   for e in events
+                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        host = sorted(((e.cpu_time_total / 1e3, e.count, e.key)
+                       for e in events if e.key.startswith("gloo:")),
+                      reverse=True)
+        prof_out = dict(wall_ms=wall, busy_ms=busy / 1e3, host=host[:6])
+    return dict(logs=logs, losses=losses, ms=ms, setup_s=setup_s,
+                launches=launches, grads=full_grads, profile=prof_out)
+
+
+def rank_dp(info, impl, weights):
+    """DataParallelMinibatchTrainer on products-sub (batch 1024, fanouts
+    10,10,10, native sampler, the minibatch phase's start weights): DP_STEPS
+    super-steps with the launch counters zeroed just before and read just
+    after. Returns the group losses, seed counts, ms a super-step (its
+    batches sampled before the timed loop), launches."""
+    g, splits = _rank_graph("products-sub")
+    config = ModelConfig(num_layers=3, heads=HEADS, out_dims=OUTDIMS,
+                         num_classes=PRODUCTS_SUB["num_classes"],
+                         in_dim=PRODUCTS_SUB["feature_dim"])
+    tc = TrainConfig(epochs=1, optimizer="adam", lr=0.01, clip=True, seed=0,
+                     impl=impl, batch_size=MB_BATCH, fanouts=MB_FANOUTS,
+                     sampler_engine="native", sample_budget="auto",
+                     feature_residency="device")
+    tr = DataParallelMinibatchTrainer(g, config, tc, MESH_RANKS,
+                                      log_fn=lambda _: None, splits=splits,
+                                      device=info.device)
+    _load_weights(tr.params, weights)
+    groups = tr.sampler.iter_groups(MESH_RANKS, info.rank)
+    pairs = [next(groups) for _ in range(DP_STEPS)]
+    torch.cuda.synchronize()
+    zero_counters()
+    losses, seeds = [], []
+    t0 = time.perf_counter()
+    for own, first in pairs:
+        loss, _, n = tr.train_group(own, first)  # float(): waits
+        losses.append(loss)
+        seeds.append(n)
+    step_ms = (time.perf_counter() - t0) * 1e3 / DP_STEPS
+    torch.cuda.synchronize()
+    return dict(losses=losses, seeds=seeds, step_ms=step_ms,
+                launches=_counters())
+
+
+def _check_rank_launches(what, results, kernels):
+    """Fails unless every rank launched each of `kernels`."""
+    for r, res in enumerate(results):
+        for k in kernels:
+            if res["launches"][k] == 0:
+                fail(f"{what}: rank {r} launched no {k}")
+
+
+def phase_sharded(pool, model, runs, card):
+    """ShardedTrainer at arxiv full width on 2 ranks sharing the card over
+    gloo, every route of SHARDED_ROUTES, then sell with --overlap on
+    arxiv-pl (hub-heavy: the single pass takes over): each rank's launch
+    counters zeroed just before its epochs and read just after; the losses
+    against the single-process sell Trainer from the same weights (phase
+    5). Returns the launches summed over ranks and routes, and {route:
+    one step's gradients at the start weights} of every arxiv route."""
+    weights = _weights(model)
+    total = dict.fromkeys(_counters(), 0)
+    grads = {}
+    routes = [("arxiv", *r) for r in SHARDED_ROUTES] + [
+        ("arxiv-pl", "sell", True, 1)]
+    for i, (name, impl, overlap, hs) in enumerate(routes):
+        res = pool.run(rank_sharded, name, impl, overlap, hs, weights,
+                       name == "arxiv", i == 0)
+        r0 = res[0]
+        tag = (f"{name} sharded {impl}{' --overlap' if overlap else ''} "
+               f"mesh {MESH_RANKS // hs}x{hs}")
+        for line in r0["logs"]:
+            if line.split(":")[0] in ("Partition", "Halo", "Overlap"):
+                print(f"  {tag}: {line}")
+        want = runs[name]["trainer"].metrics_sink.losses
+        got = r0["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"{tag}: losses {got}, single-process sell Trainer {want}; "
+              f"max relative difference {rel:.3e} (tolerance {LOSS_RTOL:g}); "
+              f"epoch ms (gloo on one card, not a multi-GPU time) "
+              f"{[round(m, 2) for m in r0['ms']]}; set-up "
+              f"{r0['setup_s']:.2f} s; launches per rank "
+              f"{[{k: v for k, v in x['launches'].items() if v} for x in res]}"
+              f" [{card}]")
+        if not all(np.isfinite(got)) or rel > LOSS_RTOL:
+            fail(f"{tag}: losses disagree with the single-process Trainer")
+        if any(x["losses"] != got for x in res[1:]):
+            fail(f"{tag}: the ranks report different losses")
+        if not any(l.startswith("Partition:") for l in r0["logs"]) or \
+                not any(l.startswith("Halo:") for l in r0["logs"]):
+            fail(f"{tag}: no Partition: / Halo: line")
+        hub_fallback = any(l.startswith("Overlap: unavailable")
+                           for l in r0["logs"])
+        if name == "arxiv-pl" and not hub_fallback:
+            fail("arxiv-pl: the SELL overlap did not give way to the "
+                 "single pass on a hub-heavy partition")
+        if overlap and name == "arxiv" and not any(
+                l.startswith("Overlap: two-pass") for l in r0["logs"]):
+            fail(f"{tag}: the overlap layer did not run")
+        kernels = {"sell": SELL_KERNELS, "pallas": PALLAS_KERNELS}.get(
+            impl, ())
+        if overlap and name == "arxiv" and impl != "torch":
+            kernels += (f"{kernels[0]} normalize=False",)
+        _check_rank_launches(tag, res, kernels)
+        for x in res:
+            for k, v in x["launches"].items():
+                total[k] += v
+        if name == "arxiv":
+            grads[tag.removeprefix("arxiv ")] = r0["grads"]
+        if i == 0:
+            p = r0["profile"]
+            print(f"{tag}, one more epoch under torch.profiler on rank 0: "
+                  f"{p['wall_ms']:.2f} ms wall, device busy "
+                  f"{p['busy_ms']:.2f} ms; the gloo collectives' host time "
+                  f"(gloo on one card, not a multi-GPU time) [{card}]:")
+            for ms_, count, key in p["host"]:
+                print(f"  {ms_:9.3f} ms  x{count:<3d} {key[:80]}")
+    return total, grads
+
+
+def phase_sharded_gradients(model, config, runs, dev, grads):
+    """One sharded step's gradients on every arxiv route (rank 0's, full
+    shape) against the single-process float64 torch path, by phase 6's
+    rule."""
+    given = {route: [torch.as_tensor(x, device=dev) for x in g]
+             for route, g in grads.items()}
+    phase_gradients(model, config, {"arxiv": runs["arxiv"]}, dev,
+                    paths=lambda r: {}, given=given)
+
+
+def phase_k5_unnormalised(model, dev, card):
+    """K5 with normalize=False (each pass of edge_attention_pallas_merge)
+    against its twin at each layer's widths on a layout with a hub row
+    split over the block beside nodes without an in-edge (m = -1e30, l = 0,
+    raw out = 0); each launch's time beside its bound and the twin's. The
+    arxiv shard layouts are phase_shard_kernels'."""
+    hub = _hub_and_isolated()
+    et = tpa.prepare_edge_tiles(hub.row_ptr, hub.col_idx,
+                                hub.num_nodes).to(dev)
+    side = et.dst_side
+    lay = (side.ids_grp[0], side.other_grp[0], side.rel_offsets[0],
+           et.tile_e)
+    rows = et.padded_num_nodes
+    gen = torch.Generator(device=dev).manual_seed(6)
+    max_err = 0.0
+    kw = dict(negative_slope=SLOPE, normalize=False)
+    for l, layer in enumerate(model.layers):
+        a = layer.a.detach().contiguous()
+        hd = a.numel()
+        zs = torch.randn(hub.num_nodes, hd, generator=gen, device=dev)
+        zd = torch.randn(rows, hd, generator=gen, device=dev)
+        args = (zs, zd, a, *lay)
+        got = pallas_fwd(*args, **kw)
+        max_err = max(max_err, check_forward(
+            f"hub + isolated layer {l}", "pallas_fwd", args, kw, got))
+        ms = cuda_ms(lambda: pallas_fwd(*args, **kw))
+        plain_ms = cuda_ms(lambda: pallas_fwd_plain(*args, **kw), reps=3)
+        c = pallas_counts(*lay[:3])
+        bound, by = pallas_bounds(c["e"], rows, c["tiles"], hd, a.shape[0],
+                                  c["n_src"], c["n_dst"])[1]["pallas_fwd"]
+        print(f"  hub + isolated layer {l} K5 normalize=False H*D={hd}, "
+              f"{c['e']} real edges: {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({by}), twin {plain_ms:.3f} ms, library none [{card}]")
+    return max_err
+
+
+# the kernel wrappers each op module calls, with their twins
+_OP_KERNELS = {
+    "sell": ("sell_fwd", "sell_bwd_dst", "sell_segsum"),
+    "pallas": ("pallas_fwd", "pallas_bwd_dst", "pallas_segsum"),
+}
+_TWINS = {"sell_fwd": sell_fwd_plain, "sell_bwd_dst": sell_bwd_dst_plain,
+          "sell_segsum": sell_segsum_plain, "pallas_fwd": pallas_fwd_plain,
+          "pallas_bwd_dst": pallas_bwd_dst_plain,
+          "pallas_segsum": pallas_segsum_plain}
+
+
+@contextlib.contextmanager
+def captured_launches(impl):
+    """Records every call the op module of `impl` makes to its kernel
+    wrappers, in launch order: [(kernel, args, kwargs, result)]."""
+    module = tsa if impl == "sell" else tpa
+    saved = {k: getattr(module, k) for k in _OP_KERNELS[impl]}
+    calls = []
+
+    def wrap(k, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            calls.append((k, args, kw, out))
+            return out
+        return call
+
+    for k, fn in saved.items():
+        setattr(module, k, wrap(k, fn))
+    try:
+        yield calls
+    finally:
+        for k, fn in saved.items():
+            setattr(module, k, fn)
+
+
+def pallas_counts(ids, other, rel):
+    """(real edges, distinct sources and destinations, node tiles) of one
+    K5 or K6 launch on an edge-tile side."""
+    rows = (rel.numel() - 1) * TILE_N
+    real = ids < rows
+    return dict(e=int(real.sum()), tiles=rel.numel() - 1,
+                n_src=int(torch.unique(other[real]).numel()),
+                n_dst=int(torch.unique(ids[real]).numel()))
+
+
+def check_forward(tag, k, args, kw, got):
+    """K1 or K5 (`k`) against its twin on the same arguments; for K5 with
+    normalize=False also a node without an in-edge: out = 0, m = -1e30,
+    l = 0. Returns the max abs error."""
+    want = _TWINS[k](*args, **kw)
+    norm = kw.get("normalize", True)
+    err = max(compare(f"{tag} {k} normalize={norm} {part} "
+                      f"[{tuple(gv.shape)}]", gv, wv, K1_RTOL, K1_ATOL)
+              for part, gv, wv in zip(("out", "m", "l"), got, want))
+    if k == "pallas_fwd" and not norm:
+        ids, rel = args[3], args[5]
+        rows = (rel.numel() - 1) * TILE_N
+        no_in = torch.ones(rows, dtype=torch.bool, device=ids.device)
+        no_in[ids[ids < rows].long()] = False
+        out, m, l_ = got
+        if not int(no_in.sum()) or not (
+                bool((out[no_in] == 0).all())
+                and bool((m[no_in] == NEG_INF).all())
+                and bool((l_[no_in] == 0).all())):
+            fail(f"{tag}: no node without an in-edge, or one that is not "
+                 f"out = 0, m = -1e30, l = 0")
+    return err
+
+
+def check_launch(tag, k, args, kw, got, state):
+    """One captured launch against its twin on the same arguments, by the
+    main path's rules: forward outputs and c1 on real slots to K1's
+    tolerance, dzd, d_a and dzs against float64. A backward-over-dst
+    launch poisons its unwritten packet slots, so that the packet sum that
+    reads them next must skip them; `state` carries its edge count to that
+    launch's bound. Returns (max abs error, kernel ms, twin ms, bound ms,
+    bound_by)."""
+    fn = KERNELS[k]["fn"]
+    if k in ("sell_fwd", "pallas_fwd"):
+        err = check_forward(tag, k, args, kw, got)
+    elif k in ("sell_bwd_dst", "pallas_bwd_dst"):
+        nf = 6 if k == "sell_bwd_dst" else 5
+        dzd, da, c1 = got
+        w_dzd, w_da, w_c1 = _TWINS[k](*args, **kw)
+        w64 = _TWINS[k](*(t.double() for t in args[:nf]), *args[nf:], **kw)
+        if k == "sell_bwd_dst":
+            real = real_slots(args[8])
+        else:
+            real = torch.zeros(c1.shape[0], dtype=torch.bool,
+                               device=c1.device)
+            pos, _ = real_edges(args[5], args[7], args[8])
+            real[pos] = True
+        hd = c1.shape[1]
+        err = max(
+            compare(f"{tag} {k} c1 real slots [{int(real.sum())}, {hd}]",
+                    c1[real], w_c1[real], K1_RTOL, K1_ATOL),
+            compare_f64(f"{tag} {k} dzd [{tuple(dzd.shape)}]", dzd, w_dzd,
+                        w64[0]),
+            compare_f64(f"{tag} {k} d_a [{tuple(da.shape)}]", da, w_da,
+                        w64[1]))
+        del w_dzd, w_c1, w64
+        c1[~real] = float("nan")
+    else:
+        dzs = fn(*args, **kw)
+        if not bool(torch.isfinite(dzs).all()):
+            fail(f"{tag}: {k} read a padding packet")
+        err = compare_f64(f"{tag} {k} dzs [{tuple(dzs.shape)}]", dzs,
+                          _TWINS[k](*args, **kw),
+                          _TWINS[k](args[0].double(), *args[1:], **kw))
+    ms = cuda_ms(lambda: fn(*args, **kw))
+    plain_ms = cuda_ms(lambda: _TWINS[k](*args, **kw), reps=3, warmup=1)
+    if k.startswith("sell"):
+        if k == "sell_segsum":
+            c1, _, cnt, col = args
+            hd, e, cols = c1.shape[1], int(cnt.sum()), int(col[-1])
+            tiles = col.numel() - 1
+            bound, by = _bound(4 * (e * hd + e + cols + tiles + 1
+                                    + tiles * TILE_N * hd),
+                               e * hd * K3_OPS_PER_FEATURE)
+        else:
+            lay = args[3:7] if k == "sell_fwd" else args[6:10]
+            a = args[2] if k == "sell_fwd" else args[5]
+            bound, by, _ = k1_k2_bounds(
+                sell_counts(*lay), a.numel(), a.shape[0], packets=True)[k]
+    else:
+        if k == "pallas_segsum":
+            c1, _, _, src_off, _ = args
+            c = dict(state["pallas_bwd_dst"], tiles=src_off.numel() - 1)
+            rows, hd, heads = c["tiles"] * TILE_N, c1.shape[1], 1
+        else:
+            a = args[2] if k == "pallas_fwd" else args[4]
+            lay = args[3:6] if k == "pallas_fwd" else args[5:8]
+            c = pallas_counts(*lay)
+            rows, hd, heads = c["tiles"] * TILE_N, a.numel(), a.shape[0]
+            state[k] = c
+        bound, by = pallas_bounds(c["e"], rows, c["tiles"], hd, heads,
+                                  c["n_src"], c["n_dst"])[1][k]
+    return err, ms, plain_ms, bound, by
+
+
+def shard_routes(graph, dev):
+    """{route: (impl, [shard 0's layout per pass])} of the sharded layer
+    on a 2-shard partition of `graph`: the single pass on the per-shard
+    bipartite tiles of each impl and, where the partition allows it, the
+    (local, halo) overlap pair (ShardedTrainer's choice of layouts), and
+    the shard's node count."""
+    from gatv2_tpu_torch.parallel import partition as part
+
+    pg = part.partition_graph(graph, MESH_RANKS)
+    plan = part.halo_exchange_plan(pg)
+    split = part.overlap_split_plan(pg, plan)
+    routes = {
+        "sell": ("sell", [part.prepare_partitioned_sell_tiles(
+            pg, halo_plan=plan)[0]]),
+        "pallas": ("pallas", [part.prepare_partitioned_tiles(
+            pg, halo_plan=plan)[0]]),
+        "pallas --overlap": ("pallas", [
+            x[0] for x in part.prepare_overlap_tiles(pg, plan, split)]),
+    }
+    try:
+        routes["sell --overlap"] = ("sell", [
+            x[0] for x in part.prepare_overlap_sell_tiles(pg, plan, split)])
+    except ValueError:
+        pass  # hub-heavy: ShardedTrainer takes the single pass
+    return ({r: (impl, [t.to(dev) for t in lays])
+             for r, (impl, lays) in routes.items()}, pg.nodes_per_shard)
+
+
+def phase_shard_kernels(model, runs, dev, card):
+    """Every kernel launch of the sharded layer's ops on shard 0 of the
+    2-shard arxiv partition (and arxiv-pl's single-pass sell, its hub rows
+    split), layer by layer at the arxiv model's widths: one forward and
+    backward of the op per route, with seeded random projections and
+    upstream gradient, records each launch's arguments; each launch is
+    then held against its twin on them and timed beside its bound. On the
+    overlap routes that is K1 / K5 with normalize=False per pass and K2 +
+    K3 / K6 + K7 per pass against the MERGED stats. Returns the max abs
+    error per kernel."""
+    max_err = dict.fromkeys(SELL_KERNELS + PALLAS_KERNELS, 0.0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for name in ("arxiv", "arxiv-pl"):
+        routes, nps = shard_routes(runs[name]["graph"], dev)
+        if name == "arxiv-pl":
+            routes = {"sell": routes["sell"]}
+        for route, (impl, lays) in routes.items():
+            tot = {}
+            for l, layer in enumerate(model.layers):
+                a = layer.a.detach().contiguous().requires_grad_()
+                hd = a.numel()
+                n_src = [t.num_src_nodes if impl == "sell"
+                         else t.src_num_nodes for t in lays]
+                zs = [torch.randn(n, hd, generator=gen, device=dev)
+                      .requires_grad_() for n in n_src]
+                zd = torch.randn(nps, hd, generator=gen,
+                                 device=dev).requires_grad_()
+                g = torch.randn(nps, hd, generator=gen, device=dev)
+                with captured_launches(impl) as calls:
+                    if len(lays) == 2 and impl == "sell":
+                        h = tsa.sell_attention_merge(
+                            zs, zd, a, nps, negative_slope=SLOPE,
+                            sell_tiles_parts=lays)
+                    elif len(lays) == 2:
+                        h = tpa.edge_attention_pallas_merge(
+                            zs, zd, a, nps, negative_slope=SLOPE,
+                            edge_tiles_parts=lays)
+                    else:
+                        h = edge_attention(zs[0], zd, a, None, None, nps,
+                                           negative_slope=SLOPE, impl=impl,
+                                           edge_tiles=lays[0])
+                    (h * g).sum().backward()
+                tag = f"{name} shard 0 {impl} route '{route}' layer {l}"
+                state = {}
+                for i, (k, args, kw, got) in enumerate(calls):
+                    err, ms, plain_ms, bound, by = check_launch(
+                        f"{tag} launch {i}", k, args, kw, got, state)
+                    max_err[k] = max(max_err[k], err)
+                    print(f"  {tag} launch {i} {k} H*D={hd}: {ms:.4f} ms, "
+                          f"bound {bound:.4f} ms ({by}), twin "
+                          f"{plain_ms:.3f} ms [{card}]")
+                    t = tot.setdefault(k, [0, 0.0, 0.0, 0.0])
+                    t[0] += 1
+                    t[1] += ms
+                    t[2] += bound
+                    t[3] += plain_ms
+                del calls, h
+            print(f"  {name} shard 0 route '{route}', one forward and "
+                  f"backward of the 3 layers: " + "; ".join(
+                      f"{k} x{n} {ms:.4f} ms, bound {b:.4f} ms, twin "
+                      f"{p:.3f} ms" for k, (n, ms, b, p) in tot.items())
+                  + f" [{card}]")
+            if "overlap" in route and tot["sell_fwd" if impl == "sell"
+                                          else "pallas_fwd"][0] < 6:
+                fail(f"{route}: fewer than two forward launches a layer")
+    return max_err
+
+
+def dp_oracle(mb, impl, dev, steps):
+    """The single-process oracle of the data-parallel phase: from the
+    minibatch phase's start weights, per super-step the seed-weighted mean
+    loss of the stream's next MESH_RANKS batches and one optimizer step."""
+    tr = minibatch_trainer(mb["graph"], mb["config"], mb["splits"], impl, dev)
+    tr.params = copy.deepcopy(mb["start"])
+    stream = iter(tr.sampler)
+    losses = []
+    for t in range(1, steps + 1):
+        total, n_all = 0.0, 0
+        for b in [next(stream) for _ in range(MESH_RANKS)]:
+            feats, src, dst, labels, tiles = tr.batch_args(b)
+            loss, _ = loss_fn(tr.params, gather_rows_clip(*feats), src, dst,
+                              labels, mb["config"], impl=impl,
+                              num_valid=max(b.num_seeds, 1), edge_tiles=tiles)
+            total = total + loss * b.num_seeds
+            n_all += b.num_seeds
+        loss = total / n_all
+        grads = optim.gradients(loss, tr.params)
+        optim.apply_updates(optim.param_leaves(tr.params), grads,
+                            tr.opt_state, t, tr.train_config)
+        losses.append(float(loss.detach()))
+    return losses
+
+
+def phase_dp(pool, mb, dev, card):
+    """DataParallelMinibatchTrainer on products-sub, 2 ranks sharing the
+    card: pallas then sell, DP_STEPS super-steps each with every rank's
+    launch counters zeroed just before and read just after; the group
+    losses against dp_oracle. Returns the launches summed over ranks."""
+    weights = _weights(mb["start"])
+    total = dict.fromkeys(_counters(), 0)
+    for impl, kernels in (("pallas", PALLAS_KERNELS), ("sell", SELL_KERNELS)):
+        res = pool.run(rank_dp, impl, weights)
+        want = dp_oracle(mb, impl, dev, DP_STEPS)
+        got = res[0]["losses"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"products-sub data-parallel {impl}, {MESH_RANKS} ranks x batch "
+              f"{MB_BATCH}: group losses {got}, single-process oracle {want}; "
+              f"max relative difference {rel:.3e} (tolerance {LOSS_RTOL:g}); "
+              f"seeds a step {res[0]['seeds']}; ms a super-step on batches "
+              f"sampled beforehand (gloo on one card, not a multi-GPU time) "
+              f"{res[0]['step_ms']:.2f}; "
+              f"launches per rank "
+              f"{[{k: v for k, v in x['launches'].items() if v} for x in res]}"
+              f" [{card}]")
+        if not all(np.isfinite(got)) or rel > LOSS_RTOL:
+            fail(f"data-parallel {impl}: losses disagree with the oracle")
+        _check_rank_launches(f"data-parallel {impl}", res, kernels)
+        for x in res:
+            for k, v in x["launches"].items():
+                total[k] += v
+    return total
+
+
+def phase_mesh_entry():
+    """python -m gatv2_tpu_torch.train --mesh 2 on karate, as a user would
+    run it on this machine: the command starts 2 ranks, which share the
+    one card over gloo."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "gatv2_tpu_torch.train", "--mesh", "2",
+         "--overlap", "--dataset", "karate", "--data-root", "./data",
+         "--num-layers", "2", "--heads", "4,1", "--outdims", "16,16",
+         "--epochs", "3", "--optimizer", "adam", "--lr", "0.01", "--clip",
+         "--seed", "1"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    print("train --mesh 2: " + " | ".join(
+        l for l in lines if l.split(":")[0] in (
+            "Transport", "Sharded mode", "Partition", "Halo", "Overlap",
+            "Avg Loss", "Final Test Accuracy") or "launches" in l))
+    if proc.returncode != 0:
+        fail(f"train --mesh 2 exited {proc.returncode}: "
+             f"{proc.stderr[-3000:]}")
+    want = [f"Transport: gloo, {MESH_RANKS} ranks share cuda:0"]
+    for key in ("Partition: ", "Halo: ", "Overlap: two-pass"):
+        want += [l for l in lines if l.startswith(key)][:1] or [key]
+    if not all(w in lines for w in want):
+        fail(f"train --mesh 2 lacks one of {want}")
+    if sum(l.startswith("Avg Loss: ") for l in lines) != 3:
+        fail("train --mesh 2 did not print 3 epochs once")
+    m = re.search(r"K1 sell_fwd launches: (\d+)", proc.stdout)
+    if not m or int(m.group(1)) == 0:
+        fail("train --mesh 2 did not show its K1 launches")
+
+
+def phase_multi_gpu(model, config, runs, mb, dev, card):
+    """The multi-GPU phases on 2 ranks sharing cuda:0 over gloo: no
+    measure of multi-GPU speed (no NVLink, no NCCL; the collectives go
+    through host memory), but every per-rank layout, launch, collective
+    and gradient runs on the card."""
+    t0 = time.perf_counter()
+    with multihost.RankPool(MESH_RANKS, device="cuda") as pool:
+        info = pool.run(rank_transport)
+        print(f"{info[0][0]}; rank devices {[i[1] for i in info]}; pool "
+              f"started in {time.perf_counter() - t0:.1f} s; collectives on "
+              f"CUDA tensors (right result per rank): "
+              f"{[i[2] for i in info]} [{card}]")
+        if info[0][0] != f"Transport: gloo, {MESH_RANKS} ranks share cuda:0":
+            fail(f"unexpected transport: {info[0][0]}")
+        if not all(all(i[2].values()) for i in info):
+            fail("gloo refused or miscomputed a collective on CUDA tensors")
+        sharded_launches, grads = phase_sharded(pool, model, runs, card)
+        dp_launches = phase_dp(pool, mb, dev, card)
+    phase_sharded_gradients(model, config, runs, dev, grads)
+    err = phase_shard_kernels(model, runs, dev, card)
+    err["pallas_fwd"] = max(err["pallas_fwd"],
+                            phase_k5_unnormalised(model, dev, card))
+    phase_mesh_entry()
+    print(f"multi-GPU phases: {time.perf_counter() - t0:.1f} s")
+    return sharded_launches, dp_launches, err
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()  # the nvidia-smi name and power limit
@@ -2792,6 +3480,11 @@ def main() -> int:
     phase_minibatch_entry()
     pfs = phase_products_sub_full_graph(mb, dev, card)
     err_k8, k8_totals = phase_k8_at_products_sub(mb, pfs, card)
+    pfs_launches = pfs["launches"]
+    del pfs
+    torch.cuda.empty_cache()
+    sharded_launches, dp_launches, err_shard = phase_multi_gpu(
+        model, config, runs, mb, dev, card)
     sell_err = mb_sell["max_err"]
     measured = {
         "sell_fwd": (totals["arxiv"], max(err_main, err_cases, err_pf_k1,
@@ -2808,6 +3501,8 @@ def main() -> int:
                      for k in PALLAS_KERNELS})
     measured["pallas_segsum"] = (pallas_totals["pallas_segsum"], max(
         measured["pallas_segsum"][1], err_k7_pl))
+    for k, err in err_shard.items():
+        measured[k] = (measured[k][0], max(measured[k][1], err))
     measured["sell_bwd_src"] = (k4_totals, max(err_k4, err_chunked_cases))
     measured["pallas_bwd_src"] = (k8_totals, max(err_k8, err_chunked_cases))
     launches = {k: infer_launches[k] + train_launches[k]
@@ -2818,7 +3513,9 @@ def main() -> int:
     for k in CHUNKED_SELL_KERNELS:
         launches[k] = launches.get(k, 0) + pf_launches[k]
     for k in CHUNKED_PALLAS_KERNELS:
-        launches[k] = launches.get(k, 0) + pfs["launches"][k]
+        launches[k] = launches.get(k, 0) + pfs_launches[k]
+    for k in KERNELS:
+        launches[k] += sharded_launches[k] + dp_launches[k]
     line = {"kernels": []}
     for name, (t, err) in measured.items():
         k = KERNELS[name]
@@ -2846,7 +3543,10 @@ def main() -> int:
           "for K5, its exact evaluation; K1, K2 and K4 also on the "
           f"products-full main path ({TRAIN_EPOCHS} epochs), K5, K6 and K8 "
           f"on products-sub full-graph pallas training ({TRAIN_EPOCHS} "
-          "epochs); library_ms: K1, K2, K4, K5, K6 and K8 have no single "
+          "epochs); every kernel also its launches on both ranks of the "
+          f"sharded arxiv routes ({TRAIN_EPOCHS} epochs each) and the "
+          f"data-parallel products-sub phase ({DP_STEPS} super-steps per "
+          "impl); library_ms: K1, K2, K4, K5, K6 and K8 have no single "
           "PyTorch call that computes their fused function, K3's and K7's "
           "is index_add_")
     print(f"chip_smoke: every phase passed in "

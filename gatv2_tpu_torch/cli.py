@@ -4,9 +4,8 @@ defaults, validation messages and configuration echo.
 Reference surface: --num-layers, --heads, --outdims, --epochs, --optimizer,
 --beta1/--beta2, --lr, --clip, --dataset, --data-root (DATA_ROOT env
 fallback). Parsing is order-insensitive. Port-specific: --impl takes
-torch|sell|pallas|auto and --device cuda|cpu. Every flag parses as in the
-JAX package; a flag whose code is not ported yet exits with an error naming
-its ROADMAP.md item, never ignored.
+torch|sell|pallas|auto, --device cuda|cpu and, with --mesh, --transport
+auto|nccl|gloo. Every other flag parses as in the JAX package.
 """
 
 from __future__ import annotations
@@ -28,22 +27,6 @@ def _resolve_impl(args) -> str:
     if args.device != "cuda":
         return "torch"
     return "pallas" if args.batch_size > 0 else "sell"
-
-
-# flag -> (is it set?, its ROADMAP.md section 1 item)
-_UNPORTED = {
-    "--mesh": (lambda a: a.mesh > 0, "item 3, multi-GPU"),
-    "--overlap": (lambda a: a.overlap, "item 3, multi-GPU"),
-}
-
-
-def _reject_unported(args) -> None:
-    for flag, (is_set, item) in _UNPORTED.items():
-        if is_set(args):
-            raise SystemExit(
-                f"Error: {flag} is not yet ported to gatv2_tpu_torch "
-                f"(ROADMAP.md section 1, {item})."
-            )
 
 
 def _int_list(s: str) -> list[int]:
@@ -98,7 +81,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard the graph over this many devices (0 = single)")
+                   help="shard the graph over this many ranks, one process "
+                        "each (0 = single); with --batch-size, data-parallel "
+                        "minibatch training. Started here unless launched "
+                        "by torchrun")
+    p.add_argument("--transport", choices=["auto", "nccl", "gloo"],
+                   default="auto",
+                   help="with --mesh: the collectives' backend; auto = "
+                        "nccl when every rank has a card of its own, gloo "
+                        "on the CPU or when ranks share a card (printed on "
+                        "the Transport: line)")
     p.add_argument("--batch-size", type=int, default=0,
                    help="minibatch mode: seed nodes per sampled subgraph "
                         "(0 = full-graph training, like the reference)")
@@ -153,7 +145,6 @@ def parse_args(argv: list[str] | None = None) -> tuple[ModelConfig, TrainConfig,
 
 
 def _finish(args: argparse.Namespace) -> tuple[ModelConfig, TrainConfig, argparse.Namespace]:
-    _reject_unported(args)
     if args.num_layers < 1:
         raise SystemExit(
             f"Error: --num-layers must be >= 1 (got {args.num_layers})."

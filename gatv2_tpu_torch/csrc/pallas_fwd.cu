@@ -10,7 +10,11 @@
 // with the reference's exp(clip(score - m, -80, 0)) and +1e-8 denominator,
 // writing out[j] = acc / (l + 1e-8) and the per-head max m and sum-exp l
 // (the backward's residuals). A node without an in-edge gets out = 0,
-// m = -1e30, l = 0, as the TPU kernel's one-hot reductions leave it.
+// m = -1e30, l = 0, as the TPU kernel's one-hot reductions leave it. With
+// normalize = 0 (the TPU kernel's normalize=False, for the multi-pass
+// softmax merge of edge_attention_pallas_merge) out is the raw accumulator
+// acc = sum exp(score - m) zs[src]; m and l are unchanged, and a hub row's
+// parts are merged before the division is skipped.
 //
 // What bounds it on this card: memory. Each real edge reads one zs row of
 // H*D fp32 (1 KB at H*D = 256) and two 4-byte ids, and does about a dozen
@@ -149,14 +153,16 @@ __device__ __forceinline__ void row_softmax(
 template <int VEC, int NV>
 __device__ __forceinline__ void store_row(const Lane<VEC, NV>& ln, int row,
                                           int hd, int heads, int h, int sub,
-                                          float m, float l,
+                                          bool normalize, float m, float l,
                                           float (&acc)[NV * VEC],
                                           float* __restrict__ out,
                                           float* __restrict__ m_out,
                                           float* __restrict__ l_out) {
-  const float inv = 1.f / (l + kSoftmaxEps);
+  if (normalize) {
+    const float inv = 1.f / (l + kSoftmaxEps);
 #pragma unroll
-  for (int f = 0; f < NV * VEC; ++f) acc[f] *= inv;
+    for (int f = 0; f < NV * VEC; ++f) acc[f] *= inv;
+  }
   ln.store(out + (size_t)row * hd, acc);
   if (sub == 0 && h < heads) {
     m_out[(size_t)row * heads + h] = m;
@@ -172,7 +178,8 @@ pallas_fwd_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                   const int* __restrict__ src_ids,
                   const int* __restrict__ rel_off, int te, int heads,
                   int head_dim, int lg, int lph, int qph, float slope,
-                  float* __restrict__ out, float* __restrict__ m_out,
+                  bool normalize, float* __restrict__ out,
+                  float* __restrict__ m_out,
                   float* __restrict__ l_out) {
   constexpr int F = NV * VEC;
   __shared__ int s_lo[kTileN], s_hi[kTileN];
@@ -215,7 +222,8 @@ pallas_fwd_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
     if (hi > lo) ln.load(zdv, zd + (size_t)(base + i) * hd);
     row_softmax(ln, zs, src_ids, zdv, av, lo, hi, hd, lph, mask, slope, m, l,
                 acc);
-    store_row(ln, base + i, hd, heads, h, sub, m, l, acc, out, m_out, l_out);
+    store_row(ln, base + i, hd, heads, h, sub, normalize, m, l, acc, out,
+              m_out, l_out);
   }
 
   if (!__syncthreads_or(hub)) return;  // the tile has no hub row
@@ -245,8 +253,8 @@ pallas_fwd_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
 #pragma unroll
         for (int f = 0; f < F; ++f) acc[f] += c * s_acc[f][t];
       }
-      store_row(ln, base + i, hd, heads, h, sub, mm, l, acc, out, m_out,
-                l_out);
+      store_row(ln, base + i, hd, heads, h, sub, normalize, mm, l, acc, out,
+                m_out, l_out);
     }
     __syncthreads();  // the parts are read before the next hub writes them
   }
@@ -257,13 +265,14 @@ pallas_fwd_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
 extern "C" {
 
 // Launches K5 on `stream` for the `rows` destination rows of one chunk (a
-// multiple of 128; zd points at the chunk's first row). Returns the
-// cudaError_t of the launch (0 on success).
+// multiple of 128; zd points at the chunk's first row); normalize = 0
+// writes the raw accumulator. Returns the cudaError_t of the launch (0 on
+// success).
 int gatv2_pallas_fwd(const float* zs, const float* zd, const float* a,
                      const int* dst_ids, const int* src_ids,
                      const int* rel_off, int te, int rows, int heads,
-                     int head_dim, float slope, float* out, float* m,
-                     float* l, cudaStream_t stream) {
+                     int head_dim, float slope, int normalize, float* out,
+                     float* m, float* l, cudaStream_t stream) {
   const int hd = heads * head_dim;
   if (rows <= 0 || rows % kTileN != 0 || te <= 0 || heads <= 0 ||
       heads > kMaxHeads || head_dim <= 0 || hd > kMaxHd)
@@ -275,7 +284,7 @@ int gatv2_pallas_fwd(const float* zs, const float* zd, const float* a,
     pallas_fwd_kernel<decltype(vec)::value, decltype(nv)::value>
         <<<rows / kTileN, kBlock, 0, stream>>>(
             zs, zd, a, dst_ids, src_ids, rel_off, te, heads, head_dim, geo.lg,
-            geo.lph, geo.qph, slope, out, m, l);
+            geo.lph, geo.qph, slope, normalize != 0, out, m, l);
     return (int)cudaGetLastError();
   });
 }

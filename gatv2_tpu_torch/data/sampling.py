@@ -186,6 +186,35 @@ class NeighborSampler:
     def batches_per_epoch(self) -> int:
         return math.ceil(self.seed_pool.shape[0] / self.batch_size)
 
+    def iter_groups(self, num_ranks: int, rank: int
+                    ) -> Iterator[tuple[MiniBatch | None, MiniBatch | None]]:
+        """One epoch of the same batch stream as __iter__, in groups of
+        num_ranks consecutive batches (data-parallel super-steps): per group
+        (batch rank of the group, or None past the epoch's last batch; and,
+        only then, the group's first batch, which pads it). The python
+        engine draws every batch (its neighbour draws share the stream's
+        generator); the native engine samples only those, since its
+        per-batch seed comes from the batch counter."""
+        pool = self.seed_pool
+        order = pool[self.rng.permutation(pool.shape[0])]
+        nb = self.batches_per_epoch()
+        bs = self.batch_size
+        base = self._batch_counter
+        for g0 in range(0, nb, num_ranks):
+            idx = g0 + rank
+            if self.engine == "python":
+                group = [self.sample(order[i * bs:(i + 1) * bs])
+                         for i in range(g0, min(g0 + num_ranks, nb))]
+                yield ((group[rank], None) if idx < nb
+                       else (None, group[0]))
+                continue
+            i = idx if idx < nb else g0
+            self._batch_counter = base + i  # sample() adds one, as in order
+            b = self.sample(order[i * bs:(i + 1) * bs])
+            yield (b, None) if idx < nb else (None, b)
+        if self.engine == "native":
+            self._batch_counter = base + nb
+
     def sample(self, seeds: np.ndarray) -> MiniBatch:
         # both engines map labels positionally onto the first len(seeds)
         # local nodes; a duplicate seed would collapse in the node map

@@ -29,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from gatv2_tpu_torch.ops.merge import merged_attention
 from gatv2_tpu_torch.ops.pallas_bwd_dst import pallas_bwd_dst
 from gatv2_tpu_torch.ops.pallas_bwd_src import pallas_bwd_src
 from gatv2_tpu_torch.ops.pallas_fwd import MAX_HD, STATS_L, TILE_N, pallas_fwd
@@ -524,18 +525,17 @@ def _bwd_group(zs_g, zd_g, g_g, sr, a_g, et, negative_slope):
     return torch.cat(dzs_parts), torch.cat(dzd_parts), da
 
 
-def pallas_backward(zs2, zd2, a, out2, m, l, g2, et, negative_slope):
+def pallas_backward(zs2, zd2, a, out2, sigma, g2, et, negative_slope):
     """The op's backward on the layout `et` (on g2's device): flat fp32 zs2
     [Ns, H*D], zd2 [Nd, H*D], out2 and the upstream gradient g2 [n, H*D],
-    the forward's m and l [n_pad, H] -> (dzs [Ns, H*D], dzd [Nd, H*D], da
-    [H, D]).
+    sigma = m + log(l + 1e-8) of the forward's m and l [n_pad, H] ->
+    (dzs [Ns, H*D], dzd [Nd, H*D], da [H, D]).
 
     Per head group: r = <g, out> per node and head (the softmax Jacobian's
-    segment term), sigma = m + log(l + 1e-8), then the backward kernels
-    (_bwd_group: K6 and K7, or K6 and K8 per chunk)."""
+    segment term), then the backward kernels (_bwd_group: K6 and K7, or K6
+    and K8 per chunk)."""
     num_heads, head_dim = a.shape
     n = g2.shape[0]
-    sigma = m + torch.log(l + SOFTMAX_EPS)
     dzs, dzd, da = [], [], []
     for h0, h1 in _head_groups(num_heads, head_dim):
         lanes = slice(h0 * head_dim, h1 * head_dim)
@@ -572,8 +572,9 @@ class _PallasAttention(torch.autograd.Function):
         zs2, zd2, a, out2, m, l = ctx.saved_tensors
         zs_shape, zd_shape, zs_dtype, zd_dtype = ctx.shapes
         g2 = grad_out.reshape(out2.shape).float().contiguous()
-        dzs, dzd, da = pallas_backward(zs2, zd2, a, out2, m, l, g2, ctx.et,
-                                       ctx.slope)
+        dzs, dzd, da = pallas_backward(zs2, zd2, a, out2,
+                                       m + torch.log(l + SOFTMAX_EPS), g2,
+                                       ctx.et, ctx.slope)
         return (dzs.reshape(zs_shape).to(zs_dtype),
                 dzd.reshape(zd_shape).to(zd_dtype), da.to(a.dtype),
                 None, None, None)
@@ -600,3 +601,59 @@ def edge_attention_pallas(
     in zs, zd and a on any layout, chunked or not."""
     return _PallasAttention.apply(zs, zd, a, num_nodes, negative_slope,
                                   edge_tiles)
+
+
+# ---------------------------------------------------------------------------
+# multi-pass merged attention (halo/compute overlap of the sharded layer)
+# ---------------------------------------------------------------------------
+
+
+def _forward_raw(zs2, zd2, a, et, negative_slope):
+    """One pass of the merge on an unchunked layout: K5 with
+    normalize=False per head group -> node-order (u [n_pad, H*D],
+    m [n_pad, H], l [n_pad, H])."""
+    num_heads, head_dim = a.shape
+    side = et.dst_side
+    parts = []
+    for h0, h1 in _head_groups(num_heads, head_dim):
+        lanes = slice(h0 * head_dim, h1 * head_dim)
+        parts.append(pallas_fwd(
+            zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(),
+            a[h0:h1].float().contiguous(), side.ids_grp[0],
+            side.other_grp[0], side.rel_offsets[0], et.tile_e,
+            negative_slope=negative_slope, normalize=False))
+    return tuple(_cat(list(x), 1) for x in zip(*parts))
+
+
+def edge_attention_pallas_merge(
+    zs_parts,  # K src-space projections, each [N_k, H, D] or flat [N_k, H*D]
+    zd: torch.Tensor,  # [N_dst, H, D] / [N_dst, H*D] dst projections
+    a: torch.Tensor,  # [H, D]
+    num_nodes: int,  # real dst-node count
+    *,
+    negative_slope: float,
+    edge_tiles_parts,  # K bipartite EdgeTiles (num_chunks=1, same dst space)
+) -> torch.Tensor:
+    """Edge-tile attention over K edge subsets whose per-destination
+    softmax is MERGED across subsets (port of
+    gatv2_tpu/ops/pallas_attention.py edge_attention_pallas_merge): the
+    overlapped sharded layer's local-source edges in one pass, its
+    halo-source edges in another.
+
+    Each pass runs K5 unnormalised (u_k = sum exp(e - m_k) zs, with m_k
+    and l_k, in node order); the passes merge with the online-softmax
+    rescale. The backward is exact; see ops/merge.py. Differentiable in every zs part, zd and a; returns
+    num_nodes rows in the shape family of the zs parts."""
+    ets = tuple(edge_tiles_parts)
+    zs_parts = tuple(zs_parts)
+    if len(ets) != len(zs_parts) or not ets:
+        raise ValueError("need one EdgeTiles per zs part")
+    for zs_k, et in zip(zs_parts, ets):
+        if zs_k.shape[0] not in (et.src_num_nodes, et.padded_src_nodes):
+            raise ValueError(
+                f"zs part has {zs_k.shape[0]} rows; its tiles' src space is "
+                f"{et.src_num_nodes} (padded {et.padded_src_nodes})")
+    return merged_attention(
+        zs_parts, zd, a, num_nodes, negative_slope=negative_slope,
+        layouts=ets, forward_raw=_forward_raw, backward=pallas_backward,
+        name="edge_attention_pallas_merge")

@@ -61,7 +61,7 @@ def pallas_bwd_dst_plain(zs, zd, g, sr, a, dst_ids, src_ids, rel_offsets, te,
     num_heads, head_dim = a.shape
     hd = num_heads * head_dim
     rows = (rel_offsets.numel() - 1) * TILE_N
-    pos, d = real_edges(dst_ids, rows)
+    pos, d = real_edges(dst_ids, rel_offsets, te)
     z = zs[src_ids.long()[pos]]
     s = z + zd[d]
     s_act = torch.where(s > 0, s, negative_slope * s)

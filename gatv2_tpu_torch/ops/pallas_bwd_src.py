@@ -58,7 +58,7 @@ def pallas_bwd_src_plain(zs, zd, g, sr, a, src_ids, dst_ids, rel_offsets, te,
     num_heads, head_dim = a.shape
     hd = num_heads * head_dim
     rows = (rel_offsets.numel() - 1) * TILE_N
-    pos, sid = real_edges(src_ids, rows)
+    pos, sid = real_edges(src_ids, rel_offsets, te)
     did = dst_ids.long()[pos]
     a_flat = a.reshape(hd)
     dzs = zs.new_zeros((rows, hd))

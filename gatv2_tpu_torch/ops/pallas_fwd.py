@@ -2,7 +2,9 @@
 tiles: its wrapper, its plain PyTorch twin and its ctypes binding.
 
 Replaces gatv2_tpu/ops/pallas_attention.py:_attention_kernel (launched by
-_forward_chunk) with normalize=True. The CUDA source is csrc/pallas_fwd.cu,
+_forward_chunk), with normalize=True for the single-pass op and
+normalize=False for each pass of the merged-softmax op
+(edge_attention_pallas_merge). The CUDA source is csrc/pallas_fwd.cu,
 whose header note says what bounds the kernel on the card and what its
 design does about that.
 
@@ -19,8 +21,8 @@ can be compared element for element:
   rel_offsets  [T+1] int32 — each 128-node tile's edge-tile range
   te           edges per edge tile
   -> out [T*128, H*D], m [T*128, H], l [T*128, H], fp32, in node order:
-     out = acc / (l + 1e-8); a node without an in-edge gets out = 0,
-     m = -1e30, l = 0.
+     out = acc / (l + 1e-8) if normalize else the raw accumulator acc;
+     a node without an in-edge gets out = 0, m = -1e30, l = 0.
 """
 
 from __future__ import annotations
@@ -44,22 +46,24 @@ STATS_L = 16  # heads one launch takes (csrc/pallas_*.cu kMaxHeads)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def real_edges(dst_ids: torch.Tensor, rows: int):
-    """(positions, dst ids) of the real edge slots of a tiled layout: the
-    slots whose id names one of its `rows` nodes (padding carries rows or
-    more)."""
-    ids = dst_ids.long()
+def real_edges(dst_ids: torch.Tensor, rel_offsets: torch.Tensor, te: int):
+    """(positions, ids) of the real edge slots of a tiled layout: the slots
+    inside its tiles' edge ranges (the first rel_offsets[-1] * te; the
+    kernels read no slot past them) whose id names one of its nodes
+    (padding carries the node count or more)."""
+    rows = (rel_offsets.numel() - 1) * TILE_N
+    ids = dst_ids.long()[: int(rel_offsets[-1]) * te]
     pos = torch.nonzero(ids < rows).squeeze(1)
     return pos, ids[pos]
 
 
 def pallas_fwd_plain(zs, zd, a, dst_ids, src_ids, rel_offsets, te, *,
-                     negative_slope: float):
+                     negative_slope: float, normalize: bool = True):
     """K5's plain PyTorch twin: gathers, a two-pass segment softmax and a
     segment sum over the real edge slots. Runs on any device."""
     num_heads, head_dim = a.shape
     rows = (rel_offsets.numel() - 1) * TILE_N
-    pos, d = real_edges(dst_ids, rows)
+    pos, d = real_edges(dst_ids, rel_offsets, te)
     z = zs[src_ids.long()[pos]]
     s = z + zd[d]
     s = torch.where(s > 0, s, negative_slope * s)
@@ -68,6 +72,8 @@ def pallas_fwd_plain(zs, zd, a, dst_ids, src_ids, rel_offsets, te, *,
     p = torch.exp(torch.clamp(sc - m[d], EXP_CLAMP, 0.0))
     l = segment_sum(p, d, rows)
     acc = segment_sum(p.repeat_interleave(head_dim, 1) * z, d, rows)
+    if not normalize:
+        return acc, m, l
     return acc / (l.repeat_interleave(head_dim, 1) + SOFTMAX_EPS), m, l
 
 
@@ -106,13 +112,14 @@ def raise_on_error(lib, err: int, kernel: str) -> None:
 
 
 def pallas_fwd(zs, zd, a, dst_ids, src_ids, rel_offsets, te, *,
-               negative_slope: float):
+               negative_slope: float, normalize: bool = True):
     """K5. On CUDA tensors it launches csrc/pallas_fwd.cu (building it at
     the first call) or raises; on CPU tensors it runs pallas_fwd_plain.
     Returns (out, m, l) as described in the module docstring."""
     if zs.device.type == "cpu":
         return pallas_fwd_plain(zs, zd, a, dst_ids, src_ids, rel_offsets, te,
-                                negative_slope=negative_slope)
+                                negative_slope=negative_slope,
+                                normalize=normalize)
     if zs.device.type != "cuda":
         raise ValueError(f"pallas_fwd: unsupported device {zs.device}")
     check_inputs("pallas_fwd", [("zs", zs), ("zd", zd), ("a", a)],
@@ -130,7 +137,7 @@ def pallas_fwd(zs, zd, a, dst_ids, src_ids, rel_offsets, te, *,
 
     lib = load_library("pallas_fwd")
     fn = lib.gatv2_pallas_fwd
-    fn.argtypes = [_P] * 6 + [_I] * 4 + [ctypes.c_float] + [_P] * 4
+    fn.argtypes = [_P] * 6 + [_I] * 4 + [ctypes.c_float, _I] + [_P] * 4
     fn.restype = _I
     rows = (rel_offsets.numel() - 1) * TILE_N
     out = zs.new_empty((rows, hd))
@@ -141,12 +148,15 @@ def pallas_fwd(zs, zd, a, dst_ids, src_ids, rel_offsets, te, *,
         err = fn(
             zs.data_ptr(), zd.data_ptr(), a.data_ptr(), dst_ids.data_ptr(),
             src_ids.data_ptr(), rel_offsets.data_ptr(), int(te), rows,
-            num_heads, head_dim, float(negative_slope), out.data_ptr(),
-            m.data_ptr(), l.data_ptr(), stream,
+            num_heads, head_dim, float(negative_slope), int(normalize),
+            out.data_ptr(), m.data_ptr(), l.data_ptr(), stream,
         )
     raise_on_error(lib, err, "pallas_fwd")
     pallas_fwd.launches += 1
+    if not normalize:
+        pallas_fwd.raw_launches += 1
     return out, m, l
 
 
 pallas_fwd.launches = 0  # K5 launches since the last reset
+pallas_fwd.raw_launches = 0  # of those, with normalize=False

@@ -48,7 +48,7 @@ def pallas_segsum_plain(c1, gather_perm, src_ids, rel_offsets, te):
     """K7's plain PyTorch twin: the real entries' packets gathered through
     gather_perm and summed per src node. Runs on any device."""
     rows = (rel_offsets.numel() - 1) * TILE_N
-    pos, s = real_edges(src_ids, rows)
+    pos, s = real_edges(src_ids, rel_offsets, te)
     return segment_sum(c1[gather_perm.long()[pos]], s, rows)
 
 

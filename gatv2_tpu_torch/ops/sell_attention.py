@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from gatv2_tpu_torch.ops.merge import merged_attention
 from gatv2_tpu_torch.ops.segment import SOFTMAX_EPS, segment_max, segment_sum
 from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst
 from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src
@@ -928,3 +929,62 @@ def sell_attention(
     return _SellAttention.apply(
         zs, zd, a, num_nodes, negative_slope, sell_tiles, streams
     )
+
+
+def _forward_raw(zs2, zd2, a, st, negative_slope):
+    """One pass of the merge on an unsplit, unchunked layout: K1 with
+    normalize=False per head group, rows restored to node order ->
+    (u [n_pad, H*D], m [n_pad, H], l [n_pad, H])."""
+    num_heads, head_dim = a.shape
+    inv = st.dst.inv.long()
+    parts = []
+    for h0, h1 in _head_groups(num_heads, head_dim):
+        lanes = slice(h0 * head_dim, h1 * head_dim)
+        u, m, l = sell_fwd(
+            zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(),
+            a[h0:h1].float().contiguous(), st.dst.perm, st.dst.gather_ids,
+            st.dst.cnt, st.dst.col_off, negative_slope=negative_slope,
+            normalize=False)
+        parts.append((u[inv], m[inv], l[inv]))
+    return tuple(torch.cat(x, dim=1) if len(x) > 1 else x[0]
+                 for x in zip(*parts))
+
+
+def sell_attention_merge(
+    zs_parts,  # K src-space projections, each [N_k, H, D] or flat [N_k, H*D]
+    zd: torch.Tensor,  # [N_dst, H, D] / [N_dst, H*D] dst projections
+    a: torch.Tensor,  # [H, D]
+    num_nodes: int,  # real dst-node count
+    *,
+    negative_slope: float,
+    sell_tiles_parts,  # K bipartite SellTiles (num_chunks=1, same dst space)
+) -> torch.Tensor:
+    """SELL attention over K edge subsets whose per-destination softmax is
+    MERGED across subsets (port of gatv2_tpu/ops/sell_attention.py
+    sell_attention_merge): the overlapped sharded layer's local-source
+    edges in one pass, its halo-source edges in another, so only the halo
+    pass waits on the exchange.
+
+    Each pass runs K1 unnormalised (u_k = sum exp(e - m_k) zs, with m_k
+    and l_k), restored to node order (each pass has its own degree-sorted
+    rows); the passes merge with the online-softmax rescale. The backward
+    is exact; see ops/merge.py. Differentiable in every zs
+    part, zd and a; returns num_nodes rows in the shape family of the zs
+    parts."""
+    sts = tuple(sell_tiles_parts)
+    zs_parts = tuple(zs_parts)
+    if len(sts) != len(zs_parts) or not sts:
+        raise ValueError("need one SellTiles per zs part")
+    if any(st.dst.split or st.srcs.split for st in sts):
+        raise ValueError(
+            "merge path needs UNSPLIT layouts (build its tiles with "
+            "split_cap=None; prepare_overlap_sell_tiles does)")
+    for zs_k, st in zip(zs_parts, sts):
+        if zs_k.shape[0] not in (st.num_src_nodes, st.padded_src_nodes):
+            raise ValueError(
+                f"zs part has {zs_k.shape[0]} rows; its tiles' src space "
+                f"is {st.num_src_nodes} (padded {st.padded_src_nodes})")
+    return merged_attention(
+        zs_parts, zd, a, num_nodes, negative_slope=negative_slope,
+        layouts=sts, forward_raw=_forward_raw, backward=sell_backward,
+        name="sell_attention_merge")

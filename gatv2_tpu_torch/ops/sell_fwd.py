@@ -156,7 +156,10 @@ def sell_fwd(zs, zd, a, perm, gather_ids, cnt, col_off, *,
         msg = lib.gatv2_cuda_error_string(err).decode()
         raise RuntimeError(f"sell_fwd launch failed: CUDA error {err} ({msg})")
     sell_fwd.launches += 1
+    if not normalize:
+        sell_fwd.raw_launches += 1
     return out, m, l
 
 
 sell_fwd.launches = 0  # K1 launches since the last reset (chip_smoke reads it)
+sell_fwd.raw_launches = 0  # of those, with normalize=False

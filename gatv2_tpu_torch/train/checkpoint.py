@@ -11,6 +11,11 @@ check, so either package restores the other's checkpoints. Restore checks
 the leaf count and every shape against the current run and fails with an
 actionable message on a mismatch. Resume restores the epoch, so Adam's
 epoch-indexed bias correction continues with the right t.
+
+Multi-GPU trainers (a `mesh` attribute) save from rank 0 only
+(save_trainer); a ShardedTrainer first gathers its head-sharded leaves to
+full shape, so its checkpoint is the single-device format either package
+restores, and restore_into re-shards each leaf onto the rank.
 """
 
 from __future__ import annotations
@@ -25,9 +30,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gatv2_tpu_torch.models.gatv2 import GATv2
-from gatv2_tpu_torch.train.optim import param_leaves
+from gatv2_tpu_torch.train.optim import init_opt_state, param_leaves
 
 
 class CheckpointMismatch(ValueError):
@@ -78,6 +84,25 @@ def save(directory: str, params: GATv2, opt_state: dict, epoch: int, *,
              **flat(param_leaves(params), "p"),
              **flat(opt_leaves(opt_state), "o"))
     os.replace(tmp, path)
+    return path
+
+
+def save_trainer(directory: str, trainer, *,
+                 meta: dict | None = None) -> pathlib.Path | None:
+    """save() of a trainer's params, optimizer state and epoch. On a
+    multi-GPU trainer every rank calls it: the full model is gathered
+    (ShardedTrainer.full_params, a collective), rank 0 writes and the
+    others wait for the file; they get None."""
+    mesh = getattr(trainer, "mesh", None)
+    if hasattr(trainer, "full_params"):
+        params, opt = trainer.full_params(), trainer.full_opt_state()
+    else:
+        params, opt = trainer.params, trainer.opt_state
+    path = None
+    if mesh is None or mesh.rank == 0:
+        path = save(directory, params, opt, trainer.epoch, meta=meta)
+    if mesh is not None:
+        dist.barrier(group=mesh.world)
     return path
 
 
@@ -173,5 +198,12 @@ def restore_into(directory: str, trainer, *,
                 f"configuration:\n  "
                 + "\n  ".join(config_diffs(stored, expect_meta))
             )
+    if hasattr(trainer, "load_full_state"):
+        # a sharded trainer: restore the full model, then re-shard it
+        params = GATv2(trainer.model_config)
+        opt = init_opt_state(params, trainer.train_config.optimizer)
+        trainer.epoch = restore(path, params, opt)
+        trainer.load_full_state(params, opt)
+        return True
     trainer.epoch = restore(path, trainer.params, trainer.opt_state)
     return True

@@ -1,5 +1,5 @@
-"""Minibatch (sampled-subgraph) training on one device (port of
-gatv2_tpu/train/minibatch.py:28-447).
+"""Minibatch (sampled-subgraph) training, on one device and data-parallel
+over ranks (port of gatv2_tpu/train/minibatch.py).
 
 Pairs with data.sampling.NeighborSampler. The loss is computed over seed
 nodes only (labels are -1 elsewhere); Adam bias correction is indexed by the
@@ -14,15 +14,22 @@ the device and each batch gathers its rows there by node id (an
 index_select with the ids clamped into range, the JAX package's
 mode='clip'); with 'host' the sampler gathers the rows on the host (the
 native gather_rows on the native engine) and the batch uploads them.
+
+Data parallelism (DataParallelMinibatchTrainer, --mesh N --batch-size B):
+one process per rank, each training on its own batch of the epoch's
+stream per super-step; parameters stay replicated and the gradients are
+combined seed-weighted by one all_reduce (make_dp_minibatch_step).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gatv2_tpu_torch.config import ModelConfig, TrainConfig
 from gatv2_tpu_torch.data.sampling import MiniBatch, NeighborSampler, prefetch
@@ -282,6 +289,147 @@ class MinibatchTrainer:
                 "epoch": self.epoch, "loss": avg_loss, "accuracy": avg_acc,
                 "ms": dt_ms, "batches": self.sampler.batches_per_epoch(),
             }
+            if self.metrics_sink is not None:
+                self.metrics_sink.write(last)
+        return last
+
+
+def make_dp_minibatch_step(
+    model_config: ModelConfig, train_config: TrainConfig, mesh, *,
+    device_gather: bool = False,
+) -> Callable:
+    """Data-parallel step: step(params, opt_state, t, features, src, dst,
+    labels, num_seeds[, edge_tiles]) -> (loss, acc, seeds) of the whole
+    group (seeds: its seed count), each rank with its own batch. Loss,
+    accuracy and gradients are SEED-WEIGHTED across the ranks: every rank differentiates num_seeds x its batch's
+    mean loss, then one all_reduce sums the gradients with the weighted
+    loss and accuracy sums and the seed count, and the sums are divided by
+    that count. A padding batch with num_seeds=0 contributes nothing.
+    params and opt_state (replicated) are updated in place."""
+
+    def step(params: GATv2, opt_state: dict, t: int, features, src, dst,
+             labels, num_seeds: int, edge_tiles=None):
+        if device_gather:
+            features = gather_rows_clip(*features)
+        loss, acc = loss_fn(
+            params, features, src, dst, labels, model_config,
+            impl=train_config.impl, num_valid=max(num_seeds, 1),
+            edge_tiles=edge_tiles,
+        )
+        grads = optim.gradients(loss * num_seeds, params,
+                                debug_nans=train_config.debug_nans)
+        stats = torch.stack([loss.detach() * num_seeds, acc * num_seeds,
+                             loss.new_tensor(float(num_seeds))])
+        flat = torch.cat([g.reshape(-1) for g in grads] + [stats])
+        dist.all_reduce(flat, group=mesh.world)
+        total = flat[-1].clamp(min=1.0)
+        parts = flat[:-3].split([g.numel() for g in grads])
+        grads = [p.view_as(g) / total for p, g in zip(parts, grads)]
+        optim.apply_updates(optim.param_leaves(params), grads, opt_state, t,
+                            train_config)
+        return flat[-3] / total, flat[-2] / total, int(flat[-1])
+
+    return step
+
+
+class DataParallelMinibatchTrainer(MinibatchTrainer):
+    """Sampled-subgraph training data-parallel over a rank mesh:
+    each rank trains on its own sampled subgraph per super-step, and the
+    gradients combine seed-weighted (make_dp_minibatch_step). Reached from
+    the CLI via --mesh N --batch-size B. Every rank of the process group
+    constructs it; only rank 0 logs.
+
+    Rank r of N takes batch g*N + r of the same epoch stream the
+    single-device trainer walks (NeighborSampler.iter_groups); a trailing
+    partial group is padded with zero-seed copies of its first batch
+    (num_seeds=0, all labels -1) that add nothing to the metrics or the
+    gradient. The seed (rank 0's when train_config.seed is None), hence
+    the initial parameters and every epoch's seed permutation, is the same
+    on every rank; parameters stay replicated, so evaluate() and
+    evaluate_exact() run on each rank's copy."""
+
+    def __init__(
+        self,
+        graph,
+        model_config: ModelConfig,
+        train_config: TrainConfig,
+        num_devices: int,
+        *,
+        log_fn: Callable[[str], None] = print,
+        metrics_sink: Any = None,
+        splits: Any = None,
+        device: str | torch.device = "cuda",
+    ):
+        from gatv2_tpu_torch.parallel.mesh import make_mesh
+        from gatv2_tpu_torch.parallel.sharded import broadcast_seed
+
+        dev = resolve_device(device)
+        self.mesh = make_mesh(num_devices, device=dev)
+        if self.mesh is None:
+            raise ValueError(
+                f"rank {dist.get_rank()} is outside the {num_devices}-rank "
+                f"mesh")
+        self.ndev = num_devices
+        rank0 = self.mesh.rank == 0
+        if train_config.seed is None:
+            train_config = dataclasses.replace(
+                train_config, seed=broadcast_seed(int(time.time()),
+                                                  self.mesh))
+        super().__init__(graph, model_config, train_config,
+                         log_fn=log_fn if rank0 else (lambda _: None),
+                         metrics_sink=metrics_sink if rank0 else None,
+                         splits=splits, device=dev)
+        self._dp_step = make_dp_minibatch_step(
+            model_config, train_config, self.mesh,
+            device_gather=self._device_gather)
+
+    @staticmethod
+    def _pad_batch(b0: MiniBatch) -> MiniBatch:
+        return dataclasses.replace(b0, labels=np.full_like(b0.labels, -1),
+                                   num_seeds=0)
+
+    def sync_step_count(self) -> None:
+        steps_per_epoch = -(-self.sampler.batches_per_epoch() // self.ndev)
+        self.step_count = self.epoch * steps_per_epoch
+
+    def train_group(self, own: MiniBatch | None,
+                    first: MiniBatch | None) -> tuple[float, float, int]:
+        """One super-step, on this rank with its batch `own` of the group or,
+        past the epoch's end, a zero-seed copy of the group's `first`
+        (NeighborSampler.iter_groups yields the pair). Returns the group's
+        seed-weighted (loss, accuracy) and its seed count."""
+        b = own if own is not None else self._pad_batch(first)
+        feats, src, dst, labels, tiles = self.batch_args(b)
+        self.step_count += 1
+        loss, acc, n_all = self._dp_step(
+            self._params, self.opt_state, self.step_count, feats, src, dst,
+            labels, b.num_seeds, tiles)
+        return float(loss), float(acc), n_all
+
+    def run(self, epochs: int | None = None) -> dict:
+        epochs = epochs if epochs is not None else self.train_config.epochs
+        last = {}
+        for _ in range(epochs):
+            self.epoch += 1
+            t0 = time.perf_counter()
+            loss_sum = correct_sum = 0.0
+            seeds_total = 0
+            groups = self.sampler.iter_groups(self.ndev, self.mesh.rank)
+            for own, first in prefetch(groups, depth=2):
+                loss, acc, n_all = self.train_group(own, first)
+                loss_sum += loss * n_all
+                correct_sum += acc * n_all
+                seeds_total += n_all
+            dt_ms = (time.perf_counter() - t0) * 1e3
+            avg_loss = loss_sum / max(seeds_total, 1)
+            avg_acc = correct_sum / max(seeds_total, 1)
+            self.log(f"Epoch {self.epoch}")
+            self.log(
+                f"Avg Loss: {avg_loss:.6f}, Accuracy: {avg_acc * 100.0:.2f}%  "
+                f"total time: {dt_ms:.2f} ms"
+            )
+            last = {"epoch": self.epoch, "loss": avg_loss,
+                    "accuracy": avg_acc, "ms": dt_ms, "devices": self.ndev}
             if self.metrics_sink is not None:
                 self.metrics_sink.write(last)
         return last

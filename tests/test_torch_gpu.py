@@ -1,7 +1,8 @@
 """Card-only tests of the port: the CUDA kernels K1-K4 (SELL, also on
 per-batch minibatch layouts) and K5-K8 (edge tiles) against their plain
 twins, K2's and K6's launches without packets (chunked layouts) against
-their launches with them, a model forward, a training step and minibatch
+their launches with them, K5 with normalize=False and the merged-softmax
+ops of the overlap layer, a model forward, a training step and minibatch
 steps (edge tiles and SELL) that go through them. They
 carry the `gpu` marker and skip without a CUDA device. Run them on the
 machine with the card:
@@ -747,3 +748,84 @@ def test_k8_kernel_matches_twin_and_k6_without_packets(cuda, case, h, d):
     k = et.num_chunks
     assert (pallas_bwd_dst.launches, pallas_bwd_src.launches) == (
         before[0] + 2 * k, before[1] + k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,h,d", [
+    ("uniform", 4, 64), ("hubs", 1, 16), ("hubs", 4, 64), ("isolated", 3, 7),
+    ("minibatch", 1, 16),
+])
+def test_k5_unnormalised_matches_twin(cuda, case, h, d):
+    """K5 with normalize=False (each pass of edge_attention_pallas_merge):
+    the raw accumulator, m and l against its twin and float64, hub rows
+    split over the block merged before the skipped division; rows without
+    an in-edge give 0, -1e30, 0; dividing the raw accumulator by l + 1e-8
+    gives the normalize=True launch."""
+    et_host, row_ptr = _pallas_layout(case)
+    et = et_host.to(cuda)
+    n = et.num_nodes
+    rng = np.random.default_rng(13)
+    zs, zd = (torch.from_numpy(rng.normal(size=(n, h * d))
+                               .astype(np.float32)).to(cuda)
+              for _ in range(2))
+    a = torch.from_numpy(rng.normal(size=(h, d)).astype(np.float32)).to(cuda)
+    side = et.dst_side
+    lay = (side.ids_grp[0], side.other_grp[0], side.rel_offsets[0],
+           et.tile_e)
+    before = (pallas_fwd.launches, pallas_fwd.raw_launches)
+    u, m, l = pallas_fwd(zs, zd, a, *lay, negative_slope=SLOPE,
+                         normalize=False)
+    out, _, _ = pallas_fwd(zs, zd, a, *lay, negative_slope=SLOPE)
+    torch.cuda.synchronize()
+    assert (pallas_fwd.launches, pallas_fwd.raw_launches) == (
+        before[0] + 2, before[1] + 1)
+    w_u, w_m, w_l = pallas_fwd_plain(zs, zd, a, *lay, negative_slope=SLOPE,
+                                     normalize=False)
+    w64 = pallas_fwd_plain(zs.double(), zd.double(), a.double(), *lay,
+                           negative_slope=SLOPE, normalize=False)
+    assert _close_by_row(m, w_m)
+    assert _close_f64(u, w_u, w64[0])
+    assert _close_f64(l, w_l, w64[2])
+    no_in = torch.as_tensor(np.diff(row_ptr) == 0, device=cuda)
+    assert bool((u[:n][no_in] == 0).all())
+    assert bool((m[:n][no_in] == -1e30).all())
+    assert bool((l[:n][no_in] == 0).all())
+    assert _close_by_row(out, u / (l.repeat_interleave(d, 1) + 1e-8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sell", "pallas"])
+def test_merge_ops_on_the_card_match_the_cpu(cuda, kind):
+    """sell_attention_merge / edge_attention_pallas_merge on the card (K1
+    or K5 with normalize=False per pass, K2 + K3 or K6 + K7 per pass in the
+    backward) against the same op on the CPU (the twins, which the CPU
+    tests hold to JAX): output and the gradients of every input."""
+    from test_torch_merge import _inputs, _layouts, _passes
+
+    n, m = 300, 90
+    passes = _passes(n, m, seed=4)
+    inputs = _inputs(n, m, 4, 8, seed=4)
+    lay = _layouts(kind, passes, n, tsa if kind == "sell" else tpa)
+    op = (tsa.sell_attention_merge if kind == "sell"
+          else tpa.edge_attention_pallas_merge)
+    key = "sell_tiles_parts" if kind == "sell" else "edge_tiles_parts"
+    fwd = sell_fwd if kind == "sell" else pallas_fwd
+
+    def run(dev):
+        x = [torch.tensor(v, device=dev, requires_grad=True)
+             for v in inputs[:4]]
+        layouts = [t.to(dev) for t in lay]
+        out = op(x[:2], x[2], x[3], n, negative_slope=SLOPE,
+                 **{key: layouts})
+        torch.sin(out + torch.as_tensor(inputs[4], device=dev)).sum() \
+            .backward()
+        return [out.detach().cpu()] + [v.grad.cpu() for v in x]
+
+    before = fwd.raw_launches
+    got = run(cuda)
+    assert fwd.raw_launches == before + 2  # one unnormalised pass each
+    want = run(torch.device("cpu"))
+    for name, g, w in zip(("out", "dzs_loc", "dzs_halo", "dzd", "da"), got,
+                          want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)

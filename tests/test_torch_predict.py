@@ -136,12 +136,16 @@ def test_cli_matches_jax_surface(capsys):
     assert tcli.parse_args(["--batch-size", "8", "--device", "cpu"])[1].impl \
         == "torch"
     # --impl sell with --batch-size parses as in the JAX package (minibatch
-    # SELL); the multi-GPU flags exit naming their ROADMAP.md item
+    # SELL); so do the multi-GPU flags --mesh and --overlap
     for cli in (tcli, jcli):
         tc = cli.parse_args(["--impl", "sell", "--batch-size", "8"])[1]
         assert (tc.impl, tc.batch_size) == ("sell", 8)
-    with pytest.raises(SystemExit, match="multi-GPU"):
-        tcli.parse_args(["--mesh", "2"])
+    mesh_argv = ["--mesh", "2", "--overlap", "--batch-size", "8"]
+    ta, ja = tcli.parse_args(mesh_argv)[2], jcli.parse_args(mesh_argv)[2]
+    assert (ta.mesh, ta.overlap) == (ja.mesh, ja.overlap) == (2, True)
+    assert tcli.parse_args(mesh_argv)[1].impl == "pallas"
+    assert ta.transport == "auto"
+    assert tcli.parse_args(["--mesh", "2"])[1].impl == "sell"
 
 
 def test_port_imports_no_jax():

@@ -348,9 +348,10 @@ def test_resume_continues_adam_t(tmp_path):
 
 def test_train_entry_point_cpu(tmp_path, capsys):
     """python -m gatv2_tpu_torch.train --device cpu on karate: the JAX
-    package's console lines, a checkpoint, then predict from it; unported
-    flags exit naming their ROADMAP.md item; --impl sell --batch-size
-    trains (on the CPU through the twins of K1-K3) to finite losses."""
+    package's console lines, a checkpoint, then predict from it; --overlap
+    without --mesh warns and trains, --mesh without a card raises; --impl
+    sell --batch-size trains (on the CPU through the twins of K1-K3) to
+    finite losses."""
     common = ["--dataset", "karate", "--data-root", DATA, "--num-layers", "2",
               "--heads", "2,1", "--outdims", "8,4", "--device", "cpu"]
     ck = tmp_path / "ck"
@@ -381,10 +382,17 @@ def test_train_entry_point_cpu(tmp_path, capsys):
     assert r.returncode == 0, r.stderr[-2000:]
     assert "Loaded checkpoint at epoch 3" in r.stdout
     assert np.loadtxt(tmp_path / "p" / "predictions.txt").shape == (34,)
-    for flag in (["--mesh", "2"], ["--overlap"]):
-        with pytest.raises(SystemExit, match="ROADMAP.md"):
-            tmain.main([*common, *flag])
+    # --overlap without --mesh warns and is ignored, as root train.py does;
+    # --mesh on a missing card raises rather than running on the CPU
     capsys.readouterr()
+    assert tmain.main([*common, "--epochs", "1", "--overlap"]) == 0
+    out, err = capsys.readouterr()
+    assert "Warning: --overlap requires --mesh; ignored." in err
+    assert len(_avg_losses(out)) == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tmain.main([*[a for a in common if a not in ("--device", "cpu")],
+                        "--mesh", "2"])
     assert tmain.main([*common, "--epochs", "2", "--seed", "2", "--impl",
                        "sell", "--batch-size", "8", "--fanouts", "3,3",
                        "--sampler-engine", "python"]) == 0

@@ -520,13 +520,13 @@ def main(argv) -> int:
                     K5_VARIANTS if "k5" in wanted else []):
                 fn = libs[f"k5_{i}"].gatv2_pallas_fwd
                 fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-                    ctypes.c_float] + [ctypes.c_void_p] * 4
+                    ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
                 fn.restype = ctypes.c_int
                 args = (zs.data_ptr(), zd.data_ptr(), a.data_ptr(),
                         lay["ids"].data_ptr(), lay["src"].data_ptr(),
                         lay["rel"].data_ptr(), lay["te"], rows, heads, d,
-                        0.01, out.data_ptr(), m.data_ptr(), l_.data_ptr(),
-                        stream)
+                        0.01, 1, out.data_ptr(), m.data_ptr(),
+                        l_.data_ptr(), stream)
                 ms = event_ms(lambda: fn(*args))
                 print(f"  H*D={hd}: K5 {name}: {ms:.4f} ms "
                       f"({regs('k5', i, hd)})")
