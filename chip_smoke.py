@@ -19,6 +19,7 @@ Phases (any failure exits non-zero):
      twin and float64, K2 without packets against K2 with them, and K1
      against its twin, at each layer's shapes on one chunk, with K1's, K2's
      and K4's times beside their bounds, per-edge gather floors and twins;
+     then the multi-epoch runner on its chunks (as in 8b: K1, K2, K4);
   4. full-width inference, the first main path: the headline model (3
      layers, heads 4,1,1, outdims 64,32,16, random weights from a seeded
      torch.Generator) at ogbn-arxiv scale on a uniform graph ('arxiv') and
@@ -36,6 +37,17 @@ Phases (any failure exits non-zero):
      streams, isolated nodes, no edges), with each layer's kernel time
      beside its bound, the twin's time and, for K3, index_add_'s;
   8. forward and epoch times, peak memory, profiler tables;
+  8b. the multi-epoch runners (make_multi_epoch_runner) at arxiv full width
+     on impl='sell' (K1-K3) and impl='pallas' (K5-K7): the waits for the
+     device of one Trainer.step listed (set_sync_debug_mode 'warn'); 3
+     runner epochs under set_sync_debug_mode('error'), which fails the
+     phase at any wait, with the counters zeroed just before and read just
+     after, each kernel launched 3 times as often as by one Trainer.step;
+     their losses against 3 Trainer.step calls from the same start; the
+     runner's epoch ms by differencing runs of 8 and 40 epochs (5 reps,
+     bench.py's _differenced_timing) beside Trainer.step's, timed the same
+     way in turns with it; and whether torch.tensor(x, device=cuda) from a
+     Python scalar waits;
   9. the entry points end to end, as subprocesses: predict on data/digits;
      train on data/karate with a checkpoint, then predict from it;
  10. sampled-minibatch training, the third main path: the headline model at
@@ -87,7 +99,8 @@ Phases (any failure exits non-zero):
      just after (K8 launched, K7 not), against a sell Trainer from the same
      weights; then K8 against its twin and float64, and K6 without packets
      against K6 with them, at each layer's shapes on one chunk, with K8's
-     time beside its bound and per-edge gather floor;
+     time beside its bound and per-edge gather floor; then the runner on
+     the pallas Trainer's chunks (as in 8b: K5, K6, K8);
  15. multi-GPU on the one card: a pool of 2 ranks sharing cuda:0 over
      gloo (the Transport: line; each collective the port calls run once on
      CUDA tensors), which is no measure of multi-GPU speed. Sharded arxiv
@@ -108,7 +121,9 @@ Phases (any failure exits non-zero):
      with normalize=False on a split hub beside rows without an edge;
      data-parallel products-sub minibatch training
      (pallas, then sell, 5 super-steps) against a single-process oracle
-     of seed-weighted group steps; and `train --mesh 2` on karate;
+     of seed-weighted group steps; the sharded multi-epoch runner on the
+     arxiv sell route against ShardedTrainer's losses, with its
+     differenced epoch ms; and `train --mesh 2` on karate;
  16. the total seconds, one JSON line listing every kernel, the
      nvidia-smi line, then the result line
      {"ok": true, "device": {...}}.
@@ -131,6 +146,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -174,7 +190,7 @@ from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src, sell_bwd_src_plain
 from gatv2_tpu_torch.ops.sell_fwd import sell_fwd, sell_fwd_plain
 from gatv2_tpu_torch.ops.sell_segsum import sell_segsum, sell_segsum_plain
 from gatv2_tpu_torch.train import optim
-from gatv2_tpu_torch.train.loop import Trainer
+from gatv2_tpu_torch.train.loop import Trainer, make_multi_epoch_runner
 from gatv2_tpu_torch.parallel import multihost, sharded
 from gatv2_tpu_torch.train.minibatch import (
     DataParallelMinibatchTrainer,
@@ -285,6 +301,19 @@ K8_OPS_PER_FEATURE = K4_OPS_PER_FEATURE
 # the same computation, so only a different GEMM or reduction order could
 # move it
 REMAT_RTOL = 1e-6
+# the multi-epoch runners: RUNNER_EPOCHS epochs checked against as many
+# Trainer.step calls (the same epoch body on the same card: bit-equal, held
+# to RUNNER_ATOL) with no wait for the device; then the per-epoch ms by
+# differencing runs of k1 and k2 epochs, reps times (bench.py's
+# _differenced_timing), with (k1, k2, reps) from bench.py's _rep_plan tier
+# of the graph's edge count: >= 500 k, >= 4 M, >= 30 M
+RUNNER_EPOCHS = TRAIN_EPOCHS
+RUNNER_ATOL = 1e-6
+RUNNER_PLANS = {"arxiv": (8, 40, 5), "products-sub": (1, 3, 5),
+                "products-full": (1, 2, 3)}
+# the sharded runner on 2 gloo ranks sharing the card: an epoch takes ~25x
+# a single process's there, and the arxiv tier would cost ~70 s
+SHARDED_RUNNER_PLAN = (2, 6, 3)
 
 KERNELS = {
     "sell_fwd": dict(
@@ -1099,6 +1128,184 @@ def phase_epoch_times(runs, dev, card):
               f"the resident {base / 2**30:.2f} GiB), torch path "
               f"{torch_ms:.3f} ms [{card}]")
         profile_fn(tr.step, f"{name} sell training step", sell_ms, card)
+
+
+def _where(filename, lineno):
+    path = pathlib.Path(filename)
+    if path.is_relative_to(ROOT):
+        path = path.relative_to(ROOT)
+    return f"{path}:{lineno}"
+
+
+def host_syncs(fn):
+    """The file:line of each wait for the device that fn() makes, as
+    torch.cuda.set_sync_debug_mode('warn') reports them."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sorted({_where(w.filename, w.lineno) for w in caught
+                   if "called a synchronizing CUDA operation"
+                   in str(w.message)})
+
+
+def without_host_sync(fn):
+    """fn() under torch.cuda.set_sync_debug_mode('error'): a wait for the
+    device raises RuntimeError."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def differenced_ms(runs, plan):
+    """bench.py's _differenced_timing on CUDA events, for each of `runs`
+    ({name: run_k}): run_k(k1) and run_k(k2) once each to warm up, then
+    reps pairs, the runs taking turns (their order alternating from rep to
+    rep); each pair gives (t(k2) - t(k1)) / (k2 - k1) ms an epoch, which
+    cancels the fixed cost of a call. Returns {name: the reps values}."""
+    k1, k2, reps = plan
+
+    def timed(run_k, k):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run_k(k)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    for run_k in runs.values():
+        timed(run_k, k1)
+        timed(run_k, k2)
+    diffs = {name: [] for name in runs}
+    order = list(runs)
+    for _ in range(reps):
+        for name in order:
+            small = timed(runs[name], k1)
+            diffs[name].append((timed(runs[name], k2) - small) / (k2 - k1))
+        order.reverse()
+    return diffs
+
+
+def timing_line(diffs, plan):
+    k1, k2, reps = plan
+    return (f"median {float(np.median(diffs)):.3f} ms, min {min(diffs):.3f} "
+            f"(differenced, k1={k1}, k2={k2}, {reps} reps: "
+            f"{[round(d, 3) for d in diffs]})")
+
+
+def check_runner(tag, tr, kernels, plan, card, step_reps=5):
+    """make_multi_epoch_runner on Trainer tr's layout and weights: the host
+    syncs of one Trainer.step (listed); RUNNER_EPOCHS runner epochs under
+    set_sync_debug_mode('error'), the counters zeroed just before and read
+    just after, their losses read back after it; as many Trainer.step
+    calls from the same start (the same losses to RUNNER_ATOL; each of
+    `kernels` launched RUNNER_EPOCHS times as often as by the first step,
+    and at least once); the runner's differenced epoch ms beside
+    Trainer.step's (CUDA events). Returns the runner's launches."""
+    mc, tc = tr.model_config, tr.train_config
+
+    def next_epoch():
+        tr.epoch += 1  # Adam's t, as Trainer.run advances it
+        return tr.step()
+
+    syncs = host_syncs(next_epoch)
+    print(f"{tag}: waits for the device in one Trainer.step "
+          f"(set_sync_debug_mode('warn')): {syncs}")
+    if not syncs:
+        fail(f"{tag}: set_sync_debug_mode('warn') saw no wait in "
+             f"Trainer.step, whose loss read-back waits")
+    start = (copy.deepcopy(tr.params), copy.deepcopy(tr.opt_state), tr.epoch)
+    args = (tr.features, tr.src, tr.dst, tr.labels)
+    run = make_multi_epoch_runner(mc, tc, RUNNER_EPOCHS,
+                                  edge_tiles=tr.edge_tiles,
+                                  num_valid=tr.num_valid)
+    params, opt = copy.deepcopy(start[0]), copy.deepcopy(start[1])
+    torch.cuda.synchronize()
+    zero_counters()
+    try:
+        _, _, losses, _ = without_host_sync(
+            lambda: run(params, opt, start[2], *args))
+    except RuntimeError as e:
+        fail(f"{tag}: the runner waited for the device: {e}")
+    torch.cuda.synchronize()
+    launches = read_counters()
+    losses = losses.tolist()  # the read-back, after the mode is reset
+    tr.params = copy.deepcopy(start[0])
+    tr.opt_state = copy.deepcopy(start[1])
+    tr.epoch = start[2]
+    want, per_epoch = [], None
+    for _ in range(RUNNER_EPOCHS):
+        before = read_counters()
+        want.append(next_epoch()[0])
+        if per_epoch is None:
+            per_epoch = {k: v - before[k] for k, v in read_counters().items()}
+    err = max(abs(a - b) for a, b in zip(losses, want))
+    print(f"{tag}: runner losses {losses}, Trainer.step {want}: max abs "
+          f"difference {err:.3e} (tolerance {RUNNER_ATOL:g}; bit-equal: "
+          f"{losses == want}); launches {RUNNER_EPOCHS} runner epochs "
+          f"{ {k: launches[k] for k in kernels} }, one Trainer.step "
+          f"{ {k: per_epoch[k] for k in kernels} }")
+    if not all(np.isfinite(losses)) or err > RUNNER_ATOL:
+        fail(f"{tag}: the runner's losses differ from Trainer.step's")
+    for k in kernels:
+        if launches[k] == 0 or launches[k] != RUNNER_EPOCHS * per_epoch[k]:
+            fail(f"{tag}: {k} launched {launches[k]} times in "
+                 f"{RUNNER_EPOCHS} runner epochs, {per_epoch[k]} in one "
+                 f"Trainer.step")
+    runners = {k: make_multi_epoch_runner(mc, tc, k, edge_tiles=tr.edge_tiles,
+                                          num_valid=tr.num_valid)
+               for k in plan[:2]}
+    diffs = differenced_ms({
+        "runner": lambda k: runners[k](params, opt, start[2], *args),
+        "Trainer.step": lambda k: [next_epoch() for _ in range(k)],
+    }, plan)
+    step_ms = cuda_ms(tr.step, reps=step_reps, warmup=1)
+    ratio = float(np.median(diffs["runner"])) / float(
+        np.median(diffs["Trainer.step"]))
+    print(f"{tag}: runner epoch {timing_line(diffs['runner'], plan)}; "
+          f"Trainer.step epoch, timed the same way in turns with it, "
+          f"{timing_line(diffs['Trainer.step'], plan)}, and {step_ms:.3f} "
+          f"ms as a mean of {step_reps} calls after 1; runner / step "
+          f"(medians) {ratio:.3f} [{card}]")
+    return launches
+
+
+def phase_runners(model, config, runs, dev, card):
+    """The multi-epoch runner at arxiv full width, on impl='sell' (K1-K3:
+    phase 5's Trainer) and impl='pallas' (K5-K7: a Trainer from the start
+    weights), through check_runner; first whether building a tensor from a
+    Python scalar with torch.tensor(x, device=cuda) (what apply_updates
+    did three times a step before optim.step_count) waits for the device,
+    and that step_count does not. Returns the runners' launches."""
+    waits = {}
+    for name, fn in (
+            ("torch.tensor(t, device=cuda)",
+             lambda: torch.tensor(3.0, dtype=torch.float32, device=dev)),
+            ("optim.step_count(t, cuda)", lambda: optim.step_count(3, dev))):
+        try:
+            without_host_sync(fn)
+            waits[name] = False
+        except RuntimeError:
+            waits[name] = True
+    print(f"waits for the device under set_sync_debug_mode('error'): {waits}")
+    if waits["optim.step_count(t, cuda)"]:
+        fail("optim.step_count waits for the device")
+    g = runs["arxiv"]["graph"]
+    trainers = {"sell": runs["arxiv"]["trainer"],
+                "pallas": make_trainer(g, config, "pallas", model, dev)}
+    total = dict.fromkeys(KERNELS, 0)
+    for impl, kernels in (("sell", SELL_KERNELS), ("pallas", PALLAS_KERNELS)):
+        launches = check_runner(f"arxiv {impl} runner", trainers[impl],
+                                kernels, RUNNER_PLANS["arxiv"], card)
+        for k, v in launches.items():
+            total[k] += v
+    return total
 
 
 def phase_train_entry():
@@ -2663,7 +2870,8 @@ def phase_products_sub_full_graph(mb, dev, card):
     count its default budget picks (K5, K6 per dst chunk, K8 per src
     chunk), TRAIN_EPOCHS epochs with the K5-K8 counters zeroed just before
     and read just after; against a sell Trainer on the same graph from the
-    same weights."""
+    same weights; then the multi-epoch runner on the pallas Trainer's
+    chunks (check_runner: K5, K6, K8)."""
     g, config, start = mb["graph"], mb["config"], mb["start"]
     trainers, setup_s = {}, {}
     for impl in ("pallas", "sell"):
@@ -2708,7 +2916,13 @@ def phase_products_sub_full_graph(mb, dev, card):
     if not all(np.isfinite(got)) or rel > LOSS_RTOL:
         fail("products-sub: full-graph pallas losses disagree with sell")
     del trainers["sell"]
-    return dict(trainer=trainers["pallas"], launches=launches)
+    torch.cuda.empty_cache()
+    runner_launches = check_runner(
+        f"products-sub pallas runner ({et.num_chunks} chunks)",
+        trainers["pallas"], CHUNKED_PALLAS_KERNELS,
+        RUNNER_PLANS["products-sub"], card, step_reps=3)
+    return dict(trainer=trainers["pallas"], launches=launches,
+                runner_launches=runner_launches)
 
 
 def phase_k8_at_products_sub(mb, pfs, card):
@@ -2934,6 +3148,42 @@ def rank_sharded(info, name, impl, overlap, head_shards, weights, grads,
                 launches=launches, grads=full_grads, profile=prof_out)
 
 
+def rank_runner(info, weights):
+    """make_sharded_multi_epoch_runner on this rank of the arxiv sell route
+    (no overlap) from `weights`: RUNNER_EPOCHS epochs with the launch
+    counters zeroed just before and read just after, as many
+    ShardedTrainer steps from the same weights, then the runner's
+    differenced epoch ms (SHARDED_RUNNER_PLAN, CUDA events). Returns the
+    runner's and the steps' losses, the launches and the per-epoch ms."""
+    g = _rank_graph("arxiv")
+    config = ModelConfig(num_layers=3, heads=HEADS, out_dims=OUTDIMS,
+                         num_classes=ARXIV["num_classes"],
+                         in_dim=ARXIV["feature_dim"])
+    tc = TrainConfig(epochs=TRAIN_EPOCHS, optimizer="adam", lr=0.01,
+                     clip=True, seed=0, impl="sell")
+    tr = sharded.ShardedTrainer(g, config, tc, MESH_RANKS,
+                                log_fn=lambda _: None, device=info.device)
+    full = init_params(config, torch.Generator())
+    _load_weights(full, weights)
+    tr.params = full
+    params, opt = copy.deepcopy(tr.params), copy.deepcopy(tr.opt_state)
+    runners = {k: sharded.make_sharded_multi_epoch_runner(
+        config, tc, tr.mesh, tr.pg.num_real_nodes, k, layout=tr.layout)
+        for k in (RUNNER_EPOCHS, *SHARDED_RUNNER_PLAN[:2])}
+    torch.cuda.synchronize()
+    zero_counters()
+    _, _, losses, _ = runners[RUNNER_EPOCHS](params, opt, 0, tr.features,
+                                             tr.labels)
+    torch.cuda.synchronize()
+    launches = _counters()
+    steps = [tr.run(1)["loss"] for _ in range(RUNNER_EPOCHS)]
+    diffs = differenced_ms({"runner": lambda k: runners[k](
+        params, opt, RUNNER_EPOCHS, tr.features, tr.labels)},
+        SHARDED_RUNNER_PLAN)["runner"]
+    return dict(losses=losses.tolist(), steps=steps, launches=launches,
+                diffs=diffs)
+
+
 def rank_dp(info, impl, weights):
     """DataParallelMinibatchTrainer on products-sub (batch 1024, fanouts
     10,10,10, native sampler, the minibatch phase's start weights): DP_STEPS
@@ -3042,6 +3292,32 @@ def phase_sharded(pool, model, runs, card):
             for ms_, count, key in p["host"]:
                 print(f"  {ms_:9.3f} ms  x{count:<3d} {key[:80]}")
     return total, grads
+
+
+def phase_sharded_runner(pool, model, card):
+    """The sharded multi-epoch runner (rank_runner) on both ranks: its
+    losses against ShardedTrainer's from the same weights to RUNNER_ATOL,
+    the same on both ranks, K1-K3 launched on each; its differenced epoch
+    ms. Returns the launches summed over the ranks."""
+    res = pool.run(rank_runner, _weights(model))
+    r0 = res[0]
+    err = max(abs(a - b) for a, b in zip(r0["losses"], r0["steps"]))
+    print(f"arxiv sharded sell runner mesh {MESH_RANKS}x1: losses "
+          f"{r0['losses']}, ShardedTrainer {r0['steps']}: max abs difference "
+          f"{err:.3e} (tolerance {RUNNER_ATOL:g}); launches per rank "
+          f"{[{k: v for k, v in x['launches'].items() if v} for x in res]}; "
+          f"runner epoch (gloo on one card, not a multi-GPU time) "
+          f"{timing_line(r0['diffs'], SHARDED_RUNNER_PLAN)} [{card}]")
+    if not all(np.isfinite(r0["losses"])) or err > RUNNER_ATOL:
+        fail("the sharded runner's losses differ from ShardedTrainer's")
+    if any(x["losses"] != r0["losses"] for x in res[1:]):
+        fail("sharded runner: the ranks report different losses")
+    _check_rank_launches("sharded runner", res, SELL_KERNELS)
+    total = dict.fromkeys(res[0]["launches"], 0)
+    for x in res:
+        for k, v in x["launches"].items():
+            total[k] += v
+    return total
 
 
 def phase_sharded_gradients(model, config, runs, dev, grads):
@@ -3429,6 +3705,8 @@ def phase_multi_gpu(model, config, runs, mb, dev, card):
         if not all(all(i[2].values()) for i in info):
             fail("gloo refused or miscomputed a collective on CUDA tensors")
         sharded_launches, grads = phase_sharded(pool, model, runs, card)
+        for k, v in phase_sharded_runner(pool, model, card).items():
+            sharded_launches[k] += v
         dp_launches = phase_dp(pool, mb, dev, card)
     phase_sharded_gradients(model, config, runs, dev, grads)
     err = phase_shard_kernels(model, runs, dev, card)
@@ -3450,6 +3728,11 @@ def main() -> int:
     err_k4, k4_totals = phase_k4_at_products_full(pf, card)
     err_pf_k1, _ = phase_k1_k2_at_products_full(pf, card)
     pf_launches = pf["launches"]
+    # the chunked runner while the card's memory is still free
+    pf_runner_launches = check_runner(
+        "products-full sell runner (chunked)", pf["trainer"],
+        CHUNKED_SELL_KERNELS, RUNNER_PLANS["products-full"], card,
+        step_reps=3)
     del pf
     torch.cuda.empty_cache()
     model, config, runs, infer_launches = phase_main_path(dev)
@@ -3462,6 +3745,8 @@ def main() -> int:
     err_bwd_cases = phase_bwd_cases(dev)
     phase_forward_times(model, config, runs, dev, card)
     phase_epoch_times(runs, dev, card)
+    runner_launches = phase_runners(model, config, runs, dev, card)
+    torch.cuda.empty_cache()
     phase_predict(dev)
     phase_train_entry()
     mb = phase_minibatch_main_path(dev, card)
@@ -3481,6 +3766,7 @@ def main() -> int:
     pfs = phase_products_sub_full_graph(mb, dev, card)
     err_k8, k8_totals = phase_k8_at_products_sub(mb, pfs, card)
     pfs_launches = pfs["launches"]
+    pfs_runner_launches = pfs["runner_launches"]
     del pfs
     torch.cuda.empty_cache()
     sharded_launches, dp_launches, err_shard = phase_multi_gpu(
@@ -3516,6 +3802,8 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + pfs_launches[k]
     for k in KERNELS:
         launches[k] += sharded_launches[k] + dp_launches[k]
+        launches[k] += (runner_launches[k] + pf_runner_launches[k]
+                        + pfs_runner_launches[k])
     line = {"kernels": []}
     for name, (t, err) in measured.items():
         k = KERNELS[name]
@@ -3546,7 +3834,11 @@ def main() -> int:
           "epochs); every kernel also its launches on both ranks of the "
           f"sharded arxiv routes ({TRAIN_EPOCHS} epochs each) and the "
           f"data-parallel products-sub phase ({DP_STEPS} super-steps per "
-          "impl); library_ms: K1, K2, K4, K5, K6 and K8 have no single "
+          f"impl), and the multi-epoch runners' checked runs "
+          f"({RUNNER_EPOCHS} epochs each: arxiv sell K1-K3 and pallas "
+          "K5-K7, products-full K1, K2, K4, products-sub full-graph K5, K6, "
+          "K8, the sharded arxiv sell runner K1-K3 on both ranks); "
+          "library_ms: K1, K2, K4, K5, K6 and K8 have no single "
           "PyTorch call that computes their fused function, K3's and K7's "
           "is index_add_")
     print(f"chip_smoke: every phase passed in "

@@ -9,6 +9,9 @@ of gatv2_tpu/data/io.py).
 The dataset lives in `<root>/<name>/`, with root taken from `--data-root`,
 else env `DATA_ROOT`, else `./data`.
 
+save_dataset writes a Graph back out in this format, byte for byte as the
+JAX package's writer does.
+
 Two parsers give identical arrays, chosen by the caller with
 `parser="numpy"` (the default) or `parser="native"` (the multi-threaded C++
 parser of native/loader.cpp, built at first use by utils/native_loader.py;
@@ -94,3 +97,18 @@ def load_dataset(
         col_idx=load_int_array(d / "col_idx.txt", parser),
         labels=load_int_array(d / "labels.txt", parser),
     )
+
+
+def save_dataset(graph: Graph, directory: str | os.PathLike) -> None:
+    """Write a Graph in the reference's text format: each feature as
+    repr(float(v)), which reads back to the same float32; row_ptr and
+    col_idx on one line each and labels one per line, with np.savetxt's
+    %d."""
+    d = pathlib.Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    with open(d / "features.txt", "w") as f:
+        for row in graph.features:
+            f.write(" ".join(repr(float(v)) for v in row) + "\n")
+    np.savetxt(d / "row_ptr.txt", graph.row_ptr[None], fmt="%d")
+    np.savetxt(d / "col_idx.txt", graph.col_idx[None], fmt="%d")
+    np.savetxt(d / "labels.txt", graph.labels[:, None], fmt="%d")

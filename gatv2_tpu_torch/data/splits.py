@@ -2,7 +2,7 @@
 
   - optional mask files `train_mask.txt` / `val_mask.txt` /
     `test_mask.txt` next to the other dataset files (whitespace 0/1 ints,
-    one per node);
+    one per node; save_split_files writes them);
   - or deterministic random splits by fractions.
 
 Training masks the loss to train nodes (labels of other nodes become -1,
@@ -88,3 +88,12 @@ def load_split_files(directory: str | pathlib.Path, num_nodes: int) -> Splits | 
             raise ValueError(f"{p}: {m.shape[0]} entries != {num_nodes} nodes")
         masks.append(m != 0)
     return Splits(*masks)
+
+
+def save_split_files(splits: Splits, directory: str | pathlib.Path) -> None:
+    """Write the three mask files: one line of space-separated 0/1 each."""
+    d = pathlib.Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    for name, mask in zip(MASK_FILES, (splits.train, splits.val, splits.test)):
+        with open(d / name, "w") as f:
+            f.write(" ".join("1" if v else "0" for v in mask))

@@ -426,7 +426,8 @@ def make_sharded_train_step(model_config: ModelConfig,
                             layout: ShardLayout) -> Callable:
     """step(params, opt_state, t, features, labels) -> (loss, acc): one
     optimizer step of the mesh, written into this rank's params and
-    opt_state in place."""
+    opt_state in place. t: Adam's step, an int or a 0-d fp32 tensor on the
+    device (optim.step_count); loss and acc stay on the device."""
     loss_fn = make_sharded_loss_fn(model_config, mesh, num_real_nodes,
                                    impl=train_config.impl, layout=layout)
     no_clip = dataclasses.replace(train_config, clip=False)
@@ -444,6 +445,33 @@ def make_sharded_train_step(model_config: ModelConfig,
 
     step.loss_fn = loss_fn
     return step
+
+
+def make_sharded_multi_epoch_runner(model_config: ModelConfig,
+                                    train_config: TrainConfig, mesh: Mesh,
+                                    num_real_nodes: int, num_epochs: int, *,
+                                    layout: ShardLayout) -> Callable:
+    """K = num_epochs steps of make_sharded_train_step's step with no
+    read-back between them (the collectives of a gloo mesh still wait on
+    the host; the runner adds no wait of its own).
+
+    Returns run(params, opt_state, t0, features, labels) -> (params,
+    opt_state, losses[K], accs[K]): this rank's params and opt_state
+    updated in place, Adam's t running t0+1 ... t0+K, the mesh's losses
+    and accuracies as fp32 tensors on the device."""
+    if num_epochs < 1:
+        raise ValueError(f"num_epochs must be >= 1, got {num_epochs}")
+    step = make_sharded_train_step(model_config, train_config, mesh,
+                                   num_real_nodes, layout=layout)
+
+    def run(params, opt_state, t0, features, labels):
+        out = [step(params, opt_state,
+                    optim.step_count(t0 + k, features.device), features,
+                    labels) for k in range(1, num_epochs + 1)]
+        losses, accs = (torch.stack(x) for x in zip(*out))
+        return params, opt_state, losses, accs
+
+    return run
 
 
 def make_sharded_eval_step(model_config: ModelConfig, mesh: Mesh,
@@ -657,8 +685,10 @@ class ShardedTrainer:
         for _ in range(epochs):
             self.epoch += 1
             t0 = time.perf_counter()
-            loss, acc = self._step(self._params, self.opt_state, self.epoch,
-                                   self.features, self.labels)
+            loss, acc = self._step(
+                self._params, self.opt_state,
+                optim.step_count(self.epoch, self.device), self.features,
+                self.labels)
             loss, acc = float(loss), float(acc)
             dt_ms = (time.perf_counter() - t0) * 1e3
             self.log(f"Epoch {self.epoch}")

@@ -1,17 +1,20 @@
-"""The full-graph Trainer (port of gatv2_tpu/train/loop.py:170-306).
+"""The full-graph Trainer and the multi-epoch runner (port of
+gatv2_tpu/train/loop.py:68-118, :170-306).
 
-One optimizer step per epoch: forward, masked cross-entropy, backward
-through autograd (on impl='sell' the backward runs the SELL kernels K2 and
-K3, or K2 and K4 on a chunked layout; on impl='pallas' K6 and K7, or K6 and
-K8), optional group-norm clipping, SGD or Adam. Each epoch prints the
-reference's console lines
+One optimizer step per epoch (`train_epoch`, the body both share):
+forward, masked cross-entropy, backward through autograd (on impl='sell'
+the backward runs the SELL kernels K2 and K3, or K2 and K4 on a chunked
+layout; on impl='pallas' K6 and K7, or K6 and K8), optional group-norm
+clipping, SGD or Adam. Each epoch prints the reference's console lines
 
     Epoch 1
     Avg Loss: 1.791234, Accuracy: 54.32%  total time: 6372.27 ms
 
 and, with splits, `Train/Val/Test Accuracy: ...` from one extra forward.
 The epoch time is the host's clock up to the loss read-back, which waits
-for the device.
+for the device. make_multi_epoch_runner runs K epochs of the same body and
+reads nothing back between them: its losses and accuracies stay on the
+device.
 """
 
 from __future__ import annotations
@@ -27,6 +30,59 @@ from gatv2_tpu_torch.data.graph import Graph
 from gatv2_tpu_torch.device import resolve_device
 from gatv2_tpu_torch.models.gatv2 import GATv2, init_params_for_variant, loss_fn
 from gatv2_tpu_torch.train import optim
+
+
+def train_epoch(params: GATv2, opt_state: dict, t: torch.Tensor, features,
+                src, dst, labels, model_config: ModelConfig,
+                train_config: TrainConfig, *, edge_tiles: Any = None,
+                num_valid: int | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One epoch: loss, gradients, update, written into params and
+    opt_state in place. t: Adam's 1-indexed step as a 0-d fp32 tensor on
+    the device (optim.step_count). Returns (loss, accuracy) as 0-d tensors
+    on the device; nothing is read back (train_config.debug_nans checks,
+    and so waits, by design)."""
+    loss, acc = loss_fn(
+        params, features, src, dst, labels, model_config,
+        impl=train_config.impl, edge_tiles=edge_tiles, num_valid=num_valid,
+    )
+    grads = optim.gradients(loss, params, debug_nans=train_config.debug_nans)
+    optim.apply_updates(optim.param_leaves(params), grads, opt_state, t,
+                        train_config)
+    return loss.detach(), acc
+
+
+def make_multi_epoch_runner(
+    model_config: ModelConfig,
+    train_config: TrainConfig,
+    num_epochs: int,
+    *,
+    edge_tiles: Any = None,
+    num_valid: int | None = None,
+) -> Callable:
+    """K = num_epochs epochs of train_epoch with no read-back between them.
+
+    Returns run(params, opt_state, t0, features, src, dst, labels) ->
+    (params, opt_state, losses[K], accs[K]); params (a GATv2 module) and
+    opt_state are updated in place and returned for parity with the JAX
+    package; t0 is the number of epochs already done (Adam's t runs t0+1
+    ... t0+K); losses and accs are fp32 tensors on the device. edge_tiles
+    and num_valid are a Trainer's (SellTiles for impl='sell', EdgeTiles for
+    'pallas', on the device)."""
+    if num_epochs < 1:
+        raise ValueError(f"num_epochs must be >= 1, got {num_epochs}")
+
+    def run(params, opt_state, t0, features, src, dst, labels):
+        dev = params.w_o.device
+        out = [train_epoch(params, opt_state, optim.step_count(t0 + k, dev),
+                           features, src, dst, labels, model_config,
+                           train_config, edge_tiles=edge_tiles,
+                           num_valid=num_valid)
+               for k in range(1, num_epochs + 1)]
+        losses, accs = (torch.stack(x) for x in zip(*out))
+        return params, opt_state, losses, accs
+
+    return run
 
 
 class Trainer:
@@ -127,16 +183,16 @@ class Trainer:
         return dict(impl=self.train_config.impl, edge_tiles=self.edge_tiles)
 
     def step(self) -> tuple[float, float]:
-        """One epoch: loss, gradients, update. Returns (loss, accuracy)."""
-        loss, acc = loss_fn(
-            self._params, self.features, self.src, self.dst, self.labels,
-            self.model_config, num_valid=self.num_valid, **self._forward_kw(),
+        """One epoch (train_epoch at Adam step self.epoch), then its
+        read-back. Returns (loss, accuracy)."""
+        loss, acc = train_epoch(
+            self._params, self.opt_state,
+            optim.step_count(self.epoch, self.device), self.features,
+            self.src, self.dst, self.labels, self.model_config,
+            self.train_config, edge_tiles=self.edge_tiles,
+            num_valid=self.num_valid,
         )
-        grads = optim.gradients(loss, self._params,
-                                debug_nans=self.train_config.debug_nans)
-        optim.apply_updates(optim.param_leaves(self._params), grads,
-                            self.opt_state, self.epoch, self.train_config)
-        return float(loss.detach()), float(acc)
+        return float(loss), float(acc)
 
     def run(self, epochs: int | None = None) -> dict[str, float]:
         epochs = epochs if epochs is not None else self.train_config.epochs

@@ -2,7 +2,10 @@
 gatv2_tpu/train/optim.py).
 
 - Adam: bias correction with t = epoch (1-indexed), computed in fp32 as the
-  JAX package does, eps = 1e-8.
+  JAX package does, eps = 1e-8. t, the betas and their powers live on the
+  parameters' device as 0-d fp32 tensors written by fill kernels
+  (`step_count`), so a step copies nothing from the host and does not
+  wait for the device.
 - SGD: p -= lr * g.
 - Optional clipping at a fixed threshold (5.0) PER PARAMETER GROUP:
   W_src + W_dst of every layer together (the fused-W norm), the attention
@@ -105,12 +108,20 @@ def clip_by_group_norm(grads: list[torch.Tensor], clip_norm: float
     return [g * s for g, s in zip(grads, scales)]
 
 
+def step_count(t: int, device: str | torch.device) -> torch.Tensor:
+    """Adam's step counter t as a 0-d fp32 tensor on `device`. torch.full
+    writes it with a fill kernel; torch.tensor(t, device=...) would copy it
+    from pageable host memory, which waits for the device."""
+    return torch.full((), float(t), dtype=torch.float32, device=device)
+
+
 @torch.no_grad()
 def apply_updates(leaves: list[torch.Tensor], grads: list[torch.Tensor],
-                  opt_state: dict, t: int, config) -> None:
+                  opt_state: dict, t: int | torch.Tensor, config) -> None:
     """One optimizer step, written into `leaves` (and the Adam moments in
     `opt_state`) in place. t: the 1-indexed epoch, Adam's bias-correction
-    step."""
+    step, as an int or as a 0-d fp32 tensor on the leaves' device
+    (step_count; the runners keep it there)."""
     if config.clip:
         grads = clip_by_group_norm(grads, config.clip_norm)
     if config.optimizer == "sgd":
@@ -118,10 +129,11 @@ def apply_updates(leaves: list[torch.Tensor], grads: list[torch.Tensor],
             p.sub_(config.lr * g)
         return
     b1, b2, lr = config.beta1, config.beta2, config.lr
-    dev = leaves[0].device
-    tt = torch.tensor(float(t), dtype=torch.float32, device=dev)
-    bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=dev), tt)
-    bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=dev), tt)
+    if not isinstance(t, torch.Tensor):
+        t = step_count(t, leaves[0].device)
+    # 1 - b**t in fp32, as the JAX package computes it
+    bc1 = 1.0 - torch.pow(torch.full_like(t, b1), t)
+    bc2 = 1.0 - torch.pow(torch.full_like(t, b2), t)
     for p, g, m, v in zip(leaves, grads, opt_state["m"], opt_state["v"]):
         m.copy_(b1 * m + (1.0 - b1) * g)
         v.copy_(b2 * v + (1.0 - b2) * torch.square(g))

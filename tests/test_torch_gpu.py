@@ -2,7 +2,8 @@
 per-batch minibatch layouts) and K5-K8 (edge tiles) against their plain
 twins, K2's and K6's launches without packets (chunked layouts) against
 their launches with them, K5 with normalize=False and the merged-softmax
-ops of the overlap layer, a model forward, a training step and minibatch
+ops of the overlap layer, a model forward, a training step, the
+multi-epoch runner (which must not wait for the device) and minibatch
 steps (edge tiles and SELL) that go through them. They
 carry the `gpu` marker and skip without a CUDA device. Run them on the
 machine with the card:
@@ -305,6 +306,51 @@ def test_sell_training_step_matches_torch_path(cuda):
     assert abs(runs["sell"][0] - runs["torch"][0]) < 1e-5
     for p, q in zip(runs["sell"][1], runs["torch"][1]):
         torch.testing.assert_close(p, q, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["sell", "pallas"])
+def test_runner_does_not_block_the_host(cuda, impl):
+    """3 epochs of make_multi_epoch_runner (Adam with clipping) through
+    K1-K3 (sell) or K5-K7 (pallas) under torch.cuda.set_sync_debug_mode
+    ("error"), which raises at any wait for the device; their losses,
+    accuracies and weights against 3 Trainer.step calls from the same
+    start (the same body on the same card: bit for bit), and each kernel's
+    launches three times one epoch's."""
+    from gatv2_tpu_torch.train.loop import make_multi_epoch_runner
+
+    g = random_graph(1500, 9000, 16, 4, seed=3)
+    mc = ModelConfig(num_layers=2, heads=(4, 1), out_dims=(16, 8),
+                     num_classes=g.num_classes, in_dim=g.feature_dim)
+    tc = TrainConfig(epochs=3, optimizer="adam", lr=0.01, clip=True, seed=0,
+                     impl=impl)
+    tr = Trainer(g, mc, tc, log_fn=lambda _: None, device=cuda)
+    tr.params = init_params(mc, torch.Generator().manual_seed(2))
+    params, opt = copy.deepcopy(tr.params), copy.deepcopy(tr.opt_state)
+    run = make_multi_epoch_runner(mc, tc, 3, edge_tiles=tr.edge_tiles,
+                                  num_valid=tr.num_valid)
+    counters = ((sell_fwd, sell_bwd_dst, sell_segsum) if impl == "sell"
+                else (pallas_fwd, pallas_bwd_dst, pallas_segsum))
+    run(copy.deepcopy(params), copy.deepcopy(opt), 0, tr.features, tr.src,
+        tr.dst, tr.labels)  # the kernels' first launches build them
+    torch.cuda.synchronize()
+    before = [k.launches for k in counters]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, _, losses, accs = run(params, opt, 0, tr.features, tr.src, tr.dst,
+                                 tr.labels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launched = [k.launches - b for k, b in zip(counters, before)]
+    assert launched == [6, 6, 6]  # one launch per layer and epoch each
+    want = []
+    for _ in range(3):
+        tr.epoch += 1
+        want.append(tr.step())
+    assert losses.tolist() == [l for l, _ in want]
+    assert accs.tolist() == [a for _, a in want]
+    for p, q in zip(optim.param_leaves(params), optim.param_leaves(tr.params)):
+        assert torch.equal(p, q)
 
 
 PALLAS_CASES = [

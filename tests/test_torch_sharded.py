@@ -135,6 +135,35 @@ def rank_trainer(info, ranks, head_shards, impl, epochs, overlap, graph_kw,
     return logs, losses, accs
 
 
+def rank_runner(info, ranks, impl, overlap, epochs, params_np):
+    """The sharded multi-epoch runner against as many ShardedTrainer steps
+    from the same weights: (runner losses, runner accuracies, the steps'
+    losses, their accuracies, whether parameters and Adam moments end
+    bit-equal)."""
+    if info.rank >= ranks:
+        make_mesh(ranks, device="cpu")  # take part in creating its groups
+        return None
+    g = _graph()
+    config = _config(g)
+    tc = tconfig.TrainConfig(optimizer="adam", lr=0.02, clip=True, seed=0,
+                             epochs=0, impl=impl)
+    tr = tsh.ShardedTrainer(g, config, tc, ranks, overlap=overlap,
+                            log_fn=lambda _: None, device="cpu")
+    tr.params = params_from_numpy(params_np)
+    params = tsh.shard_params(params_from_numpy(params_np), config, tr.mesh)
+    opt = toptim.init_opt_state(params, "adam")
+    run = tsh.make_sharded_multi_epoch_runner(
+        config, tc, tr.mesh, tr.pg.num_real_nodes, epochs, layout=tr.layout)
+    out = run(params, opt, 0, tr.features, tr.labels)
+    assert out[0] is params and out[1] is opt
+    steps = [tr.run(1) for _ in range(epochs)]
+    same = all(torch.equal(a, b) for a, b in zip(
+        toptim.param_leaves(params) + tckpt.opt_leaves(opt),
+        toptim.param_leaves(tr.params) + tckpt.opt_leaves(tr.opt_state)))
+    return (out[2].tolist(), out[3].tolist(), [s["loss"] for s in steps],
+            [s["accuracy"] for s in steps], same)
+
+
 def rank_resume(info, ckpt_dir):
     """Train a 2 x 2 (head-sharded) ShardedTrainer 2 epochs and save it;
     restore into a fresh one (re-sharded), compare, train one more; and
@@ -321,6 +350,39 @@ def test_sharded_trainer_matches_jax_trainer(pool):
     assert all(re.fullmatch(
         r"Avg Loss: \d+\.\d{6}, Accuracy: \d+\.\d{2}%  total time: "
         r"\d+\.\d{2} ms", l) for l in lines(logs, "Avg Loss"))
+
+
+def test_sharded_runner_matches_trainer_and_jax_runner(pool):
+    """make_sharded_multi_epoch_runner (mesh 2, impl 'sell', --overlap, 4
+    epochs) against 4 ShardedTrainer steps from the same weights bit for
+    bit, and against the JAX package's make_sharded_multi_epoch_runner on
+    the JAX ShardedTrainer's layouts (Pallas interpret mode)."""
+    import jax.numpy as jnp
+
+    from gatv2_tpu.config import TrainConfig
+    from gatv2_tpu.parallel import make_sharded_multi_epoch_runner
+    from gatv2_tpu.parallel.sharded import ShardedTrainer
+
+    g, config, params, params_np = _jax_setup(4)
+    tc = TrainConfig(optimizer="adam", lr=0.02, clip=True, seed=0, epochs=0,
+                     impl="sell")
+    jt = ShardedTrainer(g, config, tc, 2, log_fn=lambda _: None,
+                        overlap=True)
+    assert jt.overlap_tiles is not None  # the two-pass layer, no tiles
+    jt.params = params
+    jrun = make_sharded_multi_epoch_runner(
+        config, tc, jt.mesh, jt.pg.num_real_nodes, 4,
+        halo_plan=jt.halo_plan, overlap_tiles=jt.overlap_tiles)
+    _, _, j_losses, j_accs = jrun(jt.params, jt.opt_state,
+                                  jnp.asarray(0, jnp.int32), *jt.data)
+    results = pool.run(rank_runner, 2, "sell", True, 4, params_np)
+    assert results[2] is None and results[3] is None
+    for losses, accs, step_losses, step_accs, same in results[:2]:
+        assert losses == step_losses and accs == step_accs and same
+    assert results[1][:2] == results[0][:2]
+    np.testing.assert_allclose(results[0][0], np.asarray(j_losses),
+                               rtol=1e-5)
+    np.testing.assert_allclose(results[0][1], np.asarray(j_accs), atol=1e-6)
 
 
 def test_sharded_trainer_learns_and_falls_back_on_hubs(pool):
