@@ -111,8 +111,16 @@ Phases (any failure exits non-zero):
      rank's counters zeroed just before and read just after, K1-K3 or
      K5-K7 launched on every rank of their routes and K1 / K5 with
      normalize=False on the merge routes, the losses against phase 5's
-     single-process sell Trainer; one sharded step's gradients on every
-     arxiv route against float64; every kernel launch of the sharded
+     single-process sell Trainer; on the sell and pallas --overlap routes
+     the host order of every layer on both ranks (forward: exchange
+     started, local pass launched, wait, halo pass; backward: halo pass,
+     reverse exchange started, local pass launched, wait), which fails the
+     phase otherwise; one more epoch under torch.profiler of sell, sell
+     --overlap and pallas --overlap (wall, device busy, the gloo rows'
+     host time and, on the overlap routes, the local passes' device ms and
+     the host's waits for the exchange); the sell and pallas epochs, single
+     pass and --overlap, timed in turns; one sharded step's gradients on
+     every arxiv route against float64; every kernel launch of the sharded
      layer's ops on shard 0's layouts (each route's per-shard bipartite
      tiles and overlap pair, arxiv-pl's split single pass), layer by
      layer: K1 / K5 with normalize=False per pass and K2 + K3 / K6 + K7
@@ -138,6 +146,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import os
 import pathlib
@@ -3020,6 +3029,11 @@ SHARDED_ROUTES = [("sell", False, 1), ("sell", True, 1), ("pallas", False, 1),
                   ("torch", True, 1), ("sell", False, 2)]
 # the data-parallel phase's super-steps (2 products-sub batches each)
 DP_STEPS = 5
+# SHARDED_ROUTES' indices whose extra epoch is profiled: sell single pass,
+# sell --overlap, pallas --overlap
+PROFILED_ROUTES = (0, 1, 3)
+# rounds of the overlap turns: single, overlap, overlap, single, ...
+OVERLAP_TURNS = 4
 _RANK_GRAPHS = {}  # per rank process: graphs built once for all its jobs
 
 
@@ -3086,15 +3100,105 @@ def rank_transport(info):
     return multihost.transport_line(info), str(dev), ok
 
 
+@contextlib.contextmanager
+def overlap_recorder(impl, local_tiles, timed=False):
+    """Records on this rank, in host order, what the fused overlap layer
+    (ops/merge.py _MergeExchange) does: each exchange start and wait
+    (parallel/collectives.all_to_all_start and the wait of what it
+    returns) and each pass, the op module's forward_raw or backward on the
+    local or the halo layout (told apart by a leaf of the layout), with
+    how many times the pass launched its K1 / K5 or K2 / K6. With timed,
+    also CUDA events around each local pass and the host ms of each wait,
+    per direction. Wraps module attributes for the with block only: the
+    package has no hook for it."""
+    from gatv2_tpu_torch.parallel import collectives as cc
+
+    mod = tsa if impl == "sell" else tpa
+    bwd_name = "sell_backward" if impl == "sell" else "pallas_backward"
+    fwd_k, bwd_k = (("sell_fwd", "sell_bwd_dst") if impl == "sell"
+                    else ("pallas_fwd", "pallas_bwd_dst"))
+    leaf = (lambda t: t.ell_perm) if impl == "sell" else (lambda t: t.src)
+    local_leaf = leaf(local_tiles)
+    rec = dict(log=[], events={"fwd": [], "bwd": []},
+               wait_ms={"fwd": 0.0, "bwd": 0.0})
+    log = rec["log"]
+    start, fwd, bwd = (cc.all_to_all_start, mod._forward_raw,
+                       getattr(mod, bwd_name))
+
+    class Pending:
+        def __init__(self, pending, way):
+            self._pending, self._way = pending, way
+
+        def wait(self):
+            t0 = time.perf_counter()
+            out = self._pending.wait()
+            rec["wait_ms"][self._way] += (time.perf_counter() - t0) * 1e3
+            log.append(("wait", 0))
+            return out
+
+    def logged_start(x, group):
+        way = "bwd" if log and log[-1][0] == "bwd halo" else "fwd"
+        log.append(("start", 0))
+        return Pending(start(x, group), way)
+
+    def run_pass(way, k, fn, lay, *args):
+        which = "local" if leaf(lay) is local_leaf else "halo"
+        counter = KERNELS[k]["fn"]
+        n0 = counter.launches
+        ev = None
+        if timed and which == "local":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        out = fn(*args)
+        if ev is not None:
+            ev[1].record()
+            rec["events"][way].append(ev)
+        log.append((f"{way} {which}", counter.launches - n0))
+        return out
+
+    patches = {(cc, "all_to_all_start"): logged_start,
+               (mod, "_forward_raw"): lambda *a: run_pass(
+                   "fwd", fwd_k, fwd, a[3], *a),
+               (mod, bwd_name): lambda *a: run_pass(
+                   "bwd", bwd_k, bwd, a[6], *a)}
+    saved = {key: getattr(*key) for key in patches}
+    for (m, n), v in patches.items():
+        setattr(m, n, v)
+    try:
+        yield rec
+    finally:
+        for (m, n), v in saved.items():
+            setattr(m, n, v)
+
+
+def check_overlap_order(tag, log, epochs):
+    """Fails unless every layer of every epoch ran, in host order: forward
+    start -> local pass -> wait -> halo pass; backward halo pass -> start
+    of the reverse exchange -> local pass -> wait; and every pass launched
+    its kernel."""
+    layers = len(HEADS)
+    fwd = ["start", "fwd local", "wait", "fwd halo"]
+    bwd = ["bwd halo", "start", "bwd local", "wait"]
+    got = [e for e, _ in log]
+    if got != (fwd * layers + bwd * layers) * epochs:
+        fail(f"{tag}: overlap order {got[:2 * len(fwd) * layers]}... is "
+             f"not (forward {fwd}, backward {bwd}) per layer")
+    if any(n == 0 for e, n in log if e not in ("start", "wait")):
+        fail(f"{tag}: an overlap pass launched no kernel")
+
+
 def rank_sharded(info, name, impl, overlap, head_shards, weights, grads,
                  profile):
     """One sharded route on this rank: ShardedTrainer on graph `name` with
     the arxiv model from `weights`, TRAIN_EPOCHS epochs with the launch
-    counters zeroed just before and read just after. With grads, one step's
-    gradients at the start weights first (full shape, head shards
-    gathered); with profile, one more epoch under torch.profiler after
-    them. Returns the trainer's log lines, losses, epoch ms, set-up
-    seconds, launches, the gradients and the profile."""
+    counters zeroed just before and read just after (on the fused overlap
+    layer under overlap_recorder). With grads, one step's gradients at the
+    start weights first (full shape, head shards gathered); with profile,
+    one more epoch under torch.profiler after them (the fused overlap
+    layer's local passes timed by CUDA events, its waits by the host
+    clock). Returns the trainer's log lines, losses, epoch ms, set-up
+    seconds, launches, the gradients, the overlap order and the
+    profile."""
     g = _rank_graph(name)
     config = ModelConfig(num_layers=3, heads=HEADS, out_dims=OUTDIMS,
                          num_classes=ARXIV["num_classes"],
@@ -3117,13 +3221,20 @@ def rank_sharded(info, name, impl, overlap, head_shards, weights, grads,
         mask = sharded._sharded_leaf_mask(config, tr.mesh)
         full_grads = [sharded._gather_leaf(x, m, tr.mesh).cpu().numpy()
                       for x, m in zip(gl, mask)]
+    fused_overlap = tr.layout.overlap_tiles is not None
+    if fused_overlap:
+        record = functools.partial(overlap_recorder, impl,
+                                   tr.layout.overlap_tiles[0])
+    else:
+        record = lambda timed=False: contextlib.nullcontext()
     torch.cuda.synchronize()
     zero_counters()
     losses, ms = [], []
-    for _ in range(TRAIN_EPOCHS):
-        rec = tr.run(1)
-        losses.append(rec["loss"])
-        ms.append(rec["ms"])
+    with record() as rec:
+        for _ in range(TRAIN_EPOCHS):
+            out = tr.run(1)
+            losses.append(out["loss"])
+            ms.append(out["ms"])
     torch.cuda.synchronize()
     launches = _counters()
     prof_out = None
@@ -3132,8 +3243,9 @@ def rank_sharded(info, name, impl, overlap, head_shards, weights, grads,
         # the host rows that take the most of the epoch
         from torch.profiler import ProfilerActivity, profile as tprofile
 
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+        with record(timed=True) as timed, \
+                tprofile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
             wall = tr.run(1)["ms"]
             torch.cuda.synchronize()
         events = prof.key_averages()
@@ -3144,8 +3256,47 @@ def rank_sharded(info, name, impl, overlap, head_shards, weights, grads,
                        for e in events if e.key.startswith("gloo:")),
                       reverse=True)
         prof_out = dict(wall_ms=wall, busy_ms=busy / 1e3, host=host[:6])
+        if fused_overlap:
+            prof_out.update(
+                local_ms={w: sum(a.elapsed_time(b) for a, b in evs)
+                          for w, evs in timed["events"].items()},
+                wait_ms=timed["wait_ms"])
     return dict(logs=logs, losses=losses, ms=ms, setup_s=setup_s,
-                launches=launches, grads=full_grads, profile=prof_out)
+                launches=launches, grads=full_grads, profile=prof_out,
+                order=rec["log"] if fused_overlap else None)
+
+
+def rank_overlap_turns(info, weights):
+    """The arxiv sell and pallas routes' epochs, single pass and
+    --overlap, timed in turns on this rank (one ShardedTrainer each from
+    `weights`, one warm-up epoch each, then OVERLAP_TURNS rounds of
+    single, overlap / overlap, single). Returns {impl: (single ms,
+    overlap ms)}, the host clock around each epoch's read-back."""
+    g = _rank_graph("arxiv")
+    config = ModelConfig(num_layers=3, heads=HEADS, out_dims=OUTDIMS,
+                         num_classes=ARXIV["num_classes"],
+                         in_dim=ARXIV["feature_dim"])
+    out = {}
+    for impl in ("sell", "pallas"):
+        tc = TrainConfig(epochs=1, optimizer="adam", lr=0.01, clip=True,
+                         seed=0, impl=impl)
+        trs = []
+        for overlap in (False, True):
+            tr = sharded.ShardedTrainer(g, config, tc, MESH_RANKS,
+                                        log_fn=lambda _: None,
+                                        overlap=overlap, device=info.device)
+            full = init_params(config, torch.Generator())
+            _load_weights(full, weights)
+            tr.params = full
+            tr.run(1)
+            trs.append(tr)
+        ms = ([], [])
+        for r in range(OVERLAP_TURNS):
+            for k in ((0, 1) if r % 2 == 0 else (1, 0)):
+                ms[k].append(trs[k].run(1)["ms"])
+        out[impl] = ms
+        del trs
+    return out
 
 
 def rank_runner(info, weights):
@@ -3241,7 +3392,7 @@ def phase_sharded(pool, model, runs, card):
         ("arxiv-pl", "sell", True, 1)]
     for i, (name, impl, overlap, hs) in enumerate(routes):
         res = pool.run(rank_sharded, name, impl, overlap, hs, weights,
-                       name == "arxiv", i == 0)
+                       name == "arxiv", i in PROFILED_ROUTES)
         r0 = res[0]
         tag = (f"{name} sharded {impl}{' --overlap' if overlap else ''} "
                f"mesh {MESH_RANKS // hs}x{hs}")
@@ -3277,13 +3428,22 @@ def phase_sharded(pool, model, runs, card):
             impl, ())
         if overlap and name == "arxiv" and impl != "torch":
             kernels += (f"{kernels[0]} normalize=False",)
+            for r, x in enumerate(res):
+                if x["order"] is None:
+                    fail(f"{tag}: rank {r} did not run the fused overlap "
+                         f"layer")
+                check_overlap_order(f"{tag} rank {r}", x["order"],
+                                    TRAIN_EPOCHS)
+            print(f"{tag}: every layer of every epoch on both ranks ran "
+                  f"forward start -> local pass -> wait -> halo pass and "
+                  f"backward halo pass -> start -> local pass -> wait")
         _check_rank_launches(tag, res, kernels)
         for x in res:
             for k, v in x["launches"].items():
                 total[k] += v
         if name == "arxiv":
             grads[tag.removeprefix("arxiv ")] = r0["grads"]
-        if i == 0:
+        if i in PROFILED_ROUTES:
             p = r0["profile"]
             print(f"{tag}, one more epoch under torch.profiler on rank 0: "
                   f"{p['wall_ms']:.2f} ms wall, device busy "
@@ -3291,7 +3451,29 @@ def phase_sharded(pool, model, runs, card):
                   f"(gloo on one card, not a multi-GPU time) [{card}]:")
             for ms_, count, key in p["host"]:
                 print(f"  {ms_:9.3f} ms  x{count:<3d} {key[:80]}")
+            if "local_ms" in p:
+                print(f"  overlap: the local passes' device ms (CUDA events "
+                      f"around their launches, 3 layers) forward "
+                      f"{p['local_ms']['fwd']:.3f}, backward "
+                      f"{p['local_ms']['bwd']:.3f}; the host's wait for the "
+                      f"exchange after them forward "
+                      f"{p['wait_ms']['fwd']:.3f} ms, backward "
+                      f"{p['wait_ms']['bwd']:.3f} ms [{card}]")
     return total, grads
+
+
+def phase_overlap_turns(pool, model, card):
+    """The arxiv sell and pallas epochs, single pass against --overlap,
+    timed in turns in this call (rank_overlap_turns); rank 0's medians."""
+    res = pool.run(rank_overlap_turns, _weights(model))
+    for impl, (single, over) in res[0].items():
+        ratio = float(np.median(over)) / float(np.median(single))
+        print(f"arxiv sharded {impl} mesh {MESH_RANKS}x1 epoch ms in turns "
+              f"(rank 0; gloo on one card, not a multi-GPU time): single "
+              f"pass median {float(np.median(single)):.2f} "
+              f"{[round(m, 2) for m in single]}, --overlap median "
+              f"{float(np.median(over)):.2f} {[round(m, 2) for m in over]}; "
+              f"overlap / single {ratio:.3f} [{card}]")
 
 
 def phase_sharded_runner(pool, model, card):
@@ -3705,6 +3887,7 @@ def phase_multi_gpu(model, config, runs, mb, dev, card):
         if not all(all(i[2].values()) for i in info):
             fail("gloo refused or miscomputed a collective on CUDA tensors")
         sharded_launches, grads = phase_sharded(pool, model, runs, card)
+        phase_overlap_turns(pool, model, card)
         for k, v in phase_sharded_runner(pool, model, card).items():
             sharded_launches[k] += v
         dp_launches = phase_dp(pool, mb, dev, card)

@@ -13,6 +13,16 @@ the MERGED sigma = M + log(L + 1e-8) and output h, which span every pass
 the passes. ops/sell_attention.sell_attention_merge (K1, then K2 and K3)
 and ops/pallas_attention.edge_attention_pallas_merge (K5, then K6 and K7)
 call it with their kernels.
+
+The sharded layer's form (merged_attention_exchange, through
+sell_attention_merge_exchange / edge_attention_pallas_merge_exchange) has
+the boundary halo exchange inside: it takes the local projections and the
+send buffer, starts the all_to_all, runs the local pass while the rows are
+in flight, waits, then runs the halo pass. Its backward runs the halo
+pass's backward first, starts the reverse all_to_all of the halo rows'
+gradient, runs the local pass's backward under it and waits last. The
+arithmetic and its order are merged_attention's, so the results are
+bit-equal to an exchange that finishes before either pass.
 """
 
 from __future__ import annotations
@@ -45,6 +55,21 @@ def merge_passes(parts, head_dim):
     return h, m_all, l_tot
 
 
+def _flat(x):
+    return x.reshape(x.shape[0], -1).float().contiguous()
+
+
+def _merged_output(parts, a, num_nodes):
+    """merge_passes of the passes' (u, m, l) -> (h [num_nodes, H*D], the
+    merged sigma = M + log(L + 1e-8) [n_pad, H])."""
+    h, m_all, l_tot = merge_passes(parts, a.shape[1])
+    return h[:num_nodes], m_all + torch.log(l_tot + SOFTMAX_EPS)
+
+
+def _shaped(h, like, a, num_nodes):
+    return h if like.dim() == 2 else h.reshape(num_nodes, *a.shape)
+
+
 class _Merge(torch.autograd.Function):
     """Forward: forward_raw per pass, then the merge. Backward: backward
     per pass against the merged stats and output."""
@@ -52,21 +77,17 @@ class _Merge(torch.autograd.Function):
     @staticmethod
     def forward(ctx, zd, a, num_nodes, negative_slope, layouts, forward_raw,
                 backward, *zs_parts):
-        zd2 = zd.reshape(zd.shape[0], -1).float().contiguous()
-        zs2s = [z.reshape(z.shape[0], -1).float().contiguous()
-                for z in zs_parts]
+        zd2 = _flat(zd)
+        zs2s = [_flat(z) for z in zs_parts]
         layouts = [lay.to(zd.device) for lay in layouts]
-        h, m_all, l_tot = merge_passes(
+        h, sigma = _merged_output(
             [forward_raw(z, zd2, a, lay, negative_slope)
-             for z, lay in zip(zs2s, layouts)], a.shape[1])
-        h = h[:num_nodes]
-        sigma = m_all + torch.log(l_tot + SOFTMAX_EPS)
+             for z, lay in zip(zs2s, layouts)], a, num_nodes)
         ctx.save_for_backward(zd2, a, h, sigma, *zs2s)
         ctx.layouts, ctx.backward_fn, ctx.slope = layouts, backward, \
             negative_slope
         ctx.shapes = (zd.shape, [z.shape for z in zs_parts])
-        return (h if zs_parts[0].dim() == 2
-                else h.reshape(num_nodes, *a.shape))
+        return _shaped(h, zs_parts[0], a, num_nodes)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -85,14 +106,67 @@ class _Merge(torch.autograd.Function):
                 None, None, *dzs)
 
 
-def merged_attention(zs_parts, zd, a, num_nodes, *, negative_slope,
-                     layouts, forward_raw, backward, name) -> torch.Tensor:
-    """Attention over len(layouts) passes merged per destination.
-    forward_raw(zs2, zd2, a, layout, slope) -> node-order (u [n_pad, H*D],
-    m [n_pad, H], l [n_pad, H]) of one pass; backward(zs2, zd2, a, h,
-    sigma, g2, layout, slope) -> (dzs, dzd, da) of one pass. Checks what
-    both ops require of their (one per zs part) layouts: unchunked, one
-    dst node space, at most STATS_L heads (`name` heads the errors)."""
+def _collectives():
+    # imported at call time: gatv2_tpu_torch.parallel imports the ops
+    # modules, which import this one
+    from gatv2_tpu_torch.parallel import collectives
+
+    return collectives
+
+
+class _MergeExchange(torch.autograd.Function):
+    """The (local, halo) merge with the boundary exchange inside (module
+    docstring): the exchange is in flight during the local pass, forward
+    and backward."""
+
+    @staticmethod
+    def forward(ctx, zd, a, num_nodes, negative_slope, layouts, forward_raw,
+                backward, group, zs_loc, send):
+        cc = _collectives()
+        zd2, zs2 = _flat(zd), _flat(zs_loc)
+        lay_loc, lay_halo = (lay.to(zd.device) for lay in layouts)
+        pending = cc.all_to_all_start(send, group)
+        try:
+            local = forward_raw(zs2, zd2, a, lay_loc, negative_slope)
+        finally:
+            halo = pending.wait()
+        halo2 = _flat(halo.reshape(-1, *send.shape[2:]))
+        h, sigma = _merged_output(
+            [local, forward_raw(halo2, zd2, a, lay_halo, negative_slope)],
+            a, num_nodes)
+        ctx.save_for_backward(zd2, a, h, sigma, zs2, halo2)
+        ctx.layouts, ctx.backward_fn, ctx.slope = (lay_loc, lay_halo), \
+            backward, negative_slope
+        ctx.group = group
+        ctx.shapes = (zd.shape, zs_loc.shape, send.shape)
+        return _shaped(h, zs_loc, a, num_nodes)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        cc = _collectives()
+        zd2, a, h, sigma, zs2, halo2 = ctx.saved_tensors
+        zd_shape, zs_shape, send_shape = ctx.shapes
+        lay_loc, lay_halo = ctx.layouts
+        g2 = grad_out.reshape(h.shape).float().contiguous()
+        dzs_h, dzd_h, da_h = ctx.backward_fn(halo2, zd2, a, h, sigma, g2,
+                                             lay_halo, ctx.slope)
+        rows = send_shape[0] * send_shape[1]
+        pending = cc.all_to_all_start(dzs_h[:rows].reshape(send_shape),
+                                      ctx.group)
+        try:
+            dzs_l, dzd_l, da_l = ctx.backward_fn(zs2, zd2, a, h, sigma, g2,
+                                                 lay_loc, ctx.slope)
+        finally:
+            d_send = pending.wait()
+        return ((dzd_l + dzd_h).reshape(zd_shape), (da_l + da_h).to(a.dtype),
+                None, None, None, None, None, None, dzs_l.reshape(zs_shape),
+                d_send)
+
+
+def _check_layouts(layouts, a, name):
+    """What both ops require of their (one per zs part) layouts:
+    unchunked, one dst node space, at most STATS_L heads (`name` heads the
+    errors)."""
     if any(lay.num_chunks != 1 for lay in layouts):
         raise ValueError("merge path supports num_chunks == 1 tiles only")
     n_pad = layouts[0].padded_num_nodes
@@ -100,5 +174,29 @@ def merged_attention(zs_parts, zd, a, num_nodes, *, negative_slope,
         raise ValueError("all parts must share the dst node space")
     if a.shape[0] > STATS_L:
         raise ValueError(f"{name} supports at most {STATS_L} heads")
+
+
+def merged_attention(zs_parts, zd, a, num_nodes, *, negative_slope,
+                     layouts, forward_raw, backward, name) -> torch.Tensor:
+    """Attention over len(layouts) passes merged per destination.
+    forward_raw(zs2, zd2, a, layout, slope) -> node-order (u [n_pad, H*D],
+    m [n_pad, H], l [n_pad, H]) of one pass; backward(zs2, zd2, a, h,
+    sigma, g2, layout, slope) -> (dzs, dzd, da) of one pass. Checks
+    _check_layouts' conditions."""
+    _check_layouts(layouts, a, name)
     return _Merge.apply(zd, a, num_nodes, negative_slope, layouts,
                         forward_raw, backward, *zs_parts)
+
+
+def merged_attention_exchange(zs_loc, send, zd, a, num_nodes, *, group,
+                              negative_slope, layouts, forward_raw, backward,
+                              name) -> torch.Tensor:
+    """merged_attention over layouts = (local, halo), the halo pass's
+    source rows exchanged inside the op (module docstring): send [S, M,
+    ...] holds the rows this rank sends to each of the S ranks of `group`
+    (all_to_all over dim 0); the halo pass reads the S*M rows received.
+    Differentiable in zs_loc, send, zd and a."""
+    _check_layouts(layouts, a, name)
+    return _MergeExchange.apply(zd, a, num_nodes, negative_slope,
+                                tuple(layouts), forward_raw, backward, group,
+                                zs_loc, send)

@@ -29,7 +29,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from gatv2_tpu_torch.ops.merge import merged_attention
+from gatv2_tpu_torch.ops.merge import (
+    merged_attention,
+    merged_attention_exchange,
+)
 from gatv2_tpu_torch.ops.pallas_bwd_dst import pallas_bwd_dst
 from gatv2_tpu_torch.ops.pallas_bwd_src import pallas_bwd_src
 from gatv2_tpu_torch.ops.pallas_fwd import MAX_HD, STATS_L, TILE_N, pallas_fwd
@@ -646,14 +649,45 @@ def edge_attention_pallas_merge(
     num_nodes rows in the shape family of the zs parts."""
     ets = tuple(edge_tiles_parts)
     zs_parts = tuple(zs_parts)
-    if len(ets) != len(zs_parts) or not ets:
-        raise ValueError("need one EdgeTiles per zs part")
-    for zs_k, et in zip(zs_parts, ets):
-        if zs_k.shape[0] not in (et.src_num_nodes, et.padded_src_nodes):
-            raise ValueError(
-                f"zs part has {zs_k.shape[0]} rows; its tiles' src space is "
-                f"{et.src_num_nodes} (padded {et.padded_src_nodes})")
+    _check_merge_parts(ets, [z.shape[0] for z in zs_parts])
     return merged_attention(
         zs_parts, zd, a, num_nodes, negative_slope=negative_slope,
         layouts=ets, forward_raw=_forward_raw, backward=pallas_backward,
         name="edge_attention_pallas_merge")
+
+
+def _check_merge_parts(ets, rows):
+    """One EdgeTiles per zs part, each part `rows[k]` rows of its tiles'
+    (padded) src space."""
+    if len(ets) != len(rows) or not ets:
+        raise ValueError("need one EdgeTiles per zs part")
+    for n, et in zip(rows, ets):
+        if n not in (et.src_num_nodes, et.padded_src_nodes):
+            raise ValueError(
+                f"zs part has {n} rows; its tiles' src space is "
+                f"{et.src_num_nodes} (padded {et.padded_src_nodes})")
+
+
+def edge_attention_pallas_merge_exchange(
+    zs_loc: torch.Tensor,  # [N_loc, H*D] / [N_loc, H, D] local projections
+    send: torch.Tensor,  # [S, M, ...] the rows this rank sends each peer
+    zd: torch.Tensor,  # [N_dst, H, D] / [N_dst, H*D] dst projections
+    a: torch.Tensor,  # [H, D]
+    num_nodes: int,  # real dst-node count
+    *,
+    group,  # the S ranks of the exchange
+    negative_slope: float,
+    edge_tiles_parts,  # (local, halo) EdgeTiles; halo src space S*M rows
+) -> torch.Tensor:
+    """edge_attention_pallas_merge of the overlapped sharded layer with
+    the boundary halo exchange inside (ops/merge.py): K5 of the local pass
+    runs while the all_to_all of `send` is in flight, the halo pass's K5
+    after its wait; in the backward the reverse exchange of the halo rows'
+    gradient runs under the local pass's K6 + K7. Bit-equal to
+    edge_attention_pallas_merge((zs_loc, all_to_all(send)), ...)."""
+    ets = tuple(edge_tiles_parts)
+    _check_merge_parts(ets, [zs_loc.shape[0], send.shape[0] * send.shape[1]])
+    return merged_attention_exchange(
+        zs_loc, send, zd, a, num_nodes, group=group,
+        negative_slope=negative_slope, layouts=ets, forward_raw=_forward_raw,
+        backward=pallas_backward, name="edge_attention_pallas_merge_exchange")

@@ -37,7 +37,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from gatv2_tpu_torch.ops.merge import merged_attention
+from gatv2_tpu_torch.ops.merge import (
+    merged_attention,
+    merged_attention_exchange,
+)
 from gatv2_tpu_torch.ops.segment import SOFTMAX_EPS, segment_max, segment_sum
 from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst
 from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src
@@ -973,18 +976,49 @@ def sell_attention_merge(
     parts."""
     sts = tuple(sell_tiles_parts)
     zs_parts = tuple(zs_parts)
-    if len(sts) != len(zs_parts) or not sts:
+    _check_merge_parts(sts, [z.shape[0] for z in zs_parts])
+    return merged_attention(
+        zs_parts, zd, a, num_nodes, negative_slope=negative_slope,
+        layouts=sts, forward_raw=_forward_raw, backward=sell_backward,
+        name="sell_attention_merge")
+
+
+def _check_merge_parts(sts, rows):
+    """One unsplit SellTiles per zs part, each part `rows[k]` rows of its
+    tiles' (padded) src space."""
+    if len(sts) != len(rows) or not sts:
         raise ValueError("need one SellTiles per zs part")
     if any(st.dst.split or st.srcs.split for st in sts):
         raise ValueError(
             "merge path needs UNSPLIT layouts (build its tiles with "
             "split_cap=None; prepare_overlap_sell_tiles does)")
-    for zs_k, st in zip(zs_parts, sts):
-        if zs_k.shape[0] not in (st.num_src_nodes, st.padded_src_nodes):
+    for n, st in zip(rows, sts):
+        if n not in (st.num_src_nodes, st.padded_src_nodes):
             raise ValueError(
-                f"zs part has {zs_k.shape[0]} rows; its tiles' src space "
+                f"zs part has {n} rows; its tiles' src space "
                 f"is {st.num_src_nodes} (padded {st.padded_src_nodes})")
-    return merged_attention(
-        zs_parts, zd, a, num_nodes, negative_slope=negative_slope,
-        layouts=sts, forward_raw=_forward_raw, backward=sell_backward,
-        name="sell_attention_merge")
+
+
+def sell_attention_merge_exchange(
+    zs_loc: torch.Tensor,  # [N_loc, H*D] / [N_loc, H, D] local projections
+    send: torch.Tensor,  # [S, M, ...] the rows this rank sends each peer
+    zd: torch.Tensor,  # [N_dst, H, D] / [N_dst, H*D] dst projections
+    a: torch.Tensor,  # [H, D]
+    num_nodes: int,  # real dst-node count
+    *,
+    group,  # the S ranks of the exchange
+    negative_slope: float,
+    sell_tiles_parts,  # (local, halo) SellTiles; halo src space S*M rows
+) -> torch.Tensor:
+    """sell_attention_merge of the overlapped sharded layer with the
+    boundary halo exchange inside (ops/merge.py): K1 of the local pass
+    runs while the all_to_all of `send` is in flight, the halo pass's K1
+    after its wait; in the backward the reverse exchange of the halo rows'
+    gradient runs under the local pass's K2 + K3. Bit-equal to
+    sell_attention_merge((zs_loc, all_to_all(send)), ...)."""
+    sts = tuple(sell_tiles_parts)
+    _check_merge_parts(sts, [zs_loc.shape[0], send.shape[0] * send.shape[1]])
+    return merged_attention_exchange(
+        zs_loc, send, zd, a, num_nodes, group=group,
+        negative_slope=negative_slope, layouts=sts, forward_raw=_forward_raw,
+        backward=sell_backward, name="sell_attention_merge_exchange")

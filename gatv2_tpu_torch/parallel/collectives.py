@@ -12,6 +12,12 @@ exact adjoint:
   all_to_all    (boundary halo)  -> the reverse all_to_all;
   all_reduce    (head psum of the last layer) -> all_reduce.
 
+The overlap layer splits the boundary all_to_all into its start
+(all_to_all_start, async_op=True) and its wait (PendingAllToAll.wait), so
+that the local pass runs while the rows are in flight. With NCCL, wait()
+orders the current stream after the transfer and does not block the host;
+with gloo it blocks the host until the rows have arrived.
+
 A group of one rank moves nothing. The same calls serve NCCL and gloo:
 gloo takes CUDA tensors for all_reduce, broadcast, all_gather_into_tensor,
 reduce_scatter_tensor and all_to_all_single (torch 2.11 on an H100;
@@ -58,6 +64,36 @@ def all_to_all_dim0(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+class PendingAllToAll:
+    """An all_to_all_dim0 in flight (all_to_all_start). It holds the send
+    buffer and the output until wait() returns: gloo copies CUDA tensors
+    off the current stream, so neither may be freed before then. Every
+    start must be waited on, also when the work between start and wait
+    raises, or the ranks' collective order breaks."""
+
+    def __init__(self, send: torch.Tensor, out: torch.Tensor, work, group):
+        self._send, self._out, self._work = send, out, work
+        self.group = group
+
+    def wait(self) -> torch.Tensor:
+        """The exchanged tensor, out[j] on rank r = send[r] on rank j."""
+        if self._work is not None:
+            self._work.wait()
+            self._work = self._send = None
+        return self._out
+
+
+def all_to_all_start(x: torch.Tensor, group) -> PendingAllToAll:
+    """Start all_to_all_dim0(x) and return at once; not differentiable
+    (all_to_all_wait is)."""
+    send = x.detach().contiguous()
+    if group_size(group) == 1:
+        return PendingAllToAll(send, send, None, group)
+    out = torch.empty_like(send)
+    work = dist.all_to_all_single(out, send, group=group, async_op=True)
+    return PendingAllToAll(send, out, work, group)
+
+
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """A new tensor holding the sum of x over the group's ranks."""
     if group_size(group) == 1:
@@ -89,6 +125,20 @@ class _AllToAll(torch.autograd.Function):
         return all_to_all_dim0(g, ctx.group), None
 
 
+class _AllToAllWait(torch.autograd.Function):
+    """The wait of an all_to_all started on x, with the reverse all_to_all
+    as its backward (run when autograd reaches it, as _AllToAll's)."""
+
+    @staticmethod
+    def forward(ctx, x, pending):
+        ctx.group = pending.group
+        return pending.wait()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_to_all_dim0(g, ctx.group), None
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -111,6 +161,13 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """Route x[j] ([S, ...] per rank) to rank j; differentiable."""
     return _AllToAll.apply(x, group)
+
+
+def all_to_all_wait(x: torch.Tensor,
+                    pending: PendingAllToAll) -> torch.Tensor:
+    """pending.wait() for the all_to_all_start(x, group) that made
+    `pending`; differentiable in x, as all_to_all(x, group) is."""
+    return _AllToAllWait.apply(x, pending)
 
 
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:

@@ -29,11 +29,21 @@ Routes per layer (_sharded_layer), as in the JAX package:
     passes (local sources, halo sources) whose softmax stats merge;
   - 'sell' / 'pallas': the fused kernels (K1-K4 / K5-K8) on per-shard
     bipartite layouts, one pass;
-  - 'sell' / 'pallas' with overlap tiles: sell_attention_merge /
-    edge_attention_pallas_merge on the (local, halo) layout pair, K1 / K5
-    with normalize=False per pass.
-The collectives are synchronous calls, so the overlap layers' local pass
-does not yet run while the exchange is in flight.
+  - 'sell' / 'pallas' with overlap tiles: sell_attention_merge_exchange /
+    edge_attention_pallas_merge_exchange on the (local, halo) layout pair,
+    K1 / K5 with normalize=False per pass.
+
+Overlap (--overlap): the boundary all_to_all is started asynchronously
+(collectives.all_to_all_start) and the local pass, which reads no
+exchanged row, runs before its wait. On the fused routes the exchange
+lives inside the op (ops/merge.py): forward, start -> local pass -> wait
+-> halo pass; backward, halo pass -> start of the reverse exchange of the
+halo rows' gradient -> local pass -> wait. On the 'torch' route the
+forward computes the local edges' scores and their max between start and
+wait; its backward is autograd's order, so the reverse exchange runs
+synchronously when the engine reaches it. The other collectives are
+synchronous calls. The results are those of an exchange that finishes
+before either pass (the JAX package's numbers).
 """
 
 from __future__ import annotations
@@ -52,7 +62,9 @@ from gatv2_tpu_torch.config import ModelConfig, TrainConfig
 from gatv2_tpu_torch.device import resolve_device
 from gatv2_tpu_torch.models.gatv2 import GATv2, dense, init_params_for_variant
 from gatv2_tpu_torch.ops.attention import edge_attention
-from gatv2_tpu_torch.ops.pallas_attention import edge_attention_pallas_merge
+from gatv2_tpu_torch.ops.pallas_attention import (
+    edge_attention_pallas_merge_exchange,
+)
 from gatv2_tpu_torch.ops.segment import (
     EXP_CLAMP,
     SOFTMAX_EPS,
@@ -60,7 +72,7 @@ from gatv2_tpu_torch.ops.segment import (
     segment_softmax,
     segment_sum,
 )
-from gatv2_tpu_torch.ops.sell_attention import sell_attention_merge
+from gatv2_tpu_torch.ops.sell_attention import sell_attention_merge_exchange
 from gatv2_tpu_torch.parallel import collectives as cc
 from gatv2_tpu_torch.parallel.mesh import Mesh, make_mesh
 from gatv2_tpu_torch.parallel.partition import (
@@ -137,14 +149,56 @@ def gather_params(local: GATv2, model_config: ModelConfig,
     return full
 
 
+def _halo_send(zs_loc, send_ids_me):
+    """[S, M, ...]: the rows of zs_loc each peer's edges reference (the
+    index_select's backward scatters their gradient back)."""
+    send = zs_loc.index_select(0, send_ids_me.reshape(-1))
+    return send.reshape(*send_ids_me.shape, *zs_loc.shape[1:])
+
+
 def _halo_all_to_all(zs_loc, send_ids_me, group):
     """Boundary-only halo exchange: gather the rows each peer references,
     route them with one all_to_all (its backward the reverse one)."""
-    s_count, m = send_ids_me.shape
-    send = zs_loc.index_select(0, send_ids_me.reshape(-1))
-    send = send.reshape(s_count, m, *zs_loc.shape[1:])
-    return cc.all_to_all(send, group).reshape(s_count * m,
-                                              *zs_loc.shape[1:])
+    send = _halo_send(zs_loc, send_ids_me)
+    return cc.all_to_all(send, group).reshape(-1, *zs_loc.shape[1:])
+
+
+def _overlap_attention_torch(zs_loc, zd_loc, a, lay, group, slope):
+    """The overlap layer on the 'torch' route: local-source edges, then
+    halo-source edges; the per-destination softmax stats merge exactly
+    (the same max shift and eps as segment_softmax). The exchange is
+    started first and waited on after the local edges' scores, gather and
+    max; its backward (the reverse all_to_all) runs synchronously in
+    autograd's order. -> h [n_loc, nh, hd]."""
+    n_loc = zs_loc.shape[0]
+    nh, hdim = a.shape
+    zs3, zd3 = zs_loc.view(n_loc, nh, hdim), zd_loc.view(n_loc, nh, hdim)
+    l_src, l_dst, h_src, h_dst = (t.long() for t in lay.overlap)
+
+    def edge_scores(space, src_idx, dst_idx):
+        zs_e = space[src_idx]
+        s = nn.functional.leaky_relu(zs_e + zd3[dst_idx], slope)
+        return torch.einsum("ehd,hd->eh", s, a), zs_e
+
+    send = _halo_send(zs_loc, lay.send_ids)
+    pending = cc.all_to_all_start(send, group)
+    try:
+        e1, zs1 = edge_scores(zs3, l_src, l_dst)
+        m1 = segment_max(e1, l_dst, n_loc)
+    finally:
+        halo_rows = cc.all_to_all_wait(send, pending)
+    e2, zs2 = edge_scores(halo_rows.view(-1, nh, hdim), h_src, h_dst)
+    m_all = torch.maximum(m1, segment_max(e2, h_dst, n_loc))
+    m_all = torch.where(torch.isfinite(m_all), m_all, 0.0)
+
+    def pass_sums(e_k, zs_k, dst_k):
+        w = torch.exp(torch.clamp(e_k - m_all[dst_k], min=EXP_CLAMP))
+        return (segment_sum(w[:, :, None] * zs_k, dst_k, n_loc),
+                segment_sum(w, dst_k, n_loc))
+
+    u1, l1 = pass_sums(e1, zs1, l_dst)
+    u2, l2 = pass_sums(e2, zs2, h_dst)
+    return (u1 + u2) / (l1 + l2 + SOFTMAX_EPS)[:, :, None]
 
 
 @dataclasses.dataclass
@@ -204,50 +258,24 @@ def _sharded_layer(layer, x_loc: torch.Tensor, lay: ShardLayout, *,
 
     if lay.overlap_tiles is not None and lay.send_ids is not None:
         # the overlap layer on the fused kernels: a LOCAL pass that does
-        # not read the exchanged rows and a HALO pass that does, their
-        # per-destination softmax stats merged in the op. The exchange
-        # returns before either pass runs (the collectives here are
-        # synchronous), so nothing overlaps yet; the passes are the JAX
-        # package's
-        halo_rows = _halo_all_to_all(zs_loc, lay.send_ids, mesh.graph)
+        # not read the exchanged rows runs while they are in flight, then
+        # a HALO pass that does; their per-destination softmax stats merge
+        # in the op (the JAX package's passes)
+        send = _halo_send(zs_loc, lay.send_ids)
+        kw = dict(group=mesh.graph, negative_slope=slope)
         if impl == "sell":
-            h = sell_attention_merge(
-                (zs_loc, halo_rows), zd_loc, a, n_loc, negative_slope=slope,
-                sell_tiles_parts=lay.overlap_tiles)
+            h = sell_attention_merge_exchange(
+                zs_loc, send, zd_loc, a, n_loc,
+                sell_tiles_parts=lay.overlap_tiles, **kw)
         else:
-            h = edge_attention_pallas_merge(
-                (zs_loc, halo_rows), zd_loc, a, n_loc, negative_slope=slope,
-                edge_tiles_parts=lay.overlap_tiles)
+            h = edge_attention_pallas_merge_exchange(
+                zs_loc, send, zd_loc, a, n_loc,
+                edge_tiles_parts=lay.overlap_tiles, **kw)
         return _combine_heads(h.view(n_loc, nh, hdim), n_loc, **combine)
 
     if lay.overlap is not None and lay.send_ids is not None:
-        # the overlap layer on the 'torch' route: local-source edges, then
-        # halo-source edges; the per-destination softmax stats merge
-        # exactly (the same max shift and eps as segment_softmax)
-        halo_rows = _halo_all_to_all(zs_loc, lay.send_ids, mesh.graph)
-        zs3, zd3 = zs_loc.view(n_loc, nh, hdim), zd_loc.view(n_loc, nh, hdim)
-        halo3 = halo_rows.view(-1, nh, hdim)
-        l_src, l_dst, h_src, h_dst = (t.long() for t in lay.overlap)
-
-        def edge_scores(space, src_idx, dst_idx):
-            zs_e = space[src_idx]
-            s = nn.functional.leaky_relu(zs_e + zd3[dst_idx], slope)
-            return torch.einsum("ehd,hd->eh", s, a), zs_e
-
-        e1, zs1 = edge_scores(zs3, l_src, l_dst)
-        e2, zs2 = edge_scores(halo3, h_src, h_dst)
-        m_all = torch.maximum(segment_max(e1, l_dst, n_loc),
-                              segment_max(e2, h_dst, n_loc))
-        m_all = torch.where(torch.isfinite(m_all), m_all, 0.0)
-
-        def pass_sums(e_k, zs_k, dst_k):
-            w = torch.exp(torch.clamp(e_k - m_all[dst_k], min=EXP_CLAMP))
-            return (segment_sum(w[:, :, None] * zs_k, dst_k, n_loc),
-                    segment_sum(w, dst_k, n_loc))
-
-        u1, l1 = pass_sums(e1, zs1, l_dst)
-        u2, l2 = pass_sums(e2, zs2, h_dst)
-        h = (u1 + u2) / (l1 + l2 + SOFTMAX_EPS)[:, :, None]
+        h = _overlap_attention_torch(zs_loc, zd_loc, a, lay, mesh.graph,
+                                     slope)
         return _combine_heads(h, n_loc, **combine)
 
     if lay.send_ids is None:

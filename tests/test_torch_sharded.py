@@ -13,14 +13,18 @@ Tolerances (tests/test_sharding.py's, for the same checks): sharded loss
 1e-5 relative and accuracy 1e-6 against a single device, gradients rtol
 5e-4 / atol 1e-6 (2e-6 on the fused routes); halo against all_gather
 1e-6 and 1e-5 / 1e-7; each overlap route against its single pass 1e-5
-and 1e-4 / 1e-6; data-parallel minibatch losses 1e-5 relative.
+and 1e-4 / 1e-6; data-parallel minibatch losses 1e-5 relative; the
+overlap layer's asynchronous exchange against a synchronous one 1e-6
+relative. Both reference variants ('edge', 'node') run on the mesh.
 """
 
+import contextlib
 import dataclasses
 import os
 import re
 import subprocess
 import sys
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -30,6 +34,10 @@ from gatv2_tpu_torch import config as tconfig
 from gatv2_tpu_torch.data import synthetic as tsyn
 from gatv2_tpu_torch.data.splits import random_splits
 from gatv2_tpu_torch.models.params_io import params_from_numpy
+from gatv2_tpu_torch.ops import pallas_attention as tpa
+from gatv2_tpu_torch.ops import segment as tseg
+from gatv2_tpu_torch.ops import sell_attention as tsa
+from gatv2_tpu_torch.parallel import collectives as cc
 from gatv2_tpu_torch.parallel import partition as tpart
 from gatv2_tpu_torch.parallel import sharded as tsh
 from gatv2_tpu_torch.parallel.mesh import make_mesh
@@ -48,9 +56,9 @@ def _graph():
     return tsyn.random_graph(**GRAPH)
 
 
-def _config(g, **kw):
+def _config(g, variant="edge", **kw):
     return tconfig.ModelConfig(**ARCH, num_classes=g.num_classes,
-                               in_dim=g.feature_dim, **kw)
+                               in_dim=g.feature_dim, variant=variant, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -80,18 +88,9 @@ def _layout(pg, mesh, route, impl):
     return tsh.shard_layout(pg, mesh.graph_index, "cpu", **kw)
 
 
-def rank_loss_and_grads(info, params_np, ranks, head_shards, impl, route,
-                        remat=False):
-    """The mesh's loss, accuracy and full gradients (head shards gathered)
-    from the given full parameters; the eval step's loss must be the
-    training loss's value."""
-    g = _graph()
-    config = _config(g, remat=remat)
-    mesh = make_mesh(ranks, head_shards=head_shards, device="cpu")
-    if mesh is None:
-        return None
-    pg = tpart.partition_graph(g, mesh.graph_size)
-    layout = _layout(pg, mesh, route, impl)
+def _mesh_loss_and_grads(config, mesh, pg, layout, params_np, impl):
+    """(loss, accuracy, full gradients, this rank's params) of one sharded
+    step from the given full parameters."""
     params = tsh.shard_params(params_from_numpy(params_np), config, mesh)
     loss_fn = tsh.make_sharded_loss_fn(config, mesh, pg.num_real_nodes,
                                        impl=impl, layout=layout)
@@ -102,12 +101,157 @@ def rank_loss_and_grads(info, params_np, ranks, head_shards, impl, route,
     mask = tsh._sharded_leaf_mask(config, mesh)
     full = [tsh._gather_leaf(gr, m, mesh).numpy()
             for gr, m in zip(grads, mask)]
+    return float(loss.detach()), float(acc), full, params
+
+
+def rank_loss_and_grads(info, params_np, ranks, head_shards, impl, route,
+                        remat=False, variant="edge"):
+    """The mesh's loss, accuracy and full gradients (head shards gathered)
+    from the given full parameters; the eval step's loss must be the
+    training loss's value."""
+    g = _graph()
+    config = _config(g, variant=variant, remat=remat)
+    mesh = make_mesh(ranks, head_shards=head_shards, device="cpu")
+    if mesh is None:
+        return None
+    pg = tpart.partition_graph(g, mesh.graph_size)
+    layout = _layout(pg, mesh, route, impl)
+    loss, acc, full, params = _mesh_loss_and_grads(config, mesh, pg, layout,
+                                                   params_np, impl)
+    rows = pg.shard_rows(mesh.graph_index)
     eval_loss, eval_acc = tsh.make_sharded_eval_step(
         config, mesh, pg.num_real_nodes, impl=impl, layout=layout)(
         params, torch.as_tensor(pg.features[rows]),
         torch.as_tensor(pg.labels[rows]))
-    assert (float(eval_loss), float(eval_acc)) == (float(loss), float(acc))
-    return float(loss.detach()), float(acc), full
+    assert (float(eval_loss), float(eval_acc)) == (loss, acc)
+    return loss, acc, full
+
+
+def _sync_merge(op, tiles_kw):
+    """The fused overlap op with the exchange finished before either pass:
+    a synchronous all_to_all, then the plain merge of both parts."""
+    def merge(zs_loc, send, zd, a, n, *, group, negative_slope, **kw):
+        halo = cc.all_to_all(send, group).reshape(-1, *zs_loc.shape[1:])
+        return op((zs_loc, halo), zd, a, n, negative_slope=negative_slope,
+                  **{tiles_kw: kw[tiles_kw]})
+    return merge
+
+
+def _sync_overlap_torch(zs_loc, zd_loc, a, lay, group, slope):
+    """The 'torch' overlap layer with the exchange finished before either
+    pass (the JAX package's arithmetic, term for term)."""
+    n_loc = zs_loc.shape[0]
+    nh, hdim = a.shape
+    halo = tsh._halo_all_to_all(zs_loc, lay.send_ids, group)
+    zs3, zd3 = zs_loc.view(n_loc, nh, hdim), zd_loc.view(n_loc, nh, hdim)
+    l_src, l_dst, h_src, h_dst = (t.long() for t in lay.overlap)
+
+    def edge_scores(space, src_idx, dst_idx):
+        zs_e = space[src_idx]
+        s = torch.nn.functional.leaky_relu(zs_e + zd3[dst_idx], slope)
+        return torch.einsum("ehd,hd->eh", s, a), zs_e
+
+    e1, zs1 = edge_scores(zs3, l_src, l_dst)
+    e2, zs2 = edge_scores(halo.view(-1, nh, hdim), h_src, h_dst)
+    m_all = torch.maximum(tseg.segment_max(e1, l_dst, n_loc),
+                          tseg.segment_max(e2, h_dst, n_loc))
+    m_all = torch.where(torch.isfinite(m_all), m_all, 0.0)
+
+    def pass_sums(e_k, zs_k, dst_k):
+        w = torch.exp(torch.clamp(e_k - m_all[dst_k], min=tseg.EXP_CLAMP))
+        return (tseg.segment_sum(w[:, :, None] * zs_k, dst_k, n_loc),
+                tseg.segment_sum(w, dst_k, n_loc))
+
+    u1, l1 = pass_sums(e1, zs1, l_dst)
+    u2, l2 = pass_sums(e2, zs2, h_dst)
+    return (u1 + u2) / (l1 + l2 + tseg.SOFTMAX_EPS)[:, :, None]
+
+
+@contextlib.contextmanager
+def _patched(*triples):
+    """(module, name, value): each attribute set for the with block."""
+    with contextlib.ExitStack() as stack:
+        for mod, name, value in triples:
+            stack.enter_context(mock.patch.object(mod, name, value))
+        yield
+
+
+def rank_overlap_order(info, params_np, impl):
+    """One step of the overlap layer of `impl` on a 4-rank 'graph' mesh,
+    with the exchange's start and wait and the passes recorded in host
+    order: the fused routes' forward_raw / backward per pass (local or
+    halo, told apart by a leaf of the pass's layout), the 'torch' route's
+    segment_max over the local or the halo edges. Then the same step with
+    the exchange finished before either pass (_sync_merge,
+    _sync_overlap_torch). Returns (the record, the overlap step's loss,
+    accuracy and gradients, the synchronous step's)."""
+    g = _graph()
+    config = _config(g)
+    mesh = make_mesh(4, device="cpu")
+    pg = tpart.partition_graph(g, mesh.graph_size)
+    layout = _layout(pg, mesh, "overlap", impl)
+    log = []
+
+    class Pending:
+        def __init__(self, pending):
+            self._pending, self.group = pending, pending.group
+
+        def wait(self):
+            out = self._pending.wait()
+            log.append("wait")
+            return out
+
+    start = cc.all_to_all_start
+
+    def logged_start(x, group):
+        log.append("start")
+        return Pending(start(x, group))
+
+    patches = [(cc, "all_to_all_start", logged_start)]
+    if impl == "torch":
+        n_local = layout.overlap[0].shape[0]
+        seg_max = tsh.segment_max
+
+        def logged_max(e, ids, n):
+            log.append("max " + ("local" if e.shape[0] == n_local
+                                 else "halo"))
+            return seg_max(e, ids, n)
+
+        patches.append((tsh, "segment_max", logged_max))
+        sync = [(tsh, "_overlap_attention_torch", _sync_overlap_torch)]
+    else:
+        mod = tsa if impl == "sell" else tpa
+        bwd_name = "sell_backward" if impl == "sell" else "pallas_backward"
+        fwd, bwd = mod._forward_raw, getattr(mod, bwd_name)
+        leaf = (lambda t: t.ell_perm) if impl == "sell" else (lambda t: t.src)
+        local_leaf = leaf(layout.overlap_tiles[0])
+        which = lambda lay: "local" if leaf(lay) is local_leaf else "halo"
+
+        def logged_fwd(zs2, zd2, a, lay, slope):
+            out = fwd(zs2, zd2, a, lay, slope)
+            log.append("fwd " + which(lay))
+            return out
+
+        def logged_bwd(*args):
+            out = bwd(*args)
+            log.append("bwd " + which(args[6]))
+            return out
+
+        patches += [(mod, "_forward_raw", logged_fwd),
+                    (mod, bwd_name, logged_bwd)]
+        exch, op, kw = (
+            ("sell_attention_merge_exchange", tsa.sell_attention_merge,
+             "sell_tiles_parts") if impl == "sell" else
+            ("edge_attention_pallas_merge_exchange",
+             tpa.edge_attention_pallas_merge, "edge_tiles_parts"))
+        sync = [(tsh, exch, _sync_merge(op, kw))]
+    with _patched(*patches):
+        got = _mesh_loss_and_grads(config, mesh, pg, layout, params_np,
+                                   impl)[:3]
+    with _patched(*sync):
+        want = _mesh_loss_and_grads(config, mesh, pg, layout, params_np,
+                                    impl)[:3]
+    return log, got, want
 
 
 def rank_trainer(info, ranks, head_shards, impl, epochs, overlap, graph_kw,
@@ -228,17 +372,20 @@ def pool():
 # ---------------------------------------------------------------------------
 
 
-def _jax_setup(key):
+def _jax_setup(key, variant="edge"):
+    """The JAX graph, config and parameters (the 'node' variant's from
+    init_params_for_variant, its draw order)."""
     import jax
 
     from gatv2_tpu.config import ModelConfig
     from gatv2_tpu.data import synthetic as jsyn
-    from gatv2_tpu.models.gatv2 import init_params
+    from gatv2_tpu.models.gatv2 import init_params, init_params_for_variant
 
     g = jsyn.random_graph(**GRAPH)
     config = ModelConfig(**ARCH, num_classes=g.num_classes,
-                         in_dim=g.feature_dim)
-    params = init_params(config, jax.random.PRNGKey(key))
+                         in_dim=g.feature_dim, variant=variant)
+    init = init_params if variant == "edge" else init_params_for_variant
+    params = init(config, jax.random.PRNGKey(key))
     return g, config, params, jax.tree.map(np.asarray, params)
 
 
@@ -268,23 +415,37 @@ def _assert_grads(got, want, rtol=5e-4, atol=1e-6):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("ranks,head_shards,impl,remat", [
-    (2, 1, "torch", False), (4, 1, "torch", False), (4, 2, "torch", False),
-    (4, 2, "sell", False), (4, 2, "pallas", False), (4, 1, "sell", False),
-    (4, 1, "pallas", False), (2, 1, "sell", True), (4, 2, "torch", True),
+def _case(*args, variant="edge", route=None):
+    """A case whose id is its values (the 'edge' single-pass cases keep
+    their plain ids)."""
+    tail = [x for x in (variant if variant != "edge" else None, route) if x]
+    return pytest.param(*args, variant, route,
+                        id="-".join(map(str, (*args, *tail))))
+
+
+@pytest.mark.parametrize("ranks,head_shards,impl,remat,variant,route", [
+    _case(2, 1, "torch", False), _case(4, 1, "torch", False),
+    _case(4, 2, "torch", False), _case(4, 2, "sell", False),
+    _case(4, 2, "pallas", False), _case(4, 1, "sell", False),
+    _case(4, 1, "pallas", False), _case(2, 1, "sell", True),
+    _case(4, 2, "torch", True), _case(2, 1, "sell", True, route="overlap"),
+    _case(4, 1, "torch", False, variant="node"),
+    _case(4, 2, "sell", False, variant="node"),
+    _case(4, 1, "pallas", False, variant="node"),
 ])
 def test_sharded_loss_and_grads_match_jax_single_device(
-        pool, ranks, head_shards, impl, remat):
+        pool, ranks, head_shards, impl, remat, variant, route):
     """Mesh 2 and 4 over 'graph', and 2 x 2 with head parallelism (layer
     heads (2, 2): both layers head-sharded), on the dense all_gather
     ('torch') or the fused kernels' twins on per-shard layouts with the
-    halo plan; remat recomputes each layer, collectives included, in the
-    backward."""
-    g, config, params, params_np = _jax_setup(3)
+    halo plan, or (route 'overlap') the two-pass layer with its
+    asynchronous exchange; remat recomputes each layer, collectives
+    included, in the backward; both reference variants."""
+    g, config, params, params_np = _jax_setup(3, variant)
     loss_ref, acc_ref, grads_ref = _jax_single_device(g, config, params)
-    route = "dense" if impl == "torch" else "halo"
+    route = route or ("dense" if impl == "torch" else "halo")
     loss, acc, grads = pool.run(rank_loss_and_grads, params_np, ranks,
-                                head_shards, impl, route, remat)[0]
+                                head_shards, impl, route, remat, variant)[0]
     assert loss == pytest.approx(loss_ref, rel=1e-5)
     assert acc == pytest.approx(acc_ref, abs=1e-6)
     _assert_grads(grads, grads_ref, atol=1e-6 if impl == "torch" else 2e-6)
@@ -300,20 +461,76 @@ def test_halo_exchange_matches_all_gather(pool, impl):
     _assert_grads(halo[2], dense[2], rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("impl", ["torch", "sell", "pallas"])
-def test_overlap_routes_match_single_pass(pool, impl):
+@pytest.mark.parametrize("impl,variant", [
+    pytest.param(impl, variant, id=impl + ("-node" if variant == "node"
+                                            else ""))
+    for variant in ("edge", "node") for impl in ("torch", "sell", "pallas")])
+def test_overlap_routes_match_single_pass(pool, impl, variant):
     """The two-pass local/halo layer of each impl (the 'torch' stats
-    merge, sell_attention_merge, edge_attention_pallas_merge) against the
-    impl's single-pass halo layer, and against the JAX single device."""
-    g, config, params, params_np = _jax_setup(9)
-    single = pool.run(rank_loss_and_grads, params_np, 4, 1, impl, "halo")[0]
-    two = pool.run(rank_loss_and_grads, params_np, 4, 1, impl, "overlap")[0]
+    merge, sell_attention_merge_exchange,
+    edge_attention_pallas_merge_exchange) against the impl's single-pass
+    halo layer, and against the JAX single device, in both variants."""
+    g, config, params, params_np = _jax_setup(9, variant)
+    single = pool.run(rank_loss_and_grads, params_np, 4, 1, impl, "halo",
+                      False, variant)[0]
+    two = pool.run(rank_loss_and_grads, params_np, 4, 1, impl, "overlap",
+                   False, variant)[0]
     assert two[0] == pytest.approx(single[0], rel=1e-5)
     assert two[1] == pytest.approx(single[1], abs=1e-6)
     _assert_grads(two[2], single[2], rtol=1e-4, atol=1e-6)
     loss_ref, _, grads_ref = _jax_single_device(g, config, params)
     assert two[0] == pytest.approx(loss_ref, rel=1e-5)
     _assert_grads(two[2], grads_ref, atol=2e-6)
+
+
+@pytest.mark.parametrize("impl", ["sell", "pallas", "torch"])
+def test_overlap_exchange_runs_under_the_local_pass(pool, impl):
+    """On every rank and in every layer, the overlap layer's host order:
+    forward, exchange started -> local pass -> wait -> halo pass (on
+    'torch', the max over the local edges, then over the halo edges);
+    backward on the fused routes, halo pass -> reverse exchange started ->
+    local pass -> wait. Loss and gradients equal those of the same step
+    with a synchronous exchange to 1e-6."""
+    _, _, _, params_np = _jax_setup(6)
+    if impl == "torch":
+        fwd, bwd = ["start", "max local", "wait", "max halo"], []
+    else:
+        fwd = ["start", "fwd local", "wait", "fwd halo"]
+        bwd = ["bwd halo", "start", "bwd local", "wait"]
+    layers = ARCH["num_layers"]
+    for log, got, want in pool.run(rank_overlap_order, params_np, impl):
+        assert log == fwd * layers + bwd * layers
+        assert got[0] == pytest.approx(want[0], rel=1e-6)
+        assert got[1] == want[1]
+        _assert_grads(got[2], want[2], rtol=1e-6, atol=0)
+
+
+def test_torchrun_start_matches_rankpool_start():
+    """python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+    gatv2_tpu_torch.train --mesh 2 --overlap --device cpu (each process
+    joins from torchrun's environment: multihost.is_multihost_env,
+    initialize) prints the lines of the same command started without
+    torchrun (its RankPool), losses to 6 decimals included, with the
+    epoch times masked; rank 1 prints nothing of its own."""
+    argv = ["-m", "gatv2_tpu_torch.train", "--dataset", "karate",
+            "--data-root", "./data", "--mesh", "2", "--impl", "sell",
+            "--overlap", "--device", "cpu", "--epochs", "3", "--seed", "1"]
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    outs = []
+    for cmd in ([sys.executable, "-m", "torch.distributed.run",
+                 "--standalone", "--nproc-per-node", "2", *argv],
+                [sys.executable, *argv]):
+        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=120)
+        assert r.returncode == 0, r.stderr[-3000:]
+        outs.append([re.sub(r"total time: \S+ ms", "total time: - ms", l)
+                     for l in r.stdout.splitlines()])
+    torchrun, pool_start = outs
+    assert torchrun == pool_start
+    losses = [l for l in torchrun if l.startswith("Avg Loss: ")]
+    assert len(losses) == 3
+    assert "Transport: gloo, 2 ranks on the CPU" in torchrun
+    assert any(l.startswith("Overlap: two-pass") for l in torchrun)
 
 
 def test_sharded_trainer_matches_jax_trainer(pool):
