@@ -132,7 +132,13 @@ Phases (any failure exits non-zero):
      of seed-weighted group steps; the sharded multi-epoch runner on the
      arxiv sell route against ShardedTrainer's losses, with its
      differenced epoch ms; and `train --mesh 2` on karate;
- 16. the total seconds, one JSON line listing every kernel, the
+ 16. the bench (gatv2_tpu_torch/bench.py) and its tools: bench_config on
+     arxiv for sell and pallas (their epoch ms within 25% of 8b's runner
+     epoch, the two timed in turns),
+     a 2-rank --mesh 2 arxiv sell line (k1=1, k2=3, 3 reps), the minibatch
+     tool on products-sub for 5 batches and one profile tool summary on
+     arxiv; each line must hold its fields, no NaN and no correct: false;
+ 17. the total seconds, one JSON line listing every kernel, the
      nvidia-smi line, then the result line
      {"ok": true, "device": {...}}.
 
@@ -160,6 +166,8 @@ import warnings
 import numpy as np
 import torch
 
+from gatv2_tpu_torch import bench
+from gatv2_tpu_torch.bench import differenced_ms, timing_line
 from gatv2_tpu_torch.config import ModelConfig, TrainConfig
 from gatv2_tpu_torch.data.graph import Graph
 from gatv2_tpu_torch.data.io import load_dataset
@@ -1171,43 +1179,6 @@ def without_host_sync(fn):
         torch.cuda.set_sync_debug_mode("default")
 
 
-def differenced_ms(runs, plan):
-    """bench.py's _differenced_timing on CUDA events, for each of `runs`
-    ({name: run_k}): run_k(k1) and run_k(k2) once each to warm up, then
-    reps pairs, the runs taking turns (their order alternating from rep to
-    rep); each pair gives (t(k2) - t(k1)) / (k2 - k1) ms an epoch, which
-    cancels the fixed cost of a call. Returns {name: the reps values}."""
-    k1, k2, reps = plan
-
-    def timed(run_k, k):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run_k(k)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
-
-    for run_k in runs.values():
-        timed(run_k, k1)
-        timed(run_k, k2)
-    diffs = {name: [] for name in runs}
-    order = list(runs)
-    for _ in range(reps):
-        for name in order:
-            small = timed(runs[name], k1)
-            diffs[name].append((timed(runs[name], k2) - small) / (k2 - k1))
-        order.reverse()
-    return diffs
-
-
-def timing_line(diffs, plan):
-    k1, k2, reps = plan
-    return (f"median {float(np.median(diffs)):.3f} ms, min {min(diffs):.3f} "
-            f"(differenced, k1={k1}, k2={k2}, {reps} reps: "
-            f"{[round(d, 3) for d in diffs]})")
-
-
 def check_runner(tag, tr, kernels, plan, card, step_reps=5):
     """make_multi_epoch_runner on Trainer tr's layout and weights: the host
     syncs of one Trainer.step (listed); RUNNER_EPOCHS runner epochs under
@@ -1216,7 +1187,9 @@ def check_runner(tag, tr, kernels, plan, card, step_reps=5):
     calls from the same start (the same losses to RUNNER_ATOL; each of
     `kernels` launched RUNNER_EPOCHS times as often as by the first step,
     and at least once); the runner's differenced epoch ms beside
-    Trainer.step's (CUDA events). Returns the runner's launches."""
+    Trainer.step's (CUDA events). Returns the runner's launches, its
+    median epoch ms and its timed run (run_k(k): k epochs from the same
+    start)."""
     mc, tc = tr.model_config, tr.train_config
 
     def next_epoch():
@@ -1270,8 +1243,11 @@ def check_runner(tag, tr, kernels, plan, card, step_reps=5):
     runners = {k: make_multi_epoch_runner(mc, tc, k, edge_tiles=tr.edge_tiles,
                                           num_valid=tr.num_valid)
                for k in plan[:2]}
+    def run_k(k):
+        return runners[k](params, opt, start[2], *args)
+
     diffs = differenced_ms({
-        "runner": lambda k: runners[k](params, opt, start[2], *args),
+        "runner": run_k,
         "Trainer.step": lambda k: [next_epoch() for _ in range(k)],
     }, plan)
     step_ms = cuda_ms(tr.step, reps=step_reps, warmup=1)
@@ -1282,7 +1258,7 @@ def check_runner(tag, tr, kernels, plan, card, step_reps=5):
           f"{timing_line(diffs['Trainer.step'], plan)}, and {step_ms:.3f} "
           f"ms as a mean of {step_reps} calls after 1; runner / step "
           f"(medians) {ratio:.3f} [{card}]")
-    return launches
+    return launches, float(np.median(diffs["runner"])), run_k
 
 
 def phase_runners(model, config, runs, dev, card):
@@ -1291,7 +1267,8 @@ def phase_runners(model, config, runs, dev, card):
     weights), through check_runner; first whether building a tensor from a
     Python scalar with torch.tensor(x, device=cuda) (what apply_updates
     did three times a step before optim.step_count) waits for the device,
-    and that step_count does not. Returns the runners' launches."""
+    and that step_count does not. Returns the runners' launches and their
+    median epoch ms and timed runs by impl."""
     waits = {}
     for name, fn in (
             ("torch.tensor(t, device=cuda)",
@@ -1309,12 +1286,14 @@ def phase_runners(model, config, runs, dev, card):
     trainers = {"sell": runs["arxiv"]["trainer"],
                 "pallas": make_trainer(g, config, "pallas", model, dev)}
     total = dict.fromkeys(KERNELS, 0)
+    epoch_ms, run_k = {}, {}
     for impl, kernels in (("sell", SELL_KERNELS), ("pallas", PALLAS_KERNELS)):
-        launches = check_runner(f"arxiv {impl} runner", trainers[impl],
-                                kernels, RUNNER_PLANS["arxiv"], card)
+        launches, epoch_ms[impl], run_k[impl] = check_runner(
+            f"arxiv {impl} runner", trainers[impl], kernels,
+            RUNNER_PLANS["arxiv"], card)
         for k, v in launches.items():
             total[k] += v
-    return total
+    return total, epoch_ms, run_k
 
 
 def phase_train_entry():
@@ -2929,7 +2908,7 @@ def phase_products_sub_full_graph(mb, dev, card):
     runner_launches = check_runner(
         f"products-sub pallas runner ({et.num_chunks} chunks)",
         trainers["pallas"], CHUNKED_PALLAS_KERNELS,
-        RUNNER_PLANS["products-sub"], card, step_reps=3)
+        RUNNER_PLANS["products-sub"], card, step_reps=3)[0]
     return dict(trainer=trainers["pallas"], launches=launches,
                 runner_launches=runner_launches)
 
@@ -3900,6 +3879,98 @@ def phase_multi_gpu(model, config, runs, mb, dev, card):
     return sharded_launches, dp_launches, err
 
 
+BENCH_PLAN_MESH = (1, 3, 3)
+# the bench's arxiv epoch over the runner epoch of phase 8b, the two timed in
+# turns: the 25% that epochs move between calls
+BENCH_RATIO = (0.75, 1.25)
+MINIBATCH_TOOL_FIELDS = ("device_step_ms", "sample_ms", "replay_per_batch_ms",
+                         "pipelined_per_batch_ms", "pipeline_ratio",
+                         "device", "power_limit_w")
+PROFILE_TOOL_FIELDS = ("wall_ms", "device_busy_ms", "busy_pct", "idle_pct",
+                       "categories_ms", "top_kernels", "device",
+                       "power_limit_w")
+
+
+def check_line(tag, line, fields, nullable=()):
+    """Fails unless `line` holds every one of `fields`, non-null (but for
+    `nullable`), no NaN or infinity, and no `correct: false`."""
+    missing = [k for k in fields if k not in line]
+    null = [k for k in fields if k in line and line[k] is None
+            and k not in nullable]
+    bad = [k for k, v in line.items()
+           if isinstance(v, float) and not np.isfinite(v)]
+    print(f"{tag}: {json.dumps(line)}")
+    if missing or null or bad or line.get("correct") is False:
+        fail(f"{tag}: missing {missing}, null {null}, not finite {bad}, "
+             f"correct {line.get('correct')}")
+
+
+def run_tool(tag, argv, fields, timeout=300):
+    """One of the bench's tools as a subprocess; its last line, checked."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, *argv], cwd=ROOT, text=True,
+                         capture_output=True, timeout=timeout)
+    if out.returncode:
+        fail(f"{tag} exited {out.returncode}: {out.stderr[-3000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    check_line(f"{tag} ({time.perf_counter() - t0:.1f} s)", line, fields)
+    return line
+
+
+def phase_bench(runner_ms, runner_runs, card):
+    """The bench and its tools on the card (phase 16): bench_config on
+    arxiv (sell, pallas), its epoch ms within BENCH_RATIO of the runner
+    epoch of phase 8b timed in turns with it (the arxiv epoch waits on the
+    host's launches, whose pace moves with the host's load between the two
+    phases); `correct: false` for each planted fault; a 2-rank mesh line;
+    the minibatch and profile tools."""
+    t0 = time.perf_counter()
+    for impl in ("sell", "pallas"):
+        r = bench.bench_config("arxiv", impl=impl,
+                               alongside={"8b": runner_runs[impl]})
+        along = r.pop("alongside_ms")["8b"]
+        check_line(f"bench arxiv {impl}", bench.headline(r, "arxiv"),
+                   bench.LINE_FIELDS, nullable=("vs_baseline",))
+        ratio = r["epoch_ms"] / float(np.median(along))
+        print(f"bench arxiv {impl}: epoch {r['epoch_ms']:.3f} ms; runner "
+              f"epoch of phase 8b timed in turns with it "
+              f"{timing_line(along, (r['k1'], r['k2'], r['reps']))}, in "
+              f"phase 8b {runner_ms[impl]:.3f} ms: ratio {ratio:.3f} "
+              f"[{card}]")
+        if not BENCH_RATIO[0] <= ratio <= BENCH_RATIO[1]:
+            fail(f"bench arxiv {impl}: epoch / runner epoch {ratio:.3f} "
+                 f"outside {BENCH_RATIO}")
+    # `correct` catches a fault planted in the sell path at this size
+    for fault, part in bench.FAULTS.items():
+        with bench.planted_fault(fault):
+            r = bench.bench_config("arxiv", impl="sell", k1=1, k2=2, reps=1)
+        err, tol = r["check_errs"][part], bench.CHECK_RTOL[part]
+        print(f"bench arxiv sell, planted {fault}: correct {r['correct']}, "
+              f"{part} {err:.3e} (tol {tol:g}): {r['correct_check']}")
+        if r["correct"] or not err > 10 * tol:
+            fail(f"bench: the planted {fault} passed the check")
+    k1, k2, reps = BENCH_PLAN_MESH
+    r = bench.bench_mesh_config("arxiv", MESH_RANKS, device="cuda",
+                                impl="sell", k1=k1, k2=k2, reps=reps)
+    check_line("bench --mesh 2 arxiv sell",
+               bench.mesh_line(r, "arxiv", MESH_RANKS), bench.MESH_FIELDS)
+    if r["ranks_per_card"] != MESH_RANKS or r["transport"] != "gloo":
+        fail(f"bench --mesh: ranks_per_card {r['ranks_per_card']}, "
+             f"transport {r['transport']}")
+    run_tool("tools/torch_bench_minibatch.py products-sub pallas",
+             ["tools/torch_bench_minibatch.py", "--impl", "pallas",
+              "--batches", "5"], MINIBATCH_TOOL_FIELDS)
+    with tempfile.TemporaryDirectory() as out:
+        line = run_tool("tools/torch_profile_roofline.py arxiv sell",
+                        ["tools/torch_profile_roofline.py", "--config",
+                         "arxiv", "--impl", "sell", "--epochs", "3",
+                         "--top", "8", "--out", out], PROFILE_TOOL_FIELDS)
+    for k in ("K1 sell_fwd", "K2 sell_bwd_dst", "K3 sell_segsum"):
+        if not line["categories_ms"].get(k):
+            fail(f"the profile tool saw no device time in {k}")
+    print(f"bench phase: {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()  # the nvidia-smi name and power limit
@@ -3915,7 +3986,7 @@ def main() -> int:
     pf_runner_launches = check_runner(
         "products-full sell runner (chunked)", pf["trainer"],
         CHUNKED_SELL_KERNELS, RUNNER_PLANS["products-full"], card,
-        step_reps=3)
+        step_reps=3)[0]
     del pf
     torch.cuda.empty_cache()
     model, config, runs, infer_launches = phase_main_path(dev)
@@ -3928,7 +3999,8 @@ def main() -> int:
     err_bwd_cases = phase_bwd_cases(dev)
     phase_forward_times(model, config, runs, dev, card)
     phase_epoch_times(runs, dev, card)
-    runner_launches = phase_runners(model, config, runs, dev, card)
+    runner_launches, runner_ms, runner_runs = phase_runners(
+        model, config, runs, dev, card)
     torch.cuda.empty_cache()
     phase_predict(dev)
     phase_train_entry()
@@ -3954,6 +4026,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded_launches, dp_launches, err_shard = phase_multi_gpu(
         model, config, runs, mb, dev, card)
+    phase_bench(runner_ms, runner_runs, card)
     sell_err = mb_sell["max_err"]
     measured = {
         "sell_fwd": (totals["arxiv"], max(err_main, err_cases, err_pf_k1,

@@ -162,9 +162,9 @@ def _pool_rank(local_rank, nprocs, port, device, backend, threads,
             job = conn.recv()
             if job is None:
                 break
-            fn, args = job
+            fn, args, kwargs = job
             try:
-                conn.send((True, fn(info, *args)))
+                conn.send((True, fn(info, *args, **kwargs)))
             except BaseException:
                 conn.send((False, traceback.format_exc()))
     finally:
@@ -175,7 +175,8 @@ class RankPool:
     """`nprocs` local ranks kept for several jobs, so a caller that runs
     many checks pays the processes' start and the group's rendezvous once.
     `run(fn, *args)` runs fn(RankInfo, *args) on every rank and returns
-    the ranks' results in rank order; a rank's exception is raised here
+    the ranks' results in rank order (keyword arguments pass through
+    too); a rank's exception is raised here
     with its traceback (a rank left waiting in a collective gives up after
     `timeout_s`, torch's default when None). fn must be importable by name
     (the ranks are new processes). Use as a context manager: leaving it
@@ -198,9 +199,9 @@ class RankPool:
             self._conns.append(parent)
             self._procs.append(p)
 
-    def run(self, fn: Callable, *args) -> list[Any]:
+    def run(self, fn: Callable, *args, **kwargs) -> list[Any]:
         for c in self._conns:
-            c.send((fn, args))
+            c.send((fn, args, kwargs))
         results = [c.recv() for c in self._conns]
         for r, (ok, value) in enumerate(results):
             if not ok:

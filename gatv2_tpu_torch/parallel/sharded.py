@@ -136,16 +136,24 @@ def _gather_leaf(t: torch.Tensor, sharded: bool, mesh: Mesh) -> torch.Tensor:
         t.detach()
 
 
+def gather_leaves(leaves: list[torch.Tensor], model_config: ModelConfig,
+                  mesh: Mesh) -> list[torch.Tensor]:
+    """The full model's leaves (param_leaves order: parameters, gradients
+    or optimizer moments) from every rank's (a collective over 'head':
+    every rank of the mesh calls it)."""
+    mask = _sharded_leaf_mask(model_config, mesh)
+    return [_gather_leaf(t, sh, mesh) for t, sh in zip(leaves, mask)]
+
+
 def gather_params(local: GATv2, model_config: ModelConfig,
                   mesh: Mesh) -> GATv2:
     """The full model from every rank's shard (a collective over 'head':
     every rank of the mesh calls it); on local's device."""
     full = GATv2(model_config).to(local.w_o.device)
-    mask = _sharded_leaf_mask(model_config, mesh)
     with torch.no_grad():
-        for dst, src, sh in zip(optim.param_leaves(full),
-                                optim.param_leaves(local), mask):
-            dst.copy_(_gather_leaf(src, sh, mesh))
+        for dst, src in zip(optim.param_leaves(full), gather_leaves(
+                optim.param_leaves(local), model_config, mesh)):
+            dst.copy_(src)
     return full
 
 
@@ -569,6 +577,7 @@ class ShardedTrainer:
         splits: Any = None,
         overlap: bool = False,
         head_shards: int = 1,
+        halo: bool = True,
         device: str | torch.device = "cuda",
     ):
         self.model_config = model_config
@@ -589,7 +598,8 @@ class ShardedTrainer:
         log = self.log
         log(f"Partition: {pg.balance_report()}")
         # boundary-only exchange when it moves less data than an all_gather
-        plan = halo_exchange_plan(pg) if num_shards > 1 else None
+        # (halo=False: always the all_gather)
+        plan = halo_exchange_plan(pg) if halo and num_shards > 1 else None
         if plan is not None and plan.halo_size >= pg.padded_num_nodes:
             plan = None  # no locality in this partition; dense is cheaper
         self.halo_plan = plan
@@ -679,8 +689,7 @@ class ShardedTrainer:
 
     def full_opt_state(self) -> dict:
         """The optimizer state of the full model (a collective)."""
-        mask = _sharded_leaf_mask(self.model_config, self.mesh)
-        return {k: [_gather_leaf(t, sh, self.mesh) for t, sh in zip(v, mask)]
+        return {k: gather_leaves(v, self.model_config, self.mesh)
                 for k, v in self.opt_state.items()}
 
     def load_full_state(self, params: GATv2, opt_state: dict) -> None:
