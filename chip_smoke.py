@@ -138,7 +138,15 @@ Phases (any failure exits non-zero):
      a 2-rank --mesh 2 arxiv sell line (k1=1, k2=3, 3 reps), the minibatch
      tool on products-sub for 5 batches and one profile tool summary on
      arxiv; each line must hold its fields, no NaN and no correct: false;
- 17. the total seconds, one JSON line listing every kernel, the
+ 17. the remaining tools (tools/torch_*.py, the JAX tools' counterparts):
+     the sweep tool on the cora and cora-sell legs (one bench subprocess
+     each) and its report, both legs `correct`, naming the card and in the
+     A/B table; the gradient error at arxiv scale of bf16 streams and of
+     TF32 projections, in this process, with the K1-K3 counters zeroed just
+     before and read just after (each launched); the SELL probe at arxiv
+     scale in a subprocess; the multi-host smoke's sell mode as 2 processes
+     sharing the card over gloo, their losses equal;
+ 18. the total seconds, one JSON line listing every kernel, the
      nvidia-smi line, then the result line
      {"ok": true, "device": {...}}.
 
@@ -153,6 +161,8 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import importlib.util
+import io
 import json
 import os
 import pathlib
@@ -3971,6 +3981,124 @@ def phase_bench(runner_ms, runner_runs, card):
     print(f"bench phase: {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# tools/torch_*.py run by phase_tools: the sweep's legs (cora: small, so a
+# leg takes seconds), the multi-host smoke's processes
+TOOL_SWEEP_LEGS = ("cora", "cora-sell")
+TOOL_HOSTS = 2
+
+
+def _tool(name):
+    """tools/<name>.py as a module (tools/ is no package)."""
+    spec = importlib.util.spec_from_file_location(
+        f"tool_{name}", ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_tool_main(name, argv):
+    """tools/<name>.py's main(argv) in this process; its stdout."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = _tool(name).main(argv)
+    if rc:
+        fail(f"tools/{name}.py {' '.join(argv)} returned {rc}")
+    return buf.getvalue()
+
+
+def _finite_numbers(tag, obj):
+    """Fails unless every number in the (nested) JSON object is finite."""
+    vals = obj.values() if isinstance(obj, dict) else obj
+    for v in vals:
+        if isinstance(v, (dict, list)):
+            _finite_numbers(tag, v)
+        elif isinstance(v, float) and not np.isfinite(v):
+            fail(f"{tag}: a number is not finite: {json.dumps(obj)}")
+
+
+def phase_tools(card):
+    """The JAX tools' counterparts on the card (phase 17). The probe and
+    the two multi-host processes run beside the in-process gradient-error
+    runs (their own processes, so this process's counters count only the
+    latter); the sweep's legs run last, alone. Returns the K1-K3 launches
+    of the gradient-error runs."""
+    t0 = time.perf_counter()
+    name = torch.cuda.get_device_name(0)
+    probe = subprocess.Popen(
+        [sys.executable, "tools/torch_bisect_sell_high.py", "--nodes",
+         str(ARXIV["num_nodes"]), "--edges", str(ARXIV["num_edges"])],
+        cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    port = multihost.free_port()
+    hosts = [subprocess.Popen(
+        [sys.executable, "tools/torch_multihost_smoke.py", str(i),
+         str(TOOL_HOSTS), str(port), "sell"], cwd=ROOT, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        for i in range(TOOL_HOSTS)]
+    try:
+        launches = dict.fromkeys(KERNELS, 0)
+        for argv in (["--streams", "bf16"], ["--precision", "high"]):
+            zero_counters()
+            line = json.loads(run_tool_main("torch_grad_error_at_scale",
+                                            argv).strip().splitlines()[-1])
+            counts = read_counters()
+            print(f"tools/torch_grad_error_at_scale.py {' '.join(argv)}: "
+                  f"{json.dumps(line)}; launches {counts} [{card}]")
+            _finite_numbers("grad error", line)
+            if line["nodes"] != ARXIV["num_nodes"] or line["device"] != name:
+                fail(f"grad error: not arxiv scale on the card: {line}")
+            idle = [k for k in SELL_KERNELS if not counts[k]]
+            if idle:
+                fail(f"grad error {argv}: {idle} never launched")
+            for k in KERNELS:
+                launches[k] += counts[k]
+        out, err = probe.communicate(timeout=300)
+        print(f"tools/torch_bisect_sell_high.py arxiv: {out.strip()}")
+        ran = re.search(r"kernels: (\{.*\})", out)
+        if (probe.returncode or "OK fwd+bwd" not in out or ran is None
+                or not all(json.loads(ran.group(1))[k]
+                           for k in SELL_KERNELS)):
+            fail(f"the SELL probe failed (rc {probe.returncode}): "
+                 f"{out[-1000:]} {err[-2000:]}")
+        losses = []
+        for i, p in enumerate(hosts):
+            out, err = p.communicate(timeout=300)
+            if p.returncode:
+                fail(f"multi-host process {i} exited {p.returncode}: "
+                     f"{err[-2000:]}")
+            losses.append(json.loads(out.strip().splitlines()[-1])["losses"])
+            transport = next((ln for ln in err.splitlines()
+                              if ln.startswith("Transport:")), "")
+            print(f"tools/torch_multihost_smoke.py sell, process {i}: "
+                  f"{losses[-1]} ({transport})")
+            if not transport.startswith("Transport: gloo"):
+                fail(f"multi-host process {i}: {transport!r}, not gloo")
+        if losses[0] != losses[1] or not np.isfinite(losses[0]).all():
+            fail(f"multi-host processes disagree: {losses}")
+    finally:
+        for p in (probe, *hosts):
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    with tempfile.TemporaryDirectory() as d:
+        out = pathlib.Path(d) / "sweep.jsonl"
+        table = run_tool_main("torch_run_sweep", [
+            "--only", ",".join(TOOL_SWEEP_LEGS), "--out", str(out)])
+        print(table)
+        recs = [json.loads(s) for s in out.read_text().splitlines()]
+        report = run_tool_main("torch_sweep_report", ["--in", str(out)])
+    print(report)
+    bad = [r for r in recs if "error" in r or r.get("correct") is not True
+           or r.get("device") != name or r.get("power_limit_w") is None]
+    if bad or sorted(r["tag"] for r in recs) != sorted(TOOL_SWEEP_LEGS):
+        fail(f"sweep legs: {[json.dumps(r)[:300] for r in bad]}")
+    row = next((ln for ln in report.splitlines()
+                if ln.startswith("| cora |")), "")
+    if row.count("| — |") or "x |" not in row:
+        fail(f"the sweep report's A/B table has no full cora row: {row!r}")
+    print(f"tools phase: {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_device()  # the nvidia-smi name and power limit
@@ -4027,6 +4155,7 @@ def main() -> int:
     sharded_launches, dp_launches, err_shard = phase_multi_gpu(
         model, config, runs, mb, dev, card)
     phase_bench(runner_ms, runner_runs, card)
+    tool_launches = phase_tools(card)
     sell_err = mb_sell["max_err"]
     measured = {
         "sell_fwd": (totals["arxiv"], max(err_main, err_cases, err_pf_k1,
@@ -4059,7 +4188,7 @@ def main() -> int:
     for k in KERNELS:
         launches[k] += sharded_launches[k] + dp_launches[k]
         launches[k] += (runner_launches[k] + pf_runner_launches[k]
-                        + pfs_runner_launches[k])
+                        + pfs_runner_launches[k] + tool_launches[k])
     line = {"kernels": []}
     for name, (t, err) in measured.items():
         k = KERNELS[name]
@@ -4093,7 +4222,8 @@ def main() -> int:
           f"impl), and the multi-epoch runners' checked runs "
           f"({RUNNER_EPOCHS} epochs each: arxiv sell K1-K3 and pallas "
           "K5-K7, products-full K1, K2, K4, products-sub full-graph K5, K6, "
-          "K8, the sharded arxiv sell runner K1-K3 on both ranks); "
+          "K8, the sharded arxiv sell runner K1-K3 on both ranks), and "
+          "K1-K3 in the gradient-error tool's two runs at arxiv scale; "
           "library_ms: K1, K2, K4, K5, K6 and K8 have no single "
           "PyTorch call that computes their fused function, K3's and K7's "
           "is index_add_")
