@@ -817,10 +817,12 @@ def kernel_rows(fn, reps):
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
-        # device kernels only: a host op's self device time repeats theirs
+        # device kernels only: a host op's self device time repeats theirs,
+        # and so does a program span's device row (its user annotation)
         t = getattr(ev, "self_device_time_total", 0) or 0
         if t > 0 and ev.count and \
-                str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                str(getattr(ev, "device_type", "")).endswith("CUDA") and \
+                not getattr(ev, "is_user_annotation", False):
             per_call = -(-ev.count // reps)
             rows.append((t / 1e3 / ev.count * per_call, per_call, ev.key))
     return rows
@@ -3240,7 +3242,8 @@ def rank_sharded(info, name, impl, overlap, head_shards, weights, grads,
         events = prof.key_averages()
         busy = sum((getattr(e, "self_device_time_total", 0) or 0)
                    for e in events
-                   if str(getattr(e, "device_type", "")).endswith("CUDA"))
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False))
         host = sorted(((e.cpu_time_total / 1e3, e.count, e.key)
                        for e in events if e.key.startswith("gloo:")),
                       reverse=True)

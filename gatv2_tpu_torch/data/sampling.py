@@ -36,6 +36,7 @@ from typing import Iterable, Iterator, Sequence
 import numpy as np
 
 from gatv2_tpu_torch.data.graph import Graph
+from gatv2_tpu_torch.utils.metrics import span
 
 @dataclasses.dataclass(frozen=True)
 class MiniBatch:
@@ -216,16 +217,24 @@ class NeighborSampler:
             self._batch_counter = base + nb
 
     def sample(self, seeds: np.ndarray) -> MiniBatch:
+        """The batch of `seeds`: the engine's draw under the span
+        sample.draw, then its tiles under sample.tiles."""
         # both engines map labels positionally onto the first len(seeds)
         # local nodes; a duplicate seed would collapse in the node map
         if np.unique(np.asarray(seeds)).shape[0] != len(seeds):
             raise ValueError("sample(seeds) requires unique seed node ids")
-        b = (self._sample_native(seeds) if self.engine == "native"
-             else self._sample_python(seeds))
+        with span("sample.draw"):
+            b = (self._sample_native(seeds) if self.engine == "native"
+                 else self._sample_python(seeds))
         if not self.emit_tiles:
             return b
+        with span("sample.tiles"):
+            return dataclasses.replace(b, tiles=self._tiles(b))
+
+    def _tiles(self, b: MiniBatch):
+        """Batch b's tiles of the kind emit_tiles names."""
         if self.emit_tiles == "sell":
-            return dataclasses.replace(b, tiles=self._sell_tiles(b))
+            return self._sell_tiles(b)
         from gatv2_tpu_torch.ops.pallas_attention import (
             edge_tiles_from_native,
             prepare_edge_tiles,
@@ -237,17 +246,15 @@ class NeighborSampler:
             raw = native_loader.emit_tiles(
                 b.src, b.dst, b.num_edges, self.max_nodes, 128,
                 self._tile_budget)
-            tiles = edge_tiles_from_native(raw, self.max_nodes, 128,
-                                           self._tile_budget)
-        else:
-            real = b.dst[: b.num_edges]
-            row_ptr = np.zeros(self.max_nodes + 1, np.int64)
-            np.cumsum(np.bincount(real, minlength=self.max_nodes),
-                      out=row_ptr[1:])
-            tiles = prepare_edge_tiles(
-                row_ptr, b.src[: b.num_edges], self.max_nodes, tile_e=128,
-                fixed_edge_tiles=self._tile_budget)
-        return dataclasses.replace(b, tiles=tiles)
+            return edge_tiles_from_native(raw, self.max_nodes, 128,
+                                          self._tile_budget)
+        real = b.dst[: b.num_edges]
+        row_ptr = np.zeros(self.max_nodes + 1, np.int64)
+        np.cumsum(np.bincount(real, minlength=self.max_nodes),
+                  out=row_ptr[1:])
+        return prepare_edge_tiles(
+            row_ptr, b.src[: b.num_edges], self.max_nodes, tile_e=128,
+            fixed_edge_tiles=self._tile_budget)
 
     def _sell_tiles(self, b: MiniBatch):
         """Batch b's SellTiles in the stream's fixed geometry."""

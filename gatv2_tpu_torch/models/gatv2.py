@@ -26,6 +26,7 @@ from torch import nn
 from gatv2_tpu_torch.config import ModelConfig
 from gatv2_tpu_torch.device import resolve_device
 from gatv2_tpu_torch.ops.attention import edge_attention
+from gatv2_tpu_torch.utils.metrics import span
 
 
 @contextlib.contextmanager
@@ -89,6 +90,23 @@ class GATv2Layer(nn.Module):
         return nn.functional.leaky_relu(h.mean(dim=1), slope)
 
 
+def _recomputed_under_span(layer):
+    """layer, run under the span model.remat from its second call on:
+    torch.utils.checkpoint calls it once in the forward and again, to
+    recompute its activations, in each backward."""
+    calls = 0
+
+    def run(*args, **kw):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return layer(*args, **kw)
+        with span("model.remat"):
+            return layer(*args, **kw)
+
+    return run
+
+
 class GATv2(nn.Module):
     """The GATv2 stack plus the classifier weight w_o."""
 
@@ -115,7 +133,8 @@ class GATv2(nn.Module):
                       impl=impl, edge_tiles=edge_tiles)
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    layer, x, src, dst, use_reentrant=False, **kw)
+                    _recomputed_under_span(layer), x, src, dst,
+                    use_reentrant=False, **kw)
             else:
                 x = layer(x, src, dst, **kw)
         return dense(x, self.w_o, config.precision)

@@ -52,6 +52,7 @@ from gatv2_tpu_torch.ops.sell_fwd import (
     sell_fwd,
 )
 from gatv2_tpu_torch.ops.sell_segsum import sell_segsum
+from gatv2_tpu_torch.utils.metrics import span
 from gatv2_tpu_torch.utils.native_loader import sell_output_lengths
 
 _SIDE_ARRAYS = (
@@ -440,52 +441,59 @@ def prepare_sell_tiles(
     col_idx = np.asarray(col_idx, np.int32)
     ns = num_nodes if num_src_nodes is None else num_src_nodes
     num_edges = int(row_ptr[-1])
-    deg_s = np.bincount(col_idx, minlength=ns) if num_edges else np.zeros(
-        ns, np.int64
-    )
-
     fx_d = fx_s = None
     if fixed is not None:
         fx_d = (fixed[0], fixed[2])
         fx_s = (fixed[1], fixed[3])
 
-    # each side's padding slots point at the OTHER side's appended zero
-    # row, so both sides' padded node grids are fixed up front; an unsplit
-    # side's node grid is its row grid (chunk padding and a fixed slice
-    # count can extend it)
-    node_pad_d = max(TILE_N, -(-num_nodes // TILE_N) * TILE_N)
-    node_pad_s = max(TILE_N, -(-ns // TILE_N) * TILE_N)
-    deg_d = np.diff(row_ptr)
-    split_d, _, _, _ = _vrow_lengths(deg_d, split_cap, force=force_split[0])
-    split_s, _, _, _ = _vrow_lengths(deg_s.astype(np.int64), split_cap,
-                                     force=force_split[1])
-    if not split_d:
-        t2_d0 = _side_geometry(deg_d, num_chunks)[0]
-        if fixed is not None:
-            t2_d0 = max(t2_d0, fixed[2])
-        node_pad_d = t2_d0 * TILE_N
-    if not split_s:
-        t2_s0 = _side_geometry(deg_s, num_chunks)[0]
-        if fixed is not None:
-            t2_s0 = max(t2_s0, fixed[3])
-        node_pad_s = t2_s0 * TILE_N
+    # the degrees and node grids: the same bincount and geometry as the
+    # chunk plan's (suggest_chunks_for_graph), under its span
+    with span("layout.chunk_plan"):
+        deg_s = (np.bincount(col_idx, minlength=ns) if num_edges
+                 else np.zeros(ns, np.int64))
 
-    dst_side, slot_d, e_ell, t2_d, spc_d, node_pad_d = _build_sell_side(
-        row_ptr, col_idx, num_nodes, node_pad_s, num_chunks,
-        fixed=fx_d, split_cap=split_cap, force_split=force_split[0],
-    )
+        # each side's padding slots point at the OTHER side's appended
+        # zero row, so both sides' padded node grids are fixed up front;
+        # an unsplit side's node grid is its row grid (chunk padding and a
+        # fixed slice count can extend it)
+        node_pad_d = max(TILE_N, -(-num_nodes // TILE_N) * TILE_N)
+        node_pad_s = max(TILE_N, -(-ns // TILE_N) * TILE_N)
+        deg_d = np.diff(row_ptr)
+        split_d, _, _, _ = _vrow_lengths(deg_d, split_cap,
+                                         force=force_split[0])
+        split_s, _, _, _ = _vrow_lengths(deg_s.astype(np.int64), split_cap,
+                                         force=force_split[1])
+        if not split_d:
+            t2_d0 = _side_geometry(deg_d, num_chunks)[0]
+            if fixed is not None:
+                t2_d0 = max(t2_d0, fixed[2])
+            node_pad_d = t2_d0 * TILE_N
+        if not split_s:
+            t2_s0 = _side_geometry(deg_s, num_chunks)[0]
+            if fixed is not None:
+                t2_s0 = max(t2_s0, fixed[3])
+            node_pad_s = t2_s0 * TILE_N
+
+    with span("layout.dst_side"):
+        dst_side, slot_d, e_ell, t2_d, spc_d, node_pad_d = _build_sell_side(
+            row_ptr, col_idx, num_nodes, node_pad_s, num_chunks,
+            fixed=fx_d, split_cap=split_cap, force_split=force_split[0],
+        )
 
     # CSC view: edges stably re-sorted by src
-    order = np.argsort(col_idx, kind="stable")
-    sptr = np.zeros(ns + 1, np.int64)
-    np.cumsum(deg_s, out=sptr[1:])
-    dst_all = np.repeat(
-        np.arange(num_nodes, dtype=np.int32), np.diff(row_ptr)
-    )
-    src_side, slot_s, e2_ell, t2_s, spc_s, node_pad_s = _build_sell_side(
-        sptr, dst_all[order], ns, node_pad_d, num_chunks,
-        fixed=fx_s, split_cap=split_cap, force_split=force_split[1],
-    )
+    with span("layout.csc_sort"):
+        order = np.argsort(col_idx, kind="stable")
+        sptr = np.zeros(ns + 1, np.int64)
+        np.cumsum(deg_s, out=sptr[1:])
+        dst_all = np.repeat(
+            np.arange(num_nodes, dtype=np.int32), np.diff(row_ptr)
+        )
+        dst_by_src = dst_all[order]
+    with span("layout.src_side"):
+        src_side, slot_s, e2_ell, t2_s, spc_s, node_pad_s = _build_sell_side(
+            sptr, dst_by_src, ns, node_pad_d, num_chunks,
+            fixed=fx_s, split_cap=split_cap, force_split=force_split[1],
+        )
     g = max(1, num_chunks)
     if g > 1:
         ell_perm = np.zeros(1, np.int32)  # packet path unused when chunked
@@ -547,25 +555,30 @@ def setup_full_graph_sell(
 
     Returns (sell_tiles, features, labels, num_valid), all on the host;
     num_valid is None when no padding row was added. Padding labels are
-    -1 (ignored by the loss)."""
-    if budget_bytes is None:
-        budget_bytes = default_chunk_budget(device, graph.num_edges)
-    num_chunks = suggest_chunks_for_graph(
-        graph.row_ptr, graph.col_idx, graph.num_nodes, heads, out_dims,
-        budget_bytes=budget_bytes,
-    )
-    st = prepare_sell_tiles(
-        graph.row_ptr, graph.col_idx, graph.num_nodes, num_chunks=num_chunks
-    )
-    labels = graph.labels if labels is None else labels
-    feats, num_valid = graph.features, None
-    n, n_pad = graph.num_nodes, st.padded_num_nodes
-    if n_pad != n:
-        feats = np.zeros((n_pad, graph.feature_dim), np.float32)
-        feats[:n] = graph.features
-        padded = np.full(n_pad, -1, np.int32)
-        padded[:n] = labels
-        labels, num_valid = padded, n
+    -1 (ignored by the loss). Runs under the span setup.layout, its steps
+    under layout.chunk_plan, .dst_side, .csc_sort, .src_side and .pad."""
+    with span("setup.layout"):
+        if budget_bytes is None:
+            budget_bytes = default_chunk_budget(device, graph.num_edges)
+        with span("layout.chunk_plan"):
+            num_chunks = suggest_chunks_for_graph(
+                graph.row_ptr, graph.col_idx, graph.num_nodes, heads,
+                out_dims, budget_bytes=budget_bytes,
+            )
+        st = prepare_sell_tiles(
+            graph.row_ptr, graph.col_idx, graph.num_nodes,
+            num_chunks=num_chunks
+        )
+        with span("layout.pad"):
+            labels = graph.labels if labels is None else labels
+            feats, num_valid = graph.features, None
+            n, n_pad = graph.num_nodes, st.padded_num_nodes
+            if n_pad != n:
+                feats = np.zeros((n_pad, graph.feature_dim), np.float32)
+                feats[:n] = graph.features
+                padded = np.full(n_pad, -1, np.int32)
+                padded[:n] = labels
+                labels, num_valid = padded, n
     return st, feats, labels, num_valid
 
 
@@ -699,15 +712,16 @@ def _forward_heads(zs, zd, a, st, num_nodes, negative_slope):
         outs.append(o)
         ms.append(m)
         ls.append(l)
-    out_p, m_p, l_p = (torch.cat(x) if len(x) > 1 else x[0]
-                       for x in (outs, ms, ls))
-    if side.split:
-        out, sigma = _merge_rows_dst(
-            out_p, m_p, l_p, side, st.padded_num_nodes, a.shape[1]
-        )
-        return out[:num_nodes], sigma[:num_nodes]
-    inv = side.inv[:num_nodes].long()
-    return out_p[inv], m_p[inv] + torch.log(l_p[inv] + SOFTMAX_EPS)
+    with span("attn.join"):
+        out_p, m_p, l_p = (torch.cat(x) if len(x) > 1 else x[0]
+                           for x in (outs, ms, ls))
+        if side.split:
+            out, sigma = _merge_rows_dst(
+                out_p, m_p, l_p, side, st.padded_num_nodes, a.shape[1]
+            )
+            return out[:num_nodes], sigma[:num_nodes]
+        inv = side.inv[:num_nodes].long()
+        return out_p[inv], m_p[inv] + torch.log(l_p[inv] + SOFTMAX_EPS)
 
 
 def _prepare(zs, zd, a, num_nodes, sell_tiles, streams):
@@ -848,7 +862,8 @@ def _bwd_heads(zs_g, zd_g, g_g, sigma_g, r, a_g, st, negative_slope):
         da = da_c if da is None else da + da_c
     dzs_parts = [sell_bwd_src(*tables, *lay, **kw)
                  for lay in chunks(st.srcs, st.spc_src)]
-    return torch.cat(dzs_parts), torch.cat(dzd_parts), da
+    with span("attn.join"):
+        return torch.cat(dzs_parts), torch.cat(dzd_parts), da
 
 
 def sell_backward(zs2, zd2, a, out2, sigma, g2, st, negative_slope):
@@ -874,10 +889,11 @@ def sell_backward(zs2, zd2, a, out2, sigma, g2, st, negative_slope):
             sigma[:, h0:h1].contiguous(), r, a[h0:h1].float().contiguous(),
             st, negative_slope,
         )
-        dzd.append(_rows_to_nodes_sum(
-            dzd_rows, st.dst, st.padded_num_nodes, zd2.shape[0]))
-        dzs.append(_rows_to_nodes_sum(
-            dzs_rows, st.srcs, st.padded_src_nodes, zs2.shape[0]))
+        with span("attn.join"):
+            dzd.append(_rows_to_nodes_sum(
+                dzd_rows, st.dst, st.padded_num_nodes, zd2.shape[0]))
+            dzs.append(_rows_to_nodes_sum(
+                dzs_rows, st.srcs, st.padded_src_nodes, zs2.shape[0]))
         da.append(da_g)
     return (torch.cat(dzs, 1) if len(dzs) > 1 else dzs[0],
             torch.cat(dzd, 1) if len(dzd) > 1 else dzd[0],

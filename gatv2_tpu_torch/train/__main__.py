@@ -16,9 +16,12 @@ kernels K5, K6 and K7), unless given --device cpu ('torch'); --impl sell
 --batch-size trains on per-batch SELL layouts through K1, K2 and K3.
 Prints the JAX package's console lines and, on impl 'sell' or 'pallas',
 how many times each kernel was launched. --profile DIR writes a
-torch.profiler trace of the training run into DIR; --debug-nans raises
-FloatingPointError at the first non-finite loss, backward value or
-gradient.
+torch.profiler trace of the training run into DIR/trace.json; it carries
+the program's spans (utils/metrics.py span) by name as user annotations,
+so each kernel and each idle gap sits under the span that launched it
+(train.step, train.h2d, train.readback, attn.join, model.remat, ...).
+--debug-nans raises FloatingPointError at the first non-finite loss,
+backward value or gradient.
 
 --mesh N trains on N ranks, one process each: edge-partitioned full-graph
 (ShardedTrainer; --overlap for the two-pass local/halo layer) or, with

@@ -30,6 +30,7 @@ from gatv2_tpu_torch.data.graph import Graph
 from gatv2_tpu_torch.device import resolve_device
 from gatv2_tpu_torch.models.gatv2 import GATv2, init_params_for_variant, loss_fn
 from gatv2_tpu_torch.train import optim
+from gatv2_tpu_torch.utils.metrics import span
 
 
 def train_epoch(params: GATv2, opt_state: dict, t: torch.Tensor, features,
@@ -41,14 +42,17 @@ def train_epoch(params: GATv2, opt_state: dict, t: torch.Tensor, features,
     opt_state in place. t: Adam's 1-indexed step as a 0-d fp32 tensor on
     the device (optim.step_count). Returns (loss, accuracy) as 0-d tensors
     on the device; nothing is read back (train_config.debug_nans checks,
-    and so waits, by design)."""
-    loss, acc = loss_fn(
-        params, features, src, dst, labels, model_config,
-        impl=train_config.impl, edge_tiles=edge_tiles, num_valid=num_valid,
-    )
-    grads = optim.gradients(loss, params, debug_nans=train_config.debug_nans)
-    optim.apply_updates(optim.param_leaves(params), grads, opt_state, t,
-                        train_config)
+    and so waits, by design). Runs under the span train.step."""
+    with span("train.step"):
+        loss, acc = loss_fn(
+            params, features, src, dst, labels, model_config,
+            impl=train_config.impl, edge_tiles=edge_tiles,
+            num_valid=num_valid,
+        )
+        grads = optim.gradients(loss, params,
+                                debug_nans=train_config.debug_nans)
+        optim.apply_updates(optim.param_leaves(params), grads, opt_state, t,
+                            train_config)
     return loss.detach(), acc
 
 
@@ -134,7 +138,8 @@ class Trainer:
                 graph, model_config.heads, model_config.out_dims, device=dev,
                 labels=labels,
             )
-            self.edge_tiles = st.to(dev)
+            with span("setup.layout"), span("layout.to_device"):
+                self.edge_tiles = st.to(dev)
             if pad_valid is not None and self.num_valid is None:
                 self.num_valid = pad_valid
         elif train_config.impl == "pallas":

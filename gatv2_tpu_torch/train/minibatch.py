@@ -41,6 +41,7 @@ from gatv2_tpu_torch.models.gatv2 import (
     loss_fn,
 )
 from gatv2_tpu_torch.train import optim
+from gatv2_tpu_torch.utils.metrics import span
 
 
 def gather_rows_clip(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -161,27 +162,35 @@ class MinibatchTrainer:
         """(features, src, dst, labels, edge_tiles) of a batch on the
         device, as the step takes them. impl='torch' gets the real edges
         only (its segment ops take no padding id); 'pallas' and 'sell' read
-        their edges from the batch's tiles, copied to the device here."""
+        their edges from the batch's tiles, copied to the device here,
+        under the span train.h2d."""
         dev = self.device
-        if self._device_gather:
-            feats = (self._feat_table, torch.as_tensor(b.node_ids, device=dev))
-        else:
-            feats = torch.as_tensor(b.features, device=dev)
-        src = dst = None
-        if self.train_config.impl == "torch":
-            src = torch.as_tensor(b.src[: b.num_edges], device=dev)
-            dst = torch.as_tensor(b.dst[: b.num_edges], device=dev)
-        tiles = b.tiles.to(dev) if b.tiles is not None else None
-        return feats, src, dst, torch.as_tensor(b.labels, device=dev), tiles
+        with span("train.h2d"):
+            if self._device_gather:
+                feats = (self._feat_table,
+                         torch.as_tensor(b.node_ids, device=dev))
+            else:
+                feats = torch.as_tensor(b.features, device=dev)
+            src = dst = None
+            if self.train_config.impl == "torch":
+                src = torch.as_tensor(b.src[: b.num_edges], device=dev)
+                dst = torch.as_tensor(b.dst[: b.num_edges], device=dev)
+            tiles = b.tiles.to(dev) if b.tiles is not None else None
+            return (feats, src, dst, torch.as_tensor(b.labels, device=dev),
+                    tiles)
 
     def train_step(self, b: MiniBatch) -> tuple[float, float]:
-        """One optimizer step on batch b. Returns (loss, accuracy)."""
-        self.step_count += 1
-        feats, src, dst, labels, tiles = self.batch_args(b)
-        _, _, loss, acc = self._step(
-            self._params, self.opt_state, self.step_count, feats, src, dst,
-            labels, b.num_seeds, tiles)
-        return float(loss), float(acc)
+        """One optimizer step on batch b, under the span train.step; the
+        loss and accuracy are read back under train.readback. Returns
+        (loss, accuracy)."""
+        with span("train.step"):
+            self.step_count += 1
+            feats, src, dst, labels, tiles = self.batch_args(b)
+            _, _, loss, acc = self._step(
+                self._params, self.opt_state, self.step_count, feats, src,
+                dst, labels, b.num_seeds, tiles)
+            with span("train.readback"):
+                return float(loss), float(acc)
 
     @torch.no_grad()
     def evaluate(self, which: str = "test") -> float:

@@ -1,14 +1,25 @@
-"""Structured metrics, timing and device-memory reports (port of
-gatv2_tpu/utils/metrics.py): a JSONL sink for per-epoch records, the CUDA
-allocator's bytes in use per device, and a synchronising step timer."""
+"""Structured metrics, device-memory reports and the program's spans
+(port of gatv2_tpu/utils/metrics.py, which has no spans): a JSONL sink for
+per-epoch records, the CUDA allocator's bytes in use per device, and
+span(name), which marks where the work happens.
+
+A span costs one flag check unless a torch.profiler records (train
+--profile DIR, the tools). Then it is a torch.profiler.record_function, a
+`user_annotation` event on the profiler's clock and thread, so every
+device operation and idle gap in the trace falls inside the program span
+that launched it. A CPU-only profiler records the spans of host work the
+same way (set-up, the sampler's draws).
+"""
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from typing import IO, Any
 
 import torch
+from torch.autograd import _profiler_enabled
 
 
 class JsonlSink:
@@ -36,25 +47,13 @@ def device_memory_report() -> dict[str, int]:
             for i in range(torch.cuda.device_count())}
 
 
-class StepTimer:
-    """Wall-clock timing of fn(*args) up to the end of its device work
-    (torch.cuda.synchronize when a CUDA device is present)."""
+_OFF = contextlib.nullcontext()
 
-    def __init__(self):
-        self.times_ms: list[float] = []
 
-    def time(self, fn, *args) -> Any:
-        t0 = time.perf_counter()
-        out = fn(*args)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        self.times_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    @property
-    def best_ms(self) -> float:
-        return min(self.times_ms)
-
-    @property
-    def mean_ms(self) -> float:
-        return sum(self.times_ms) / len(self.times_ms)
+def span(name: str):
+    """A context manager marking the enclosed work as `name`: a
+    torch.profiler.record_function while a profiler records, else one
+    shared null context."""
+    if not _profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(name)

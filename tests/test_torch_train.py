@@ -609,13 +609,9 @@ def test_remat_gives_the_same_gradients(impl):
 
 def test_metrics_utils(tmp_path):
     """JsonlSink writes the JAX package's records (with a timestamp); the
-    memory report is empty without a CUDA device; StepTimer keeps times."""
+    memory report is empty without a CUDA device."""
     from gatv2_tpu.utils.metrics import JsonlSink as JaxSink
-    from gatv2_tpu_torch.utils.metrics import (
-        JsonlSink,
-        StepTimer,
-        device_memory_report,
-    )
+    from gatv2_tpu_torch.utils.metrics import JsonlSink, device_memory_report
 
     for cls, name in ((JsonlSink, "port"), (JaxSink, "jax")):
         sink = cls(str(tmp_path / name))
@@ -627,10 +623,6 @@ def test_metrics_utils(tmp_path):
                    .splitlines()] for n in ("port", "jax"))
     assert [set(r) for r in port] == [set(r) for r in jax_]
     assert device_memory_report() == {}
-    timer = StepTimer()
-    assert timer.time(lambda x: x + 1, 1) == 2
-    timer.time(lambda: None)
-    assert len(timer.times_ms) == 2 and timer.best_ms <= timer.mean_ms
 
 
 def test_train_needs_cuda_unless_cpu(monkeypatch, tmp_path):

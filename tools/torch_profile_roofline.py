@@ -128,11 +128,14 @@ def capture(config, impl, precision, epochs, out_dir, dev, tile_e=None):
 
 def summarize(prof, wall_ms, epochs, top, on_card) -> dict:
     """Device time (host self time on the CPU) by category and by kernel,
-    the busy and idle share of the wall time."""
+    the busy and idle share of the wall time. On the card a program span's
+    device row (its user annotation, which covers its kernels) is not
+    counted again."""
     per: dict[str, list] = {}
     for ev in prof.key_averages():
         if on_card:
-            if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            if not str(getattr(ev, "device_type", "")).endswith("CUDA") \
+                    or getattr(ev, "is_user_annotation", False):
                 continue
             t = getattr(ev, "self_device_time_total", 0) or 0
         else:
