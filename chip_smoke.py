@@ -15,7 +15,8 @@ Phases (any failure exits non-zero):
      count its default budget picks (more than 1), 3 epochs of Adam with
      clipping; the K1/K2/K3/K4 counters zeroed just before and read just
      after (K4 launched, K3 not); epoch time, peak memory, a profiler
-     table, one remat epoch with the same first loss; then K4 against its
+     table, one remat epoch with the same first loss and K1 launched as
+     often as in an epoch without remat; then K4 against its
      twin and float64, K2 without packets against K2 with them, and K1
      against its twin, at each layer's shapes on one chunk, with K1's, K2's
      and K4's times beside their bounds, per-edge gather floors and twins;
@@ -554,6 +555,8 @@ def zero_counters():
         k["fn"].launches = 0
     # K1's and K5's launches with normalize=False (the merged-softmax ops)
     sell_fwd.raw_launches = pallas_fwd.raw_launches = 0
+    # head groups whose forward a remat recompute took from the first call
+    tsa.sell_attention.reused = tpa.edge_attention_pallas.reused = 0
 
 
 def read_counters():
@@ -2435,7 +2438,8 @@ def phase_products_full(dev, card):
     default chunk budget, TRAIN_EPOCHS epochs of Adam with clipping, the
     K1-K4 counters zeroed just before and read just after; then its epoch
     time, peak memory, a profiler table, and one epoch with remat=True
-    from the same start."""
+    from the same start: the same first loss, K1's launches an epoch's
+    without remat, sell_attention.reused one per layer and head group."""
     t0 = time.perf_counter()
     g = random_graph(**PRODUCTS_FULL)
     t1 = time.perf_counter()
@@ -2501,17 +2505,28 @@ def phase_products_full(dev, card):
     tr.model_config = dataclasses.replace(config, remat=True)
     tr.metrics_sink = LossSink()
     torch.cuda.reset_peak_memory_stats(dev)
+    zero_counters()
     tr.run(1)
+    torch.cuda.synchronize()
     remat_peak = torch.cuda.max_memory_allocated(dev)
+    k1, reused = read_counters()["sell_fwd"], tsa.sell_attention.reused
+    # the recompute takes the forward's result: K1 as often as without
+    # remat, and one reuse per layer and head group
+    groups = sum(len(tsa._head_groups(h, d))
+                 for h, d in zip(PF_HEADS, PF_OUTDIMS))
     tr.model_config = config
     remat_loss = tr.metrics_sink.losses[0]
     rel = abs(remat_loss - losses[0]) / abs(losses[0])
     print(f"products-full remat epoch: loss {remat_loss!r} against epoch 1's "
           f"{losses[0]!r}, relative difference {rel:.3e} (tolerance "
-          f"{REMAT_RTOL:g}); peak memory {remat_peak / 2**30:.2f} GiB "
-          f"[{card}]")
+          f"{REMAT_RTOL:g}); peak memory {remat_peak / 2**30:.2f} GiB; "
+          f"sell_fwd launches {k1} (an epoch without remat: "
+          f"{launches['sell_fwd'] / TRAIN_EPOCHS:g}), sell_attention.reused "
+          f"{reused} (layers x head groups: {groups}) [{card}]")
     if rel > REMAT_RTOL:
         fail("products-full: the remat epoch's loss differs from epoch 1's")
+    if k1 * TRAIN_EPOCHS != launches["sell_fwd"] or reused != groups:
+        fail("products-full: the remat epoch ran K1 again in its recompute")
     return dict(graph=g, config=config, start=start, trainer=tr,
                 launches=launches)
 

@@ -118,7 +118,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --mesh: two-pass local/halo attention")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize layers in the backward pass "
-                        "(torch.utils.checkpoint; no effect on inference)")
+                        "(torch.utils.checkpoint): projections and "
+                        "elementwise ops; with --impl torch also the "
+                        "attention, which sell and pallas keep from the "
+                        "forward; no effect on inference")
     p.add_argument("--debug-nans", action="store_true",
                    help="fail fast on NaN/Inf: check the loss and every "
                         "gradient each step (autograd anomaly mode in the "

@@ -33,8 +33,10 @@ class ModelConfig:
     # attention kernel computes in fp32 at every tier.
     matmul_precision: str = "highest"
     # rematerialize each layer in the backward pass
-    # (torch.utils.checkpoint); inference keeps no activations, so it has
-    # nothing to rematerialize there
+    # (torch.utils.checkpoint): the projections and elementwise ops; the
+    # attention too with impl 'torch', while 'sell' and 'pallas' keep the
+    # attention op's node-space result from the forward; inference keeps
+    # no activations, so it has nothing to rematerialize there
     remat: bool = False
     # SELL stream tier: 'f32' (exact) or 'bf16' — projections are rounded
     # once to bfloat16 and carried as fp32, so the kernel computes exactly

@@ -67,8 +67,9 @@ class GATv2Layer(nn.Module):
                 dense(x, self.w_dst.reshape(h * d, f), precision))
 
     def forward(self, x, src, dst, *, is_last: bool, config: ModelConfig,
-                impl: str, edge_tiles=None):
-        """One GATv2 layer: [N, H*D] (hidden) or [N, D] (last layer)."""
+                impl: str, edge_tiles=None, kept=None):
+        """One GATv2 layer: [N, H*D] (hidden) or [N, D] (last layer).
+        `kept`: the attention op's holder under remat (edge_attention)."""
         num_nodes = x.shape[0]
         nh, hdim = self.a.shape
         zs, zd = self.project(x, config.precision)
@@ -78,7 +79,7 @@ class GATv2Layer(nn.Module):
         h = edge_attention(
             zs, zd, self.a, src, dst, num_nodes,
             negative_slope=config.negative_slope, impl=impl,
-            edge_tiles=edge_tiles, streams=config.streams,
+            edge_tiles=edge_tiles, streams=config.streams, kept=kept,
         )
         slope = config.negative_slope
         if not is_last:
@@ -90,19 +91,23 @@ class GATv2Layer(nn.Module):
         return nn.functional.leaky_relu(h.mean(dim=1), slope)
 
 
-def _recomputed_under_span(layer):
+def _recomputed_under_span(layer, impl):
     """layer, run under the span model.remat from its second call on:
     torch.utils.checkpoint calls it once in the forward and again, to
-    recompute its activations, in each backward."""
+    recompute its activations, in each backward. With a fused attention
+    op ('sell', 'pallas') both calls share one holder: the first keeps the
+    op's node-space result in it, the recompute hands it back to the op
+    instead of running the op's forward kernel again."""
     calls = 0
+    kept = {} if impl in ("sell", "pallas") else None
 
     def run(*args, **kw):
         nonlocal calls
         calls += 1
         if calls == 1:
-            return layer(*args, **kw)
+            return layer(*args, kept=kept, **kw)
         with span("model.remat"):
-            return layer(*args, **kw)
+            return layer(*args, kept=kept, **kw)
 
     return run
 
@@ -125,7 +130,12 @@ class GATv2(nn.Module):
         """Logits [N, C]. With config.remat, and only while autograd
         records, each layer runs under torch.utils.checkpoint: its
         activations are recomputed in the backward pass instead of kept
-        (jax.checkpoint in the JAX package)."""
+        (jax.checkpoint in the JAX package). What is recomputed depends on
+        the impl. 'torch': the whole layer, its edge-sized attention
+        included. 'sell' and 'pallas': the projections and the elementwise
+        ops; the attention op's node-space result (out and its softmax
+        statistics) is kept from the forward, so K1 / K5 run once a step
+        and K2-K4 / K6-K8 read the result they would without remat."""
         x = features
         remat = config.remat and torch.is_grad_enabled()
         for l, layer in enumerate(self.layers):
@@ -133,7 +143,7 @@ class GATv2(nn.Module):
                       impl=impl, edge_tiles=edge_tiles)
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    _recomputed_under_span(layer), x, src, dst,
+                    _recomputed_under_span(layer, impl), x, src, dst,
                     use_reentrant=False, **kw)
             else:
                 x = layer(x, src, dst, **kw)

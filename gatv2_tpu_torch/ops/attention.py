@@ -32,12 +32,18 @@ def edge_attention(
     impl: str = "torch",
     edge_tiles: Any = None,
     streams: str = "f32",
+    kept: dict | None = None,
 ) -> torch.Tensor:
     """Returns per-head aggregated features h (the shape of zs):
 
         e_e   = a_h . LeakyReLU(zs[src_e] + zd[dst_e])
         alpha = segment_softmax(e, dst)
         h_j   = sum_{e: dst_e = j} alpha_e * zs[src_e]
+
+    kept: a checkpointed layer's holder of the fused op's node-space
+    result ('sell', 'pallas'): the layer's first call fills it, its
+    recompute in the backward takes it and launches no forward kernel.
+    The 'torch' path takes none.
     """
     if impl == "torch":
         return _edge_attention_torch(
@@ -48,14 +54,14 @@ def edge_attention(
 
         return sell_attention(
             zs, zd, a, num_nodes, negative_slope=negative_slope,
-            sell_tiles=edge_tiles, streams=streams,
+            sell_tiles=edge_tiles, streams=streams, kept=kept,
         )
     if impl == "pallas":
         from gatv2_tpu_torch.ops.pallas_attention import edge_attention_pallas
 
         return edge_attention_pallas(
             zs, zd, a, num_nodes, negative_slope=negative_slope,
-            edge_tiles=edge_tiles,
+            edge_tiles=edge_tiles, kept=kept,
         )
     raise ValueError(
         f"unknown impl {impl!r}; expected 'torch', 'sell' or 'pallas'")

@@ -558,13 +558,24 @@ class _PallasAttention(torch.autograd.Function):
     """Forward through K5; backward through K6 and K7 (K6 and K8 on a
     chunked layout). The saved tensors are the fp32 flat zs/zd, a, the
     output and the real head lanes of the softmax stats m and l, as the JAX
-    custom VJP saves them."""
+    custom VJP saves them.
+
+    `kept` (a dict, or None) carries the node-space result from a
+    checkpointed layer's first call to its recompute: an empty holder is
+    filled with (out2, m, l); a filled one is emptied and its result saved
+    in place of K5's, which does not launch."""
 
     @staticmethod
-    def forward(ctx, zs, zd, a, num_nodes, negative_slope, edge_tiles):
+    def forward(ctx, zs, zd, a, num_nodes, negative_slope, edge_tiles, kept):
         et, zs2, zd2 = _prepare(zs, zd, a, num_nodes, edge_tiles)
-        out2, m, l = pallas_forward(zs2, zd2, a, et, num_nodes,
-                                    negative_slope)
+        if kept:
+            out2, m, l = kept.pop("result")
+            edge_attention_pallas.reused += len(_head_groups(*a.shape))
+        else:
+            out2, m, l = pallas_forward(zs2, zd2, a, et, num_nodes,
+                                        negative_slope)
+            if kept is not None:
+                kept["result"] = out2.detach(), m, l
         ctx.save_for_backward(zs2, zd2, a, out2, m, l)
         ctx.et, ctx.slope = et, negative_slope
         ctx.shapes = (zs.shape, zd.shape, zs.dtype, zd.dtype)
@@ -580,7 +591,7 @@ class _PallasAttention(torch.autograd.Function):
                                        ctx.et, ctx.slope)
         return (dzs.reshape(zs_shape).to(zs_dtype),
                 dzd.reshape(zd_shape).to(zd_dtype), da.to(a.dtype),
-                None, None, None)
+                None, None, None, None)
 
 
 def edge_attention_pallas(
@@ -591,10 +602,13 @@ def edge_attention_pallas(
     *,
     negative_slope: float,
     edge_tiles: EdgeTiles,
+    kept: dict | None = None,
 ) -> torch.Tensor:
     """Drop-in replacement for the 'torch' edge attention on the edge-tile
     layout (see the module docstring). Returns out in the shape of zs,
-    num_nodes rows.
+    num_nodes rows. `kept`: a checkpointed layer's holder
+    (models/gatv2.py), whose recompute reuses the first call's result
+    instead of running K5 again.
 
     Heads run in groups of at most STATS_L = 16 heads and 512 lanes per
     launch; heads are independent, so groups change nothing. The kernels
@@ -603,7 +617,11 @@ def edge_attention_pallas(
     (the dense projections outside the op follow the tier). Differentiable
     in zs, zd and a on any layout, chunked or not."""
     return _PallasAttention.apply(zs, zd, a, num_nodes, negative_slope,
-                                  edge_tiles)
+                                  edge_tiles, kept)
+
+
+# head groups whose forward a recompute took from `kept` instead of K5
+edge_attention_pallas.reused = 0
 
 
 # ---------------------------------------------------------------------------

@@ -905,14 +905,25 @@ class _SellAttention(torch.autograd.Function):
     chunked layout). The saved tensors are the forward's (rounded) zs/zd in
     the stream dtype, a, the output and sigma, as the JAX custom VJP saves
     them; the gradient passes straight through the bf16 rounding to the
-    unrounded input."""
+    unrounded input.
+
+    `kept` (a dict, or None) carries the node-space result from a
+    checkpointed layer's first call to its recompute: an empty holder is
+    filled with (out2, sigma); a filled one is emptied and its result
+    saved in place of K1's, which does not launch."""
 
     @staticmethod
     def forward(ctx, zs, zd, a, num_nodes, negative_slope, sell_tiles,
-                streams):
+                streams, kept):
         st, zs2, zd2 = _prepare(zs, zd, a, num_nodes, sell_tiles, streams)
-        out2, sigma = _forward_flat(zs2, zd2, a, st, num_nodes,
-                                    negative_slope)
+        if kept:
+            out2, sigma = kept.pop("result")
+            sell_attention.reused += len(_head_groups(*a.shape))
+        else:
+            out2, sigma = _forward_flat(zs2, zd2, a, st, num_nodes,
+                                        negative_slope)
+            if kept is not None:
+                kept["result"] = out2.detach(), sigma
         sdt = torch.bfloat16 if streams == "bf16" else torch.float32
         ctx.save_for_backward(zs2.to(sdt), zd2.to(sdt), a, out2, sigma)
         ctx.st, ctx.slope = st, negative_slope
@@ -929,7 +940,7 @@ class _SellAttention(torch.autograd.Function):
         )
         return (dzs.reshape(zs_shape).to(zs_dtype),
                 dzd.reshape(zd_shape).to(zd_dtype), da.to(a.dtype),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def sell_attention(
@@ -941,13 +952,20 @@ def sell_attention(
     negative_slope: float,
     sell_tiles: SellTiles,
     streams: str = "f32",
+    kept: dict | None = None,
 ) -> torch.Tensor:
     """Drop-in replacement for the 'torch' edge attention on the SELL
     layout (see the module docstring). Returns out in the shape of zs;
-    differentiable in zs, zd and a on any layout, chunked or not."""
+    differentiable in zs, zd and a on any layout, chunked or not. `kept`:
+    a checkpointed layer's holder (models/gatv2.py), whose recompute
+    reuses the first call's result instead of running K1 again."""
     return _SellAttention.apply(
-        zs, zd, a, num_nodes, negative_slope, sell_tiles, streams
+        zs, zd, a, num_nodes, negative_slope, sell_tiles, streams, kept
     )
+
+
+# head groups whose forward a recompute took from `kept` instead of K1
+sell_attention.reused = 0
 
 
 def _forward_raw(zs2, zd2, a, st, negative_slope):

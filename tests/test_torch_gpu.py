@@ -15,6 +15,7 @@ against JAX.
 """
 
 import copy
+import dataclasses
 
 import jax  # noqa: F401  (test files import both packages)
 import numpy as np
@@ -306,6 +307,43 @@ def test_sell_training_step_matches_torch_path(cuda):
     assert abs(runs["sell"][0] - runs["torch"][0]) < 1e-5
     for p, q in zip(runs["sell"][1], runs["torch"][1]):
         torch.testing.assert_close(p, q, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_remat_launches_k1_once_on_a_chunked_layout(cuda):
+    """One step's gradients on a 5-chunk SELL layout with remat on and
+    off, from the same weights: K1, K2 and K4 launch as often in both (the
+    recompute takes the forward's result: `reused` counts one per layer
+    and head group), and the gradients are equal bit for bit."""
+    from gatv2_tpu_torch.models.gatv2 import loss_fn
+
+    g = random_graph(1500, 9000, 16, 4, seed=3)
+    mc = ModelConfig(num_layers=2, heads=(4, 1), out_dims=(16, 8),
+                     num_classes=g.num_classes, in_dim=g.feature_dim)
+    st, feats, labels, num_valid = tsa.setup_full_graph_sell(
+        g, mc.heads, mc.out_dims, device=cuda, budget_bytes=1 << 21)
+    assert st.num_chunks == 5
+    st = st.to(cuda)
+    feats, labels = (torch.as_tensor(x, device=cuda) for x in (feats, labels))
+    model = init_params(mc, torch.Generator().manual_seed(2)).to(cuda)
+
+    def counts():
+        return [sell_fwd.launches, sell_bwd_dst.launches,
+                sell_bwd_src.launches, tsa.sell_attention.reused]
+
+    launched, grads = [], []
+    for remat in (False, True):
+        before = counts()
+        loss, _ = loss_fn(model, feats, None, None, labels,
+                          dataclasses.replace(mc, remat=remat), impl="sell",
+                          edge_tiles=st, num_valid=num_valid)
+        grads.append(torch.autograd.grad(loss, optim.param_leaves(model)))
+        launched.append([n - b for n, b in zip(counts(), before)])
+    # per layer: K1 and K2 once per chunk, K4 once per chunk; one group
+    assert launched[0] == [10, 10, 10, 0]
+    assert launched[1] == [10, 10, 10, 2]
+    for p, q in zip(*grads):
+        assert torch.equal(p, q)
 
 
 @pytest.mark.gpu

@@ -119,8 +119,8 @@ def test_spans_are_profiler_annotations(profiled, work, names):
     *[(c, {"setup.layout"}) for c in sorted(LAYOUT_STEPS)],
     ("train.h2d", {"train.step"}),
     ("train.readback", {"train.step"}),
-    # the recompute reruns the layer's attention, joins included
-    ("attn.join", {"train.step", "model.remat"}),
+    # the recompute takes the attention op's kept result: no join runs in it
+    ("attn.join", {"train.step"}),
     ("model.remat", {"train.step"}),
 ])
 def test_spans_nest(profiled, child, parents):
@@ -157,6 +157,6 @@ def test_remat_span_opens_only_on_the_recompute(graph, remat,
                             remat=remat)
     n_remat = sum(name == "model.remat" for name, _ in spans)
     assert n_remat == per_backward * epochs * ARCH["num_layers"]
-    # each recompute reruns the layer's attention: its joins nest inside
+    # the joins nest in the step (the recompute runs none of them)
     assert {p for name, p in spans if name == "attn.join"} <= {
         "train.step", "model.remat"}

@@ -31,6 +31,7 @@ from gatv2_tpu.train import optim as joptim
 from gatv2_tpu_torch import config as tconfig
 from gatv2_tpu_torch.data import io as tio
 from gatv2_tpu_torch.data import splits as tsplits
+from gatv2_tpu_torch.data.synthetic import random_graph
 from gatv2_tpu_torch.models import gatv2 as tmodel
 from gatv2_tpu_torch.models import params_io as tpio
 from gatv2_tpu_torch.ops import sell_attention as tsa
@@ -581,30 +582,99 @@ def test_debug_nans_in_the_backward():
             toptim.gradients(loss(scale), model, debug_nans=True)
 
 
-@pytest.mark.parametrize("impl", ["torch", "sell"])
+def _remat_case(case, heads=ARCH["heads"], out_dims=ARCH["out_dims"]):
+    """(config, graph inputs, impl) of one remat case on a 300-node graph
+    (3 SELL slices of 128 rows): 'torch' on the real edges, 'sell' and
+    'pallas' on their unchunked layouts, 'sell-chunked' on 3 chunks."""
+    g = random_graph(num_nodes=300, num_edges=2400, feature_dim=12,
+                     num_classes=4, seed=3)
+    cfg = tconfig.ModelConfig(num_layers=len(heads), heads=heads,
+                              out_dims=out_dims, num_classes=g.num_classes,
+                              in_dim=g.feature_dim)
+    impl = case.split("-")[0]
+    if impl == "torch":
+        return cfg, (g.features, g.labels, torch.as_tensor(g.src),
+                     torch.as_tensor(g.dst), None, None), impl
+    if impl == "sell":
+        budget = 1 << 16 if case == "sell-chunked" else None
+        st, feats, labels, num_valid = tsa.setup_full_graph_sell(
+            g, heads, out_dims, device="cpu", budget_bytes=budget)
+        assert (st.num_chunks > 1) == (case == "sell-chunked")
+    else:
+        from gatv2_tpu_torch.ops import pallas_attention as tpa
+
+        st, feats, labels, num_valid = tpa.setup_full_graph(
+            g, heads, out_dims, device="cpu")
+    return cfg, (feats, labels, None, None, st, num_valid), impl
+
+
+def _remat_grads(model, cfg, inputs, impl, remat):
+    """The parameters' gradients of one loss, with remat on or off."""
+    feats, labels, src, dst, st, num_valid = inputs
+    loss, _ = tmodel.loss_fn(
+        model, torch.as_tensor(feats), src, dst, torch.as_tensor(labels),
+        dataclasses.replace(cfg, remat=remat), impl=impl, edge_tiles=st,
+        num_valid=num_valid)
+    return torch.autograd.grad(loss, toptim.param_leaves(model))
+
+
+@pytest.mark.parametrize("impl",
+                         ["torch", "sell", "sell-chunked", "pallas"])
 def test_remat_gives_the_same_gradients(impl):
     """--remat recomputes each layer in the backward pass
-    (torch.utils.checkpoint): the gradients are the same numbers."""
-    g = tio.load_dataset("karate", DATA)
-    cfg = tconfig.ModelConfig(**ARCH, num_classes=g.num_classes,
-                              in_dim=g.feature_dim)
+    (torch.utils.checkpoint; sell and pallas keep the attention op's
+    result from the forward): the gradients are the same numbers."""
+    cfg, inputs, impl = _remat_case(impl)
     model = tmodel.init_params(cfg, torch.Generator().manual_seed(3))
-    feats, labels, src, dst, st, num_valid = (
-        g.features, g.labels, torch.as_tensor(g.src), torch.as_tensor(g.dst),
-        None, None)
-    if impl == "sell":
-        st, feats, labels, num_valid = tsa.setup_full_graph_sell(
-            g, cfg.heads, cfg.out_dims, device="cpu")
-        src = dst = None
-    grads = []
-    for remat in (False, True):
-        loss, _ = tmodel.loss_fn(
-            model, torch.as_tensor(feats), src, dst, torch.as_tensor(labels),
-            dataclasses.replace(cfg, remat=remat), impl=impl, edge_tiles=st,
-            num_valid=num_valid)
-        grads.append(torch.autograd.grad(loss, toptim.param_leaves(model)))
+    grads = [_remat_grads(model, cfg, inputs, impl, remat)
+             for remat in (False, True)]
     for p, q in zip(*grads):
         assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("case", ["torch", "sell", "sell-chunked", "pallas"])
+def test_remat_runs_the_attention_forward_once(case, monkeypatch):
+    """One training step's calls of the attention op's forward kernel (the
+    K1 / K5 wrapper where the op module looks it up; the torch path's
+    whole attention): with sell and pallas the same count with remat on
+    as off, since the recompute takes the forward's result (`reused`
+    counts one per layer and head group); with torch twice the count.
+    Layer 0's 17 heads make two K5 head groups."""
+    from gatv2_tpu_torch.ops import attention as tattn
+    from gatv2_tpu_torch.ops import pallas_attention as tpa
+
+    cfg, inputs, impl = _remat_case(case, heads=(17, 1), out_dims=(2, 3))
+    module, name, op = {
+        "torch": (tattn, "_edge_attention_torch", None),
+        "sell": (tsa, "sell_fwd", tsa.sell_attention),
+        "pallas": (tpa, "pallas_fwd", tpa.edge_attention_pallas),
+    }[impl]
+    kernel, calls = getattr(module, name), [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return kernel(*args, **kw)
+
+    monkeypatch.setattr(module, name, counted)
+    model = tmodel.init_params(cfg, torch.Generator().manual_seed(3))
+    counts, reused, grads = [], [], []
+    for remat in (False, True):
+        calls[0] = 0
+        before = op.reused if op else 0
+        grads.append(_remat_grads(model, cfg, inputs, impl, remat))
+        counts.append(calls[0])
+        reused.append((op.reused if op else 0) - before)
+    for p, q in zip(*grads):
+        assert torch.equal(p, q)
+    assert counts[0] > 0
+    if impl == "torch":
+        assert counts[1] == 2 * counts[0] and reused == [0, 0]
+        return
+    groups = sum(len((tsa if impl == "sell" else tpa)._head_groups(h, d))
+                 for h, d in zip(cfg.heads, cfg.out_dims))
+    assert groups == (2 if impl == "sell" else 3)
+    assert counts[1] == counts[0]
+    assert reused == [0, groups]
 
 
 def test_metrics_utils(tmp_path):
