@@ -88,7 +88,15 @@ Phases (any failure exits non-zero):
      pallas step, one step's gradients against float64; both ops''
      gradients on chunked extra layouts (20 heads, split hubs beside
      isolated nodes, chunks without an edge, no edges, bf16 streams)
-     against the twins and float64;
+     against the twins and float64; then the edge-conditioned block
+     (phase_edge_features): the edge-feature variants of K1, K2 and K4 on
+     one chunk of a layout at ogbn-proteins' in-degree (~600 edges a row,
+     6 x 80 heads, 8-dim edge features) against their twins and float64,
+     out / m / l, dzd / da / the summed dW_e partials and dzs; then 2
+     layers of that block (residual, BatchNorm, multi-label loss) on a
+     forced 3-chunk layout with remat, sell (K1, K2, K4 with the edge
+     term) against the torch path's losses, K1 launched once per layer,
+     chunk and epoch;
  13. its times: device step, host sample + tile, the pipeline ratio of
      tools/bench_minibatch.py, each kernel beside its bound (K5 and K6:
      and per-edge gather floor), its twin and, for K7, index_add_; a profiler table; peak memory; and the minibatch
@@ -2717,6 +2725,165 @@ def forced_chunks(module, suggest, chunks):
         module.default_chunk_budget = saved
 
 
+# the edge-conditioned block at the ogbn-proteins widths on a graph one
+# phase can hold: 2 layers of 6 heads x 80 with 8-dim edge features,
+# residual, BatchNorm and the multi-label loss, remat on, 3 chunks
+EDGE_GRAPH = dict(num_nodes=20_000, num_edges=1_000_000, feature_dim=8,
+                  edge_dim=8, tasks=112)
+EDGE_EPOCHS = 3
+# the kernels alone at the ogbn-proteins cell's row shape: uniform
+# endpoints at its in-degree (79,122,504 / 132,534 ~ 597), its head width
+# and edge-feature width, laid out in 3 chunks
+EDGE_KERNEL_GRAPH = dict(num_nodes=4_000, num_edges=2_388_000, heads=6,
+                         head_dim=80, edge_dim=8, chunks=3)
+# an edge-feature kernel against its fp32 twin, relative to the row's
+# largest |value| (compare): the kernel sums each row's ~600 edges in lane
+# groups and per-block partials, the twin column by column, so they differ
+# by fp32 rounding of ~600-term sums; a K2 whose dW_e came out 0 would read
+# a relative error of 1
+EDGE_KERNEL_RTOL, EDGE_KERNEL_ATOL = 1e-4, 1e-5
+
+
+def edge_kernels_at_proteins_degree(dev, card):
+    """K1, K2 and K4 in their edge-feature variants, each launched once on
+    chunk 0 of its side of a 3-chunk layout at the ogbn-proteins cell's
+    row shape (EDGE_KERNEL_GRAPH), against the twins on the same inputs
+    (EDGE_KERNEL_RTOL of the row's largest value) and, for the sums that
+    cancel (dzd, da, dW_e, dzs), against float64 (compare_f64). dW_e is the
+    sum of K2's per-block partials, as the op takes it."""
+    cfg = EDGE_KERNEL_GRAPH
+    h, d, k = cfg["heads"], cfg["head_dim"], cfg["edge_dim"]
+    g = random_graph(cfg["num_nodes"], cfg["num_edges"], 8, 2, seed=37)
+    n = g.num_nodes
+    rng = np.random.default_rng(37)
+    ef = rng.standard_normal((g.num_edges, k)).astype(np.float32)
+    st = tsa.prepare_sell_tiles(g.row_ptr, g.col_idx, n,
+                                num_chunks=cfg["chunks"],
+                                edge_features=ef).to(dev)
+    zs, zd, gr = (torch.from_numpy(rng.standard_normal((n, h * d))
+                                   .astype(np.float32)).to(dev)
+                  for _ in range(3))
+    a = torch.from_numpy(rng.standard_normal((h, d)).astype(np.float32)
+                         ).to(dev)
+    w_e = torch.from_numpy((0.3 * rng.standard_normal((h, d, k)))
+                           .astype(np.float32)).to(dev)
+    out, sigma = tsa.sell_forward(zs, zd, a, n, negative_slope=SLOPE,
+                                  sell_tiles=st, w_e=w_e)
+    r = (gr * out).view(n, h, d).sum(-1)
+    tables = (zs, zd, gr, sigma, r, a)
+
+    def chunk0(side, spc):
+        return (chunk_rows(side, spc, 0), side.ids_grp[0], side.cnt_grp[0],
+                side.rel_off[0])
+
+    def f64(ts):
+        return [t.double() for t in ts]
+
+    dst, src = chunk0(st.dst, st.spc_dst), chunk0(st.srcs, st.spc_src)
+    kw = dict(negative_slope=SLOPE, w_e=w_e, edge_feat=st.dst.edge_feat[0])
+    kw64 = dict(kw, w_e=w_e.double(), edge_feat=kw["edge_feat"].double())
+    norm = not st.dst.split
+    real = int(st.dst.cnt_grp[0].sum())
+    print(f"edge-feature kernels ({n} nodes, {g.num_edges} edges, in-degree "
+          f"{g.num_edges / n:.0f}, {h} x {d} heads, k = {k}; chunk 0 of "
+          f"{st.num_chunks}: {real} edges, split rows {st.dst.split}) "
+          f"[{card}]")
+    got = sell_fwd(*tables[:2], a, *dst, normalize=norm, **kw)
+    twin = sell_fwd_plain(*tables[:2], a, *dst, normalize=norm, **kw)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("K1 out", "K1 m", "K1 l"), got, twin):
+        compare(name, x, y, EDGE_KERNEL_RTOL, EDGE_KERNEL_ATOL)
+    got = sell_bwd_dst(*tables, *dst, emit_c1=False, **kw)
+    twin = sell_bwd_dst_plain(*tables, *dst, emit_c1=False, **kw)
+    twin64 = sell_bwd_dst_plain(*f64(tables), *dst, emit_c1=False, **kw64)
+    torch.cuda.synchronize()
+    dwe = [x[3].sum(0) for x in (got, twin, twin64)]
+    if not float(dwe[2].abs().max()) > 0:
+        fail("edge-feature kernels: the float64 dW_e is zero")
+    for name, x, y, y64 in (
+            ("K2 dzd", got[0], twin[0], twin64[0]),
+            ("K2 da", got[1], twin[1], twin64[1]),
+            ("K2 dW_e (summed partials)", *dwe)):
+        compare(name, x, y, EDGE_KERNEL_RTOL, EDGE_KERNEL_ATOL)
+        compare_f64(name, x, y, y64)
+    kw = dict(kw, edge_feat=st.srcs.edge_feat[0])
+    kw64 = dict(kw64, edge_feat=kw["edge_feat"].double())
+    got = sell_bwd_src(*tables, *src, **kw)
+    twin = sell_bwd_src_plain(*tables, *src, **kw)
+    twin64 = sell_bwd_src_plain(*f64(tables), *src, **kw64)
+    torch.cuda.synchronize()
+    compare("K4 dzs", got, twin, EDGE_KERNEL_RTOL, EDGE_KERNEL_ATOL)
+    compare_f64("K4 dzs", got, twin, twin64)
+    del st, zs, zd, gr, out, sigma, r, tables, got, twin, twin64
+    torch.cuda.empty_cache()
+
+
+def phase_edge_features(dev, card):
+    """The edge-feature kernels at the ogbn-proteins row shape against
+    their twins (edge_kernels_at_proteins_degree); then a short
+    edge-feature run: a sell Trainer with remat on a forced 3-chunk layout
+    (K1, K2 and K4 with the edge term), EDGE_EPOCHS epochs against the
+    torch path's losses on the card, with K1 launched once per layer,
+    chunk and epoch (remat's recompute takes the kept result)."""
+    edge_kernels_at_proteins_degree(dev, card)
+    cfg = EDGE_GRAPH
+    g0 = random_graph(cfg["num_nodes"], cfg["num_edges"],
+                      cfg["feature_dim"], 2, seed=31)
+    rng = np.random.default_rng(31)
+    g = Graph(g0.features, g0.row_ptr, g0.col_idx,
+              (rng.random((g0.num_nodes, cfg["tasks"])) < 0.5).astype(
+                  np.int32),
+              edge_features=rng.standard_normal(
+                  (g0.num_edges, cfg["edge_dim"])).astype(np.float32))
+    heads, dims = (6, 6), (80, 80)
+    losses, ms = {}, {}
+    for impl in ("torch", "sell"):
+        mc = ModelConfig(num_layers=2, heads=heads, out_dims=dims,
+                         num_classes=cfg["tasks"], in_dim=cfg["feature_dim"],
+                         negative_slope=0.2, remat=True,
+                         edge_dim=cfg["edge_dim"], residual=True,
+                         norm="batch", loss="bce")
+        tc = TrainConfig(epochs=EDGE_EPOCHS, optimizer="adam", lr=0.01,
+                         seed=5, impl=impl)
+        suggest = functools.partial(
+            tsa.suggest_chunks_for_graph, g.row_ptr, g.col_idx,
+            g.num_nodes, heads, dims)
+        with forced_chunks(tsa, lambda b: suggest(budget_bytes=b), 3):
+            tr = Trainer(g, mc, tc, device=dev, log_fn=lambda _: None)
+        torch.cuda.synchronize()
+        zero_counters()
+        got = []
+        for _ in range(EDGE_EPOCHS):
+            tr.epoch += 1
+            got.append(tr.step()[0])
+        torch.cuda.synchronize()
+        counts = read_counters()
+        losses[impl] = got
+        if impl == "sell":
+            want_k1 = 2 * tr.edge_tiles.num_chunks * EDGE_EPOCHS
+            if counts["sell_fwd"] != want_k1 or \
+                    tsa.sell_attention.reused != 2 * EDGE_EPOCHS:
+                fail(f"edge features: K1 launched {counts['sell_fwd']} "
+                     f"times (want {want_k1}), the recompute reused "
+                     f"{tsa.sell_attention.reused} head groups")
+            if counts["sell_bwd_src"] == 0 or counts["sell_bwd_dst"] == 0:
+                fail(f"edge features: launches {counts}")
+        tr.epoch += 1
+        ms[impl] = cuda_ms(tr.step, reps=2, warmup=1)
+        print(f"edge features {impl} ({g.num_nodes} nodes, {g.num_edges} "
+              f"edges, 2 layers of 6 x 80, k = 8, remat): launches "
+              f"{ {k: v for k, v in counts.items() if v} }; losses {got}; "
+              f"epoch {ms[impl]:.3f} ms [{card}]")
+        del tr
+        torch.cuda.empty_cache()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["sell"],
+                                                  losses["torch"]))
+    print(f"edge features: sell against torch losses, max relative "
+          f"difference {rel:.3e} (tolerance {LOSS_RTOL:g})")
+    if not all(np.isfinite(losses["sell"])) or rel > LOSS_RTOL:
+        fail("edge features: sell losses disagree with the torch path")
+
+
 def phase_chunk_invariance(model, config, runs, dev, card):
     """arxiv and arxiv-pl on a forced FORCED_CHUNKS-chunk layout: sell (K1,
     K2, K4) and pallas (K5, K6, K8) Trainers, TRAIN_EPOCHS epochs from the
@@ -4163,6 +4330,7 @@ def main() -> int:
     del pallas_layouts
     phase_chunk_invariance(model, config, runs, dev, card)
     err_chunked_cases = phase_chunked_cases(dev)
+    phase_edge_features(dev, card)
     phase_minibatch_entry()
     pfs = phase_products_sub_full_graph(mb, dev, card)
     err_k8, k8_totals = phase_k8_at_products_sub(mb, pfs, card)

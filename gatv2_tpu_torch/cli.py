@@ -133,6 +133,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="dump final weights as text into DIR")
     p.add_argument("--load-weights", type=str, default=None, metavar="DIR",
                    help="initialize weights from a --save-weights dump")
+    # the edge-conditioned block (ModelConfig edge_dim, residual, norm,
+    # loss); full-graph training with --impl torch or sell only
+    p.add_argument("--edge-features", action="store_true",
+                   help="scores read the dataset's per-edge features "
+                        "(edge_features.txt; edge_dim is its width)")
+    p.add_argument("--residual", action="store_true",
+                   help="each layer adds a linear residual W_res x")
+    p.add_argument("--norm", choices=["none", "batch"], default="none",
+                   help="batch: BatchNorm then ReLU between layers, the "
+                        "last layer a plain head mean")
+    p.add_argument("--loss", choices=["ce", "bce"], default="ce",
+                   help="ce: softmax cross-entropy over class labels; "
+                        "bce: binary cross-entropy over multi-label rows")
     return p
 
 
@@ -176,6 +189,9 @@ def _finish(args: argparse.Namespace) -> tuple[ModelConfig, TrainConfig, argpars
         matmul_precision=args.precision,
         remat=args.remat,
         streams=args.streams,
+        residual=args.residual,
+        norm=args.norm,
+        loss=args.loss,
     )
     if args.streams == "bf16" and impl != "sell":
         print(

@@ -42,6 +42,20 @@ class ModelConfig:
     # once to bfloat16 and carried as fp32, so the kernel computes exactly
     # what it would on bf16-rounded projections.
     streams: str = "f32"
+    # the edge-conditioned block (ogbn-proteins GAT of DGL's OGB examples);
+    # the defaults give the plain GATv2 above, unchanged.
+    # edge_dim: width k of per-edge features f_ij; each layer gains W_e
+    # [H, D, k] and scores read LeakyReLU(W_src x_i + W_dst x_j + W_e f_ij)
+    edge_dim: int = 0
+    # residual: each layer adds (W_res x_j) [H*D] to its heads' output
+    residual: bool = False
+    # norm: 'none', or 'batch': hidden layers apply BatchNorm over the
+    # real nodes, then ReLU, and the last layer takes the head mean with no
+    # activation (the DGL block)
+    norm: str = "none"
+    # loss: 'ce' (softmax cross-entropy over [N] class labels) or 'bce'
+    # (mean binary cross-entropy with logits over [N, C] 0/1 labels)
+    loss: str = "ce"
 
     def __post_init__(self):
         if len(self.heads) != self.num_layers or len(self.out_dims) != self.num_layers:
@@ -60,6 +74,38 @@ class ModelConfig:
             raise ValueError(
                 f"streams must be 'f32' or 'bf16', got {self.streams!r}"
             )
+        if self.edge_dim < 0:
+            raise ValueError(f"edge_dim must be >= 0, got {self.edge_dim}")
+        if self.norm not in ("none", "batch"):
+            raise ValueError(
+                f"norm must be 'none' or 'batch', got {self.norm!r}")
+        if self.loss not in ("ce", "bce"):
+            raise ValueError(f"loss must be 'ce' or 'bce', got {self.loss!r}")
+        if self.variant == "node" and self.extended:
+            raise ValueError(
+                "variant 'node' takes none of edge_dim, residual, norm "
+                "'batch' or loss 'bce' (the block is defined on the 'edge' "
+                "variant only)")
+
+    @property
+    def extended(self) -> bool:
+        """Whether any field of the edge-conditioned block is set."""
+        return (self.edge_dim > 0 or self.residual or self.norm != "none"
+                or self.loss != "ce")
+
+    def check_full_graph_only(self, where: str) -> None:
+        """ValueError naming the first field of the edge-conditioned block
+        that is set: `where` (a trainer or option) runs only the plain
+        model."""
+        for name, on in (("edge_dim", self.edge_dim > 0),
+                         ("residual", self.residual),
+                         ("norm", self.norm != "none"),
+                         ("loss", self.loss != "ce")):
+            if on:
+                raise ValueError(
+                    f"{where} does not support {name}={getattr(self, name)!r}"
+                    ": the edge-conditioned block runs on the full-graph "
+                    "path (Trainer, impl 'torch' or 'sell') only")
 
     @property
     def precision(self) -> str:

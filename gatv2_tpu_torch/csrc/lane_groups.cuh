@@ -65,6 +65,28 @@ inline Geometry geometry(int heads, int head_dim, bool aligned) {
   return g;
 }
 
+// The widest per-edge feature vector the edge-feature variants of K1, K2
+// and K4 take (ops/sell_fwd.py MAX_EDGE_DIM).
+constexpr int kMaxEdgeDim = 16;
+
+// Loads an edge's k features (k <= kMaxEdgeDim) into registers; every lane
+// of a group reads the same slot, so the loads are broadcast in L1.
+__device__ __forceinline__ void load_edge_feats(float (&f)[kMaxEdgeDim],
+                                                const float* __restrict__ p,
+                                                int k) {
+#pragma unroll
+  for (int c = 0; c < kMaxEdgeDim; ++c) f[c] = c < k ? __ldg(p + c) : 0.f;
+}
+
+// Copies W_e, laid out [k][H*D] (the wrappers transpose it), into the
+// block's shared memory; every thread of the block takes part and syncs.
+__device__ __forceinline__ void load_edge_weights(float* __restrict__ s,
+                                                  const float* __restrict__ w,
+                                                  int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s[i] = __ldg(w + i);
+  __syncthreads();
+}
+
 // Where this lane's vectors start in a row, and which of them exist.
 template <int VEC, int NV>
 struct Lane {
@@ -102,6 +124,88 @@ struct Lane {
       } else {
         const float* p = row + off[j];
         x[j] = !ok[j] ? 0.f : once ? __ldcs(p) : __ldg(p);
+      }
+    }
+  }
+
+  // x[i] += W_e f[i] over this lane's features, for the R edges of a
+  // ring at once: the edge term of the score's pre-activation, from W_e
+  // [k][H*D] in shared memory and each edge's features f[i]. Each W_e
+  // vector is read once for the R edges. Each feature sums its k products
+  // in order, then adds them to x, in K1, K2 and K4 alike, so all three
+  // rebuild the same value.
+  template <int R>
+  __device__ __forceinline__ void add_edge(float (&x)[R][NV * VEC],
+                                           const float* __restrict__ sw,
+                                           const float (&f)[R][kMaxEdgeDim],
+                                           int k, int hd) const {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if (!ok[j]) continue;
+      float e[R][VEC];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) e[i][v] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kMaxEdgeDim; ++c) {
+        if (c >= k) break;
+        const float* w = sw + c * hd + off[j];
+        float q[VEC];
+        if constexpr (VEC == 4) {
+          const float4 t = *reinterpret_cast<const float4*>(w);
+          q[0] = t.x;
+          q[1] = t.y;
+          q[2] = t.z;
+          q[3] = t.w;
+        } else {
+          q[0] = *w;
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) e[i][v] = fmaf(f[i][c], q[v], e[i][v]);
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) x[i][VEC * j + v] += e[i][v];
+    }
+  }
+
+  // add_edge of one edge.
+  __device__ __forceinline__ void add_edge(float (&x)[NV * VEC],
+                                           const float* __restrict__ sw,
+                                           const float (&f)[kMaxEdgeDim],
+                                           int k, int hd) const {
+    add_edge<1>(reinterpret_cast<float(&)[1][NV * VEC]>(x), sw,
+                reinterpret_cast<const float(&)[1][kMaxEdgeDim]>(f), k, hd);
+  }
+
+  // acc += g (x) f over this lane's features: the edge term's weight
+  // gradient, into a [k][H*D] table in shared memory that this lane's
+  // group alone writes (no other lane holds these features).
+  __device__ __forceinline__ void add_outer(float* __restrict__ acc,
+                                            const float (&g)[NV * VEC],
+                                            const float (&f)[kMaxEdgeDim],
+                                            int k, int hd) const {
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      if (!ok[j]) continue;
+#pragma unroll
+      for (int c = 0; c < kMaxEdgeDim; ++c) {
+        if (c >= k) break;
+        float* a = acc + c * hd + off[j];
+        if constexpr (VEC == 4) {
+          float4 q = *reinterpret_cast<float4*>(a);
+          q.x = fmaf(g[4 * j], f[c], q.x);
+          q.y = fmaf(g[4 * j + 1], f[c], q.y);
+          q.z = fmaf(g[4 * j + 2], f[c], q.z);
+          q.w = fmaf(g[4 * j + 3], f[c], q.w);
+          *reinterpret_cast<float4*>(a) = q;
+        } else {
+          *a = fmaf(g[j], f[c], *a);
+        }
       }
     }
   }
@@ -173,6 +277,34 @@ int dispatch(const Geometry& g, Fn&& fn) {
       case 8: return fn(Int<1>{}, Int<8>{});
       case 16: return fn(Int<1>{}, Int<16>{});
       case 32: return fn(Int<1>{}, Int<32>{});
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// dispatch for the edge-feature variants: with 16-byte vectors the
+// template's NV is the lane's exact vector count (1 to 8), so a head
+// width such as D = 80 (5 vectors a lane at 6 heads) holds no idle
+// registers; 4-byte loads take NV up to 8, rounded as in dispatch.
+template <class Fn>
+int dispatch_edge(const Geometry& g, Fn&& fn) {
+  if (g.vec == 4) {
+    switch ((g.qph + g.lph - 1) / g.lph) {
+      case 1: return fn(Int<4>{}, Int<1>{});
+      case 2: return fn(Int<4>{}, Int<2>{});
+      case 3: return fn(Int<4>{}, Int<3>{});
+      case 4: return fn(Int<4>{}, Int<4>{});
+      case 5: return fn(Int<4>{}, Int<5>{});
+      case 6: return fn(Int<4>{}, Int<6>{});
+      case 7: return fn(Int<4>{}, Int<7>{});
+      case 8: return fn(Int<4>{}, Int<8>{});
+    }
+  } else {
+    switch (g.nv) {
+      case 1: return fn(Int<1>{}, Int<1>{});
+      case 2: return fn(Int<1>{}, Int<2>{});
+      case 4: return fn(Int<1>{}, Int<4>{});
+      case 8: return fn(Int<1>{}, Int<8>{});
     }
   }
   return (int)cudaErrorInvalidValue;

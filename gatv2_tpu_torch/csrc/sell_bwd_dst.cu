@@ -69,6 +69,13 @@
 // 0.753 ms; one edge at a time at 6 blocks 3.75 / 1.055 / 0.619; a ring of
 // 4 at 3 blocks 3.61 / 0.981 / 0.565; evict-first zs loads 3.23 / 0.909 /
 // 0.538 ms (no gain at F = 4).
+//
+// The edge-feature variant (EF, below) rebuilds each score with W_e f as
+// K1 does, and sums dW_e per lane group in shared memory (a read and a
+// write of 40 16-byte vectors a lane an edge at 6 heads x 80, k = 8): at
+// 205 registers and 154 KB of shared memory it keeps one block an SM and
+// took 300 ms a layer on ogbn-proteins (79.1 M edges, H*D = 480), the
+// largest part of that cell's epoch.
 
 #include <cuda_runtime.h>
 
@@ -98,7 +105,18 @@ constexpr int kRing = F <= 8 ? 2 : 1;
 template <int F>
 constexpr int kMinBlocks = F <= 4 ? 4 : F <= 8 ? 2 : 1;
 
-template <int VEC, int NV>
+// EF: the edge-feature variant. Each slot's k features (ef, in the slot
+// order of gather_ids) enter the score as W_e f, W_e laid out [k][H*D]
+// (we) and read once per block into shared memory, as in K1; and the
+// kernel adds dW_e = sum over the slots of ds (x) f. Each lane group sums
+// its own rows' products into a [k][H*D] table of its own in shared
+// memory (its lanes own disjoint features: no atomics); at the end the
+// block adds its groups' tables in group order and adds the result into
+// its row of dwe_part [blocks, k, H*D], so the launches over the chunks of
+// a layout accumulate in launch order and the wrapper's one sum over the
+// blocks fixes every rounding. Without EF the kernel is the one measured
+// above.
+template <int VEC, int NV, bool EF>
 __global__ void __launch_bounds__(kBlock, kMinBlocks<NV * VEC>)
 sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const float* __restrict__ g,
@@ -109,13 +127,24 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const int* __restrict__ cnt,
                     const int* __restrict__ col_off, int rows, int heads,
                     int head_dim, int lg, int lph, int qph, float slope,
+                    const float* __restrict__ ef,
+                    const float* __restrict__ we, int k_ef,
                     float* __restrict__ dzd, float* __restrict__ da_part,
-                    float* __restrict__ c1) {
+                    float* __restrict__ c1, float* __restrict__ dwe_part) {
   constexpr int F = NV * VEC;
   constexpr int R = kRing<F>;
   __shared__ float s_da[kWarps][kMaxHd];  // each warp's d_a sums
+  // EF: W_e [k][H*D], then one dW_e table [k][H*D] per lane group
+  extern __shared__ __align__(16) float s_dyn[];
   const int lane = threadIdx.x & 31;
   const int hd = heads * head_dim;
+  const int ehd = k_ef * hd;
+  float* s_dwe = s_dyn + ehd + (threadIdx.x / lg) * ehd;  // this group's
+  if constexpr (EF) {
+    for (int i = threadIdx.x; i < ehd * (kBlock / lg); i += kBlock)
+      s_dyn[ehd + i] = 0.f;
+    load_edge_weights(s_dyn, we, ehd);
+  }
   const int gl = lane & (lg - 1);
   const unsigned mask = group_mask(lane, lg);
   const int h = gl / lph;
@@ -147,18 +176,26 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                                  : 0.f;
       const float r_h = own_head ? __ldg(rr + (size_t)node * heads + h) : 0.f;
       const int* ids = gather_ids + (size_t)c0 * kTileN + r;  // column k: k*128
+      // EF: the slot's features, column k at efs + k*128*k_ef
+      const float* efs =
+          EF ? ef + ((size_t)c0 * kTileN + r) * k_ef : nullptr;
       // the ring: slot j holds an edge's zs row from its load to its
       // compute, and id[j] the source id of the next edge loaded into it;
       // while edge k is computed, the loads of edges k+1 .. k+R-1 are in
       // flight and the ids of the next R edges are known
       int id[R];
       float z[R][F];
+      float fe[R][kMaxEdgeDim];
 #pragma unroll
       for (int j = 0; j < R; ++j)
         id[j] = j < deg ? __ldg(ids + j * kTileN) : 0;
 #pragma unroll
       for (int j = 0; j + 1 < R; ++j) {
-        if (j < deg) ln.load(z[j], zs + (size_t)id[j] * hd, kZsEvictFirst);
+        if (j < deg) {
+          ln.load(z[j], zs + (size_t)id[j] * hd, kZsEvictFirst);
+          if constexpr (EF)
+            load_edge_feats(fe[j], efs + (size_t)j * kTileN * k_ef, k_ef);
+        }
         id[j] = j + R < deg ? __ldg(ids + (size_t)(j + R) * kTileN) : 0;
       }
       for (int k0 = 0; k0 < deg; k0 += R) {
@@ -169,8 +206,43 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
           const int j = (i + R - 1) % R;  // the slot of edge k + R - 1
           if (k + R - 1 < deg) {
             ln.load(z[j], zs + (size_t)id[j] * hd, kZsEvictFirst);
+            if constexpr (EF)
+              load_edge_feats(fe[j],
+                              efs + (size_t)(k + R - 1) * kTileN * k_ef,
+                              k_ef);
             const int kn = k + 2 * R - 1;
             id[j] = kn < deg ? __ldg(ids + (size_t)kn * kTileN) : 0;
+          }
+          if constexpr (EF) {
+            float pre[F];
+#pragma unroll
+            for (int f = 0; f < F; ++f) pre[f] = z[i][f] + zdv[f];
+            ln.add_edge(pre, s_dyn, fe[i], k_ef, hd);
+            float sc = 0.f, dal = 0.f;
+#pragma unroll
+            for (int f = 0; f < F; ++f) {
+              sc += av[f] * (pre[f] > 0.f ? pre[f] : slope * pre[f]);
+              dal += gv[f] * z[i][f];
+            }
+            sc = head_sum(sc, lph, mask);
+            dal = head_sum(dal, lph, mask);
+            const float alpha =
+                expf(fminf(fmaxf(sc - sig, kExpClamp), 0.f));
+            const float de = alpha * (dal - r_h);
+            float pk[F], dsv[F];
+#pragma unroll
+            for (int f = 0; f < F; ++f) {
+              const bool pos = pre[f] > 0.f;
+              const float ds = de * av[f] * (pos ? 1.f : slope);
+              dacc[f] = __fadd_rn(dacc[f], ds);
+              da_acc[f] = fmaf(de, pos ? pre[f] : slope * pre[f], da_acc[f]);
+              pk[f] = alpha * gv[f] + ds;
+              dsv[f] = ds;
+            }
+            ln.add_outer(s_dwe, dsv, fe[i], k_ef, hd);
+            if (emit)
+              ln.store(c1 + ((size_t)(c0 + k) * kTileN + r) * hd, pk);
+            continue;
           }
           float sc = 0.f, dal = 0.f;
 #pragma unroll
@@ -226,6 +298,16 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
     for (int w = 0; w < kWarps; ++w) s += s_da[w][f];
     da_part[(size_t)blockIdx.x * hd + f] = s;
   }
+  if constexpr (EF) {
+    // the block's dW_e: its groups' tables in group order, added into its
+    // row of the partials
+    const int groups = kBlock / lg;
+    for (int i = threadIdx.x; i < ehd; i += kBlock) {
+      float s = 0.f;
+      for (int q = 0; q < groups; ++q) s += s_dyn[ehd + q * ehd + i];
+      dwe_part[(size_t)blockIdx.x * ehd + i] += s;
+    }
+  }
 }
 
 }  // namespace
@@ -236,26 +318,46 @@ extern "C" {
 // `blocks` thread blocks of kBlock threads, which stride over the rows;
 // da_part holds blocks x H*D partials. c1 may be null: then no packet is
 // written. Returns the cudaError_t of the launch (0 on success).
+// ef / we / k / dwe_part: the edge-feature variant (ef [slots, k] in
+// gather_ids' order, we = W_e as [k][H*D], dwe_part [blocks, k, H*D] that
+// each block adds its dW_e partial into); null / 0 for the plain kernel.
 int gatv2_sell_bwd_dst(const float* zs, const float* zd, const float* g,
                        const float* sigma, const float* r, const float* a,
                        const int* perm, const int* gather_ids, const int* cnt,
                        const int* col_off, int rows, int heads, int head_dim,
-                       float slope, int blocks, float* dzd, float* da_part,
-                       float* c1, cudaStream_t stream) {
+                       float slope, int blocks, const float* ef,
+                       const float* we, int k, float* dzd, float* da_part,
+                       float* c1, float* dwe_part, cudaStream_t stream) {
   const int hd = heads * head_dim;
   if (rows <= 0 || blocks <= 0 || heads <= 0 || heads > kMaxHeads ||
-      head_dim <= 0 || hd > kMaxHd)
+      head_dim <= 0 || hd > kMaxHd || k < 0 || k > kMaxEdgeDim ||
+      (k > 0) != (ef != nullptr) || (k > 0) != (dwe_part != nullptr))
     return (int)cudaErrorInvalidValue;
   const Geometry geo = geometry(
       heads, head_dim,
       aligned16(zs) && aligned16(zd) && aligned16(g) && aligned16(a) &&
           aligned16(dzd) && (c1 == nullptr || aligned16(c1)));
-  return dispatch(geo, [&](auto vec, auto nv) {
-    sell_bwd_dst_kernel<decltype(vec)::value, decltype(nv)::value>
-        <<<blocks, kBlock, 0, stream>>>(
-            zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, rows,
-            heads, head_dim, geo.lg, geo.lph, geo.qph, slope, dzd, da_part,
-            c1);
+  if (k == 0)
+    return dispatch(geo, [&](auto vec, auto nv) {
+      sell_bwd_dst_kernel<decltype(vec)::value, decltype(nv)::value, false>
+          <<<blocks, kBlock, 0, stream>>>(
+              zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, rows,
+              heads, head_dim, geo.lg, geo.lph, geo.qph, slope, nullptr,
+              nullptr, 0, dzd, da_part, c1, nullptr);
+      return (int)cudaGetLastError();
+    });
+  // W_e and one dW_e table per lane group
+  const size_t smem = sizeof(float) * (size_t)k * hd * (1 + kBlock / geo.lg);
+  return dispatch_edge(geo, [&](auto vec, auto nv) {
+    auto kernel =
+        sell_bwd_dst_kernel<decltype(vec)::value, decltype(nv)::value, true>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<blocks, kBlock, smem, stream>>>(
+        zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, rows, heads,
+        head_dim, geo.lg, geo.lph, geo.qph, slope, ef, we, k, dzd, da_part,
+        c1, dwe_part);
     return (int)cudaGetLastError();
   });
 }

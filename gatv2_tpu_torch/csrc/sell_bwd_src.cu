@@ -59,6 +59,11 @@
 // rows in the same order takes 4.58 / 1.17 / 0.84 ms on a synthetic chunk
 // of that shape (tools/torch_kernel_variants.py): the kernel is within
 // 1.10-1.14x of what the memory system delivers for its access pattern.
+//
+// The edge-feature variant (EF, below) rebuilds each score with W_e f as
+// K1 does, over a ring of two slots that share each W_e read from shared
+// memory: 205 -> 169 ms a layer on ogbn-proteins (79.1 M edges, H*D = 480,
+// one block of 251 registers an SM).
 
 #include <cuda_runtime.h>
 
@@ -87,8 +92,16 @@ template <int F>
 constexpr int kRing = F <= 4 ? 4 : F <= 8 ? 2 : 1;
 template <int F>
 constexpr int kMinBlocks = F <= 8 ? 3 : F <= 16 ? 2 : 1;
+// The edge-feature variant's ring: two slots, so that each W_e vector read
+// from shared memory serves both (as in K1).
+constexpr int kRingEdge = 2;
 
-template <int VEC, int NV>
+// EF: the edge-feature variant. Each slot's k features (ef, the source
+// side's table in the slot order of gather_ids) enter the rebuilt score as
+// W_e f, W_e laid out [k][H*D] (we) and read once per block into shared
+// memory, exactly as K1 and K2 build it. Without EF the kernel is the one
+// measured above.
+template <int VEC, int NV, bool EF>
 __global__ void __launch_bounds__(kBlock, kMinBlocks<NV * VEC>)
 sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const float* __restrict__ g,
@@ -99,9 +112,13 @@ sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const int* __restrict__ cnt,
                     const int* __restrict__ col_off, int rows, int heads,
                     int head_dim, int lg, int lph, int qph, float slope,
+                    const float* __restrict__ ef,
+                    const float* __restrict__ we, int k_ef,
                     float* __restrict__ dzs) {
   constexpr int F = NV * VEC;
-  constexpr int R = kRing<F>;
+  constexpr int R = EF ? kRingEdge : kRing<F>;
+  extern __shared__ __align__(16) float s_we[];  // EF: W_e [k][H*D]
+  if constexpr (EF) load_edge_weights(s_we, we, k_ef * heads * head_dim);
   const int lane = threadIdx.x & 31;
   const int rows_per_warp = 32 / lg;
   const int row = ((blockIdx.x * kBlock + threadIdx.x) >> 5) * rows_per_warp +
@@ -128,11 +145,14 @@ sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
     ln.load(z, zs + (size_t)perm[row] * hd);
     ln.load(av, a);
     const int* ids = gather_ids + (size_t)c0 * kTileN + r;  // column k: k*128
+    // EF: the slot's features, column k at efs + k*128*k_ef
+    const float* efs = EF ? ef + ((size_t)c0 * kTileN + r) * k_ef : nullptr;
     int id[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) id[i] = i < deg ? __ldg(ids + i * kTileN) : 0;
     for (int k0 = 0; k0 < deg; k0 += R) {
       float zdv[R][F], gv[R][F], sg[R], rv[R];
+      float fe[R][kMaxEdgeDim];
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const bool real = k0 + i < deg;
@@ -140,6 +160,9 @@ sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
         if (real) {
           ln.load(zdv[i], zd + base, true);  // read once: evict-first
           ln.load(gv[i], g + base, true);
+          if constexpr (EF)
+            load_edge_feats(fe[i], efs + (size_t)(k0 + i) * kTileN * k_ef,
+                            k_ef);
         }
         sg[i] = real && own_head ? __ldg(sigma + (size_t)id[i] * heads + h)
                                  : 0.f;
@@ -151,9 +174,35 @@ sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
         const int k = k0 + R + i;
         id[i] = k < deg ? __ldg(ids + (size_t)k * kTileN) : 0;
       }
+      float pre[R][F];  // EF: the ring's pre-activations
+      if constexpr (EF) {
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int f = 0; f < F; ++f) pre[i][f] = z[f] + zdv[i][f];
+        ln.add_edge(pre, s_we, fe, k_ef, hd);  // slots past deg unread
+      }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         if (k0 + i >= deg) break;  // group-uniform
+        if constexpr (EF) {
+          float sc = 0.f, dal = 0.f;
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            sc += av[f] * (pre[i][f] > 0.f ? pre[i][f] : slope * pre[i][f]);
+            dal += gv[i][f] * z[f];
+          }
+          sc = head_sum(sc, lph, mask);
+          dal = head_sum(dal, lph, mask);
+          const float alpha =
+              expf(fminf(fmaxf(sc - sg[i], kExpClamp), 0.f));
+          const float de = alpha * (dal - rv[i]);
+#pragma unroll
+          for (int f = 0; f < F; ++f)
+            acc[f] += alpha * gv[i][f] +
+                      de * av[f] * (pre[i][f] > 0.f ? 1.f : slope);
+          continue;
+        }
         float sc = 0.f, dal = 0.f;
 #pragma unroll
         for (int f = 0; f < F; ++f) {
@@ -182,14 +231,17 @@ extern "C" {
 
 // Launches K4 on `stream` for `rows` virtual source rows of one chunk (a
 // multiple of 128). Returns the cudaError_t of the launch (0 on success).
+// ef / we / k: the edge-feature variant (ef [slots, k] in gather_ids'
+// order, we = W_e as [k][H*D]); null / 0 for the plain kernel.
 int gatv2_sell_bwd_src(const float* zs, const float* zd, const float* g,
                        const float* sigma, const float* r, const float* a,
                        const int* perm, const int* gather_ids, const int* cnt,
                        const int* col_off, int rows, int heads, int head_dim,
-                       float slope, float* dzs, cudaStream_t stream) {
+                       float slope, const float* ef, const float* we, int k,
+                       float* dzs, cudaStream_t stream) {
   const int hd = heads * head_dim;
   if (rows <= 0 || heads <= 0 || heads > kMaxHeads || head_dim <= 0 ||
-      hd > kMaxHd)
+      hd > kMaxHd || k < 0 || k > kMaxEdgeDim || (k > 0) != (ef != nullptr))
     return (int)cudaErrorInvalidValue;
   const Geometry geo = geometry(
       heads, head_dim,
@@ -197,11 +249,21 @@ int gatv2_sell_bwd_src(const float* zs, const float* zd, const float* g,
           aligned16(dzs));
   const int rows_per_block = kBlock / 32 * (32 / geo.lg);
   const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  return dispatch(geo, [&](auto vec, auto nv) {
-    sell_bwd_src_kernel<decltype(vec)::value, decltype(nv)::value>
-        <<<blocks, kBlock, 0, stream>>>(
+  if (k == 0)
+    return dispatch(geo, [&](auto vec, auto nv) {
+      sell_bwd_src_kernel<decltype(vec)::value, decltype(nv)::value, false>
+          <<<blocks, kBlock, 0, stream>>>(
+              zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, rows,
+              heads, head_dim, geo.lg, geo.lph, geo.qph, slope, nullptr,
+              nullptr, 0, dzs);
+      return (int)cudaGetLastError();
+    });
+  const size_t smem = sizeof(float) * (size_t)k * hd;
+  return dispatch_edge(geo, [&](auto vec, auto nv) {
+    sell_bwd_src_kernel<decltype(vec)::value, decltype(nv)::value, true>
+        <<<blocks, kBlock, smem, stream>>>(
             zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, rows,
-            heads, head_dim, geo.lg, geo.lph, geo.qph, slope, dzs);
+            heads, head_dim, geo.lg, geo.lph, geo.qph, slope, ef, we, k, dzs);
     return (int)cudaGetLastError();
   });
 }

@@ -56,6 +56,16 @@
 // blocks at F = 4, 3 at F = 8) took 3.12 / 0.876 / 0.529 and 5.38 ms; a
 // ring of 2 at 6 blocks 2.75 / 0.758 / 0.470; evict-first zs loads
 // 2.46 / 0.681 / 0.460 ms (no gain, so zs is read with ordinary loads).
+//
+// The edge-feature variant (EF, below) adds W_e f to each score's
+// pre-activation: 2*k*H*D FLOPs an edge, with W_e [k][H*D] in shared
+// memory, where each lane reads its own features' k vectors (40 16-byte
+// reads a lane an edge at 6 heads x 80, k = 8). At that width a row's 24
+// active lanes of 32 hold 20 floats each (NV = 5, exact) and the kernel
+// keeps one block (8 warps) an SM, so it is bound by the latency of its
+// gathers and shared-memory reads, not by bandwidth: a ring of two edges,
+// sharing each W_e read, took K1 from 183 to 144 ms a layer on ogbn-proteins
+// (79.1 M edges, H*D = 480; its gathers alone would take ~45 ms).
 
 #include <cuda_runtime.h>
 
@@ -87,18 +97,30 @@ template <int F>
 constexpr int kRing = F <= 4 ? 1 : F <= 16 ? 2 : 1;
 template <int F>
 constexpr int kMinBlocks = F <= 4 ? 8 : F <= 8 ? 4 : F <= 16 ? 2 : 1;
+// The edge-feature variant's ring: two edges, so that each W_e vector read
+// from shared memory serves both, and two gathers are in flight.
+constexpr int kRingEdge = 2;
 
-template <int VEC, int NV>
+// EF: the edge-feature variant. Each slot's k features (ef, in the slot
+// order of gather_ids) enter the score as W_e f, W_e laid out [k][H*D]
+// (we) and read once per block into shared memory; every lane builds its
+// own features' edge term from the slot's k floats (lane_groups.cuh
+// add_edge). Without EF the kernel is the one measured above.
+template <int VEC, int NV, bool EF>
 __global__ void __launch_bounds__(kBlock, kMinBlocks<NV * VEC>)
 sell_fwd_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                 const float* __restrict__ a, const int* __restrict__ perm,
                 const int* __restrict__ gather_ids,
                 const int* __restrict__ cnt, const int* __restrict__ col_off,
                 int rows, int heads, int head_dim, int lg, int lph, int qph,
-                float slope, int normalize, float* __restrict__ out,
-                float* __restrict__ m_out, float* __restrict__ l_out) {
+                float slope, int normalize, const float* __restrict__ ef,
+                const float* __restrict__ we, int k_ef,
+                float* __restrict__ out, float* __restrict__ m_out,
+                float* __restrict__ l_out) {
   constexpr int F = NV * VEC;
-  constexpr int R = kRing<F>;
+  constexpr int R = EF ? kRingEdge : kRing<F>;
+  extern __shared__ __align__(16) float s_we[];  // EF: W_e [k][H*D]
+  if constexpr (EF) load_edge_weights(s_we, we, k_ef * heads * head_dim);
   const int row = (blockIdx.x * kBlock + threadIdx.x) / lg;
   if (row >= rows) return;  // group-uniform; the kernel syncs groups only
   const int lane = threadIdx.x & 31;
@@ -123,14 +145,22 @@ sell_fwd_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
     ln.load(zdv, zd + (size_t)perm[row] * hd);
     ln.load(av, a);
     const int* ids = gather_ids + (size_t)c0 * kTileN + r;  // column k: k*128
+    // EF: the slot's features, column k at efs + k*128*k_ef
+    const float* efs = EF ? ef + ((size_t)c0 * kTileN + r) * k_ef : nullptr;
     int id[R];  // the batch's source ids, loaded one batch ahead
 #pragma unroll
     for (int i = 0; i < R; ++i) id[i] = i < deg ? __ldg(ids + i * kTileN) : 0;
     for (int k0 = 0; k0 < deg; k0 += R) {
       float z[R][F];
+      float fe[R][kMaxEdgeDim];
 #pragma unroll
       for (int i = 0; i < R; ++i)
-        if (k0 + i < deg) ln.load(z[i], zs + (size_t)id[i] * hd, kZsEvictFirst);
+        if (k0 + i < deg) {
+          ln.load(z[i], zs + (size_t)id[i] * hd, kZsEvictFirst);
+          if constexpr (EF)
+            load_edge_feats(fe[i], efs + (size_t)(k0 + i) * kTileN * k_ef,
+                            k_ef);
+        }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const int k = k0 + R + i;
@@ -138,14 +168,28 @@ sell_fwd_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
       }
       float sc[R];
       float bm = m;
+      float pre[R][F];  // EF: the ring's pre-activations
+      if constexpr (EF) {
+#pragma unroll
+        for (int i = 0; i < R; ++i)
+#pragma unroll
+          for (int f = 0; f < F; ++f) pre[i][f] = z[i][f] + zdv[f];
+        ln.add_edge(pre, s_we, fe, k_ef, hd);  // slots past deg unread
+      }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         if (k0 + i >= deg) break;  // group-uniform
         float s_h = 0.f;
+        if constexpr (EF) {
 #pragma unroll
-        for (int f = 0; f < F; ++f) {
-          const float s = z[i][f] + zdv[f];
-          s_h += av[f] * (s > 0.f ? s : slope * s);
+          for (int f = 0; f < F; ++f)
+            s_h += av[f] * (pre[i][f] > 0.f ? pre[i][f] : slope * pre[i][f]);
+        } else {
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            const float s = z[i][f] + zdv[f];
+            s_h += av[f] * (s > 0.f ? s : slope * s);
+          }
         }
         sc[i] = head_sum(s_h, lph, mask);
         bm = fmaxf(bm, sc[i]);
@@ -186,25 +230,38 @@ extern "C" {
 
 // Launches K1 on `stream` for `rows` virtual rows (a multiple of 128).
 // Returns the cudaError_t of the launch (0 on success).
+// ef / we / k: the edge-feature variant (ef [slots, k] in gather_ids'
+// order, we = W_e as [k][H*D]); null / 0 for the plain kernel.
 int gatv2_sell_fwd(const float* zs, const float* zd, const float* a,
                    const int* perm, const int* gather_ids, const int* cnt,
                    const int* col_off, int rows, int heads, int head_dim,
-                   float slope, int normalize, float* out, float* m, float* l,
+                   float slope, int normalize, const float* ef,
+                   const float* we, int k, float* out, float* m, float* l,
                    cudaStream_t stream) {
   const int hd = heads * head_dim;
   if (rows <= 0 || heads <= 0 || heads > kMaxHeads || head_dim <= 0 ||
-      hd > kMaxHd)
+      hd > kMaxHd || k < 0 || k > kMaxEdgeDim || (k > 0) != (ef != nullptr))
     return (int)cudaErrorInvalidValue;
   const Geometry geo = geometry(
       heads, head_dim,
       aligned16(zs) && aligned16(zd) && aligned16(a) && aligned16(out));
   const int rows_per_block = kBlock / geo.lg;
   const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  return dispatch(geo, [&](auto vec, auto nv) {
-    sell_fwd_kernel<decltype(vec)::value, decltype(nv)::value>
-        <<<blocks, kBlock, 0, stream>>>(
+  if (k == 0)
+    return dispatch(geo, [&](auto vec, auto nv) {
+      sell_fwd_kernel<decltype(vec)::value, decltype(nv)::value, false>
+          <<<blocks, kBlock, 0, stream>>>(
+              zs, zd, a, perm, gather_ids, cnt, col_off, rows, heads,
+              head_dim, geo.lg, geo.lph, geo.qph, slope, normalize, nullptr,
+              nullptr, 0, out, m, l);
+      return (int)cudaGetLastError();
+    });
+  const size_t smem = sizeof(float) * (size_t)k * hd;
+  return dispatch_edge(geo, [&](auto vec, auto nv) {
+    sell_fwd_kernel<decltype(vec)::value, decltype(nv)::value, true>
+        <<<blocks, kBlock, smem, stream>>>(
             zs, zd, a, perm, gather_ids, cnt, col_off, rows, heads, head_dim,
-            geo.lg, geo.lph, geo.qph, slope, normalize, out, m, l);
+            geo.lg, geo.lph, geo.qph, slope, normalize, ef, we, k, out, m, l);
     return (int)cudaGetLastError();
   });
 }

@@ -20,13 +20,23 @@ class Graph:
     features: np.ndarray  # [N, F] float32
     row_ptr: np.ndarray  # [N+1] int32, CSR over destination nodes
     col_idx: np.ndarray  # [E] int32, source node of each edge
-    labels: np.ndarray  # [N] int32
+    labels: np.ndarray  # [N] int32, or [N, C] 0/1 for C binary tasks
+    # [E, k] float32 per-edge features in col_idx's (CSR) order, or None
+    edge_features: np.ndarray | None = None
 
     def __post_init__(self):
         self.features = np.ascontiguousarray(self.features, dtype=np.float32)
         self.row_ptr = np.ascontiguousarray(self.row_ptr, dtype=np.int32)
         self.col_idx = np.ascontiguousarray(self.col_idx, dtype=np.int32)
         self.labels = np.ascontiguousarray(self.labels, dtype=np.int32)
+        if self.edge_features is not None:
+            self.edge_features = np.ascontiguousarray(
+                self.edge_features, dtype=np.float32)
+            if self.edge_features.ndim != 2 or \
+                    self.edge_features.shape[0] != self.col_idx.shape[0]:
+                raise ValueError(
+                    f"edge_features {self.edge_features.shape} must be "
+                    f"[num_edges={self.col_idx.shape[0]}, k]")
         n = self.features.shape[0]
         if self.row_ptr.shape[0] != n + 1:
             raise ValueError(
@@ -63,8 +73,15 @@ class Graph:
 
     @property
     def num_classes(self) -> int:
-        """Inferred as max(label)+1."""
+        """Inferred as max(label)+1; the task count C of [N, C] labels."""
+        if self.labels.ndim == 2:
+            return self.labels.shape[1]
         return int(self.labels.max()) + 1 if self.labels.size else 0
+
+    @property
+    def edge_dim(self) -> int:
+        """Width k of the edge features (0 without them)."""
+        return 0 if self.edge_features is None else self.edge_features.shape[1]
 
     @property
     def max_degree(self) -> int:

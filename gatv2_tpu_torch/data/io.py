@@ -4,13 +4,20 @@ of gatv2_tpu/data/io.py).
   features.txt — one line per node, F floats separated by spaces
   row_ptr.txt  — N+1 ints (CSR row pointer over destination nodes)
   col_idx.txt  — E ints (source/neighbor indices)
-  labels.txt   — N ints (one class label per node)
+  labels.txt   — N ints (one class label per node), or N lines of C 0/1
+                 ints each (C binary tasks, multi-label)
+
+and, optionally, beside them:
+
+  edge_features.txt — E lines of k floats, the features of each edge in
+                      col_idx's (CSR) order (Graph.edge_features)
 
 The dataset lives in `<root>/<name>/`, with root taken from `--data-root`,
 else env `DATA_ROOT`, else `./data`.
 
 save_dataset writes a Graph back out in this format, byte for byte as the
-JAX package's writer does.
+JAX package's writer does (edge features and multi-label labels, which
+the JAX package has not, in the formats above).
 
 Two parsers give identical arrays, chosen by the caller with
 `parser="numpy"` (the default) or `parser="native"` (the multi-threaded C++
@@ -91,12 +98,28 @@ def load_dataset(
         if not (d / fname).is_file():
             raise FileNotFoundError(f"Missing {fname} in {d}")
     _check_parser(parser)
+    ef_path = d / EDGE_FEATURES
     return Graph(
         features=load_features(d / "features.txt", parser),
         row_ptr=load_int_array(d / "row_ptr.txt", parser),
         col_idx=load_int_array(d / "col_idx.txt", parser),
-        labels=load_int_array(d / "labels.txt", parser),
+        labels=load_labels(d / "labels.txt", parser),
+        edge_features=(load_features(ef_path, parser)
+                       if ef_path.is_file() else None),
     )
+
+
+EDGE_FEATURES = "edge_features.txt"
+
+
+def load_labels(path: pathlib.Path, parser: str = "numpy") -> np.ndarray:
+    """[N] int32 class labels, or [N, C] when each line holds C values
+    (multi-label tasks)."""
+    with open(path) as f:
+        first = f.readline()
+    if len(first.split()) <= 1:
+        return load_int_array(path, parser)
+    return load_features(path, parser).astype(np.int32)
 
 
 def save_dataset(graph: Graph, directory: str | os.PathLike) -> None:
@@ -111,4 +134,10 @@ def save_dataset(graph: Graph, directory: str | os.PathLike) -> None:
             f.write(" ".join(repr(float(v)) for v in row) + "\n")
     np.savetxt(d / "row_ptr.txt", graph.row_ptr[None], fmt="%d")
     np.savetxt(d / "col_idx.txt", graph.col_idx[None], fmt="%d")
-    np.savetxt(d / "labels.txt", graph.labels[:, None], fmt="%d")
+    labels = graph.labels
+    np.savetxt(d / "labels.txt", labels[:, None] if labels.ndim == 1
+               else labels, fmt="%d")
+    if graph.edge_features is not None:
+        with open(d / EDGE_FEATURES, "w") as f:
+            for row in graph.edge_features:
+                f.write(" ".join(repr(float(v)) for v in row) + "\n")

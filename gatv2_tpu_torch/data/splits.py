@@ -44,8 +44,12 @@ class Splits:
         return int(self.train.sum()), int(self.val.sum()), int(self.test.sum())
 
     def masked_labels(self, labels: np.ndarray, which: str = "train") -> np.ndarray:
-        """Labels with every node outside the split set to -1."""
-        return np.where(getattr(self, which), labels, -1).astype(np.int32)
+        """Labels with every node outside the split set to -1 (the whole
+        row of [N, C] multi-label labels)."""
+        mask = getattr(self, which)
+        if np.ndim(labels) == 2:
+            mask = mask[:, None]
+        return np.where(mask, labels, -1).astype(np.int32)
 
 
 def random_splits(

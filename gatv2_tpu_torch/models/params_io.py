@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from gatv2_tpu_torch.config import ModelConfig
-from gatv2_tpu_torch.models.gatv2 import GATv2, GATv2Layer
+from gatv2_tpu_torch.models.gatv2 import GATv2, GATv2Layer, init_block_params
 
 
 def split_to_fused(layer: GATv2Layer) -> torch.Tensor:
@@ -51,6 +51,7 @@ def init_params_fused(config: ModelConfig, generator: torch.Generator) -> GATv2:
             layer.w_src.copy_(w_src)
             layer.w_dst.copy_(w_dst)
             layer.a.uniform_(-limit, limit, generator=generator)
+            init_block_params(layer, generator)
         c, d_last = model.w_o.shape
         limit_o = math.sqrt(6.0 / (c + d_last))
         model.w_o.uniform_(-limit_o, limit_o, generator=generator)
@@ -122,7 +123,9 @@ def load_array_txt(path: str | pathlib.Path, shape=None) -> np.ndarray:
 
 def save_params_txt(directory: str | pathlib.Path, params: GATv2) -> None:
     """Dump every tensor as text: layer{L}_{w_src,w_dst,a}.txt + w_o.txt,
-    plus fused layer{L}_w_fused.txt for the edge variant's layout."""
+    plus fused layer{L}_w_fused.txt for the edge variant's layout, and the
+    edge-conditioned block's layer{L}_{w_e,w_res,bn_g,bn_b,bn_mean,
+    bn_var}.txt where the layer has them."""
     d = pathlib.Path(directory)
     d.mkdir(parents=True, exist_ok=True)
 
@@ -134,11 +137,24 @@ def save_params_txt(directory: str | pathlib.Path, params: GATv2) -> None:
         save_array_txt(d / f"layer{l}_w_dst.txt", np_(lp.w_dst))
         save_array_txt(d / f"layer{l}_a.txt", np_(lp.a))
         save_array_txt(d / f"layer{l}_w_fused.txt", np_(split_to_fused(lp)))
+        for k, t in _block_tensors(lp):
+            save_array_txt(d / f"layer{l}_{k}.txt", np_(t))
     save_array_txt(d / "w_o.txt", np_(params.w_o))
 
 
+# the edge-conditioned block's tensors of a layer, those it has: w_e,
+# w_res, BatchNorm's bn_g, bn_b and running bn_mean, bn_var
+_BLOCK = ("w_e", "w_res", "bn_g", "bn_b", "bn_mean", "bn_var")
+
+
+def _block_tensors(layer: GATv2Layer):
+    return [(k, getattr(layer, k)) for k in _BLOCK
+            if getattr(layer, k, None) is not None]
+
+
 def load_params_txt(directory: str | pathlib.Path, config: ModelConfig) -> GATv2:
-    """Restore params dumped by save_params_txt (split tensors), on the CPU."""
+    """Restore params dumped by save_params_txt (split tensors, and the
+    block's tensors that `config` gives the layers), on the CPU."""
     d = pathlib.Path(directory)
     layers = []
     for l, (h, dd, f) in enumerate(
@@ -152,4 +168,15 @@ def load_params_txt(directory: str | pathlib.Path, config: ModelConfig) -> GATv2
     w_o = load_array_txt(
         d / "w_o.txt", (config.num_classes, config.out_dims[-1])
     )
-    return params_from_numpy({"layers": tuple(layers), "w_o": w_o})
+    if not config.extended:
+        return params_from_numpy({"layers": tuple(layers), "w_o": w_o})
+    model = GATv2(config)
+    with torch.no_grad():
+        for l, (layer, lp) in enumerate(zip(model.layers, layers)):
+            for k in ("w_src", "w_dst", "a"):
+                getattr(layer, k).copy_(torch.from_numpy(lp[k]))
+            for k, t in _block_tensors(layer):
+                t.copy_(torch.from_numpy(load_array_txt(
+                    d / f"layer{l}_{k}.txt", tuple(t.shape))))
+        model.w_o.copy_(torch.from_numpy(w_o))
+    return model

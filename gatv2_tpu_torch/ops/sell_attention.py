@@ -100,6 +100,18 @@ class _SellSide:
 
 
 @dataclasses.dataclass(frozen=True)
+class _EdgeSellSide(_SellSide):
+    """A side that carries each slot's edge features (prepare_sell_tiles
+    with edge_features); a layout without them has plain _SellSides.
+
+    edge_feat   [G, Ec, k] fp32 — each slot's edge features, in the slot
+                order of ids_grp, zeros in padding slots.
+    """
+
+    edge_feat: np.ndarray | None = None
+
+
+@dataclasses.dataclass(frozen=True)
 class SellTiles:
     """Host-precomputed SELL-128 layout (static per graph).
 
@@ -129,6 +141,13 @@ class SellTiles:
     node_pad_src: int = -1
 
     @property
+    def edge_dim(self) -> int:
+        """Width k of the per-slot edge features (0 without them)."""
+        if not isinstance(self.dst, _EdgeSellSide):
+            return 0
+        return int(self.dst.edge_feat.shape[-1])
+
+    @property
     def padded_num_nodes(self) -> int:
         return (
             self.num_dst_tiles * TILE_N
@@ -152,9 +171,10 @@ class SellTiles:
             return torch.as_tensor(x, device=device)
 
         def side(s):
-            return dataclasses.replace(
-                s, **{f: move(getattr(s, f)) for f in _SIDE_ARRAYS}
-            )
+            moved = {f: move(getattr(s, f)) for f in _SIDE_ARRAYS}
+            if isinstance(s, _EdgeSellSide):
+                moved["edge_feat"] = move(s.edge_feat)
+            return dataclasses.replace(s, **moved)
 
         return dataclasses.replace(
             self, dst=side(self.dst), srcs=side(self.srcs),
@@ -364,6 +384,28 @@ def _build_sell_side(ptr, opp_ids, num_rows, opp_pad_rows, num_chunks,
     return side, slot, e_ell, t2, spc, node_pad
 
 
+def _with_edge_features(side: _SellSide, slot: np.ndarray,
+                        feats: np.ndarray) -> _EdgeSellSide:
+    """`side` with its per-slot edge features [G, Ec, k] in the slot order
+    of its ids_grp: feats [E, k] in this side's edge order (the order
+    `slot` gives each edge's ELL slot in), zeros in padding slots. Chunk k
+    holds the flat layout's columns from the sum of the earlier chunks'
+    widths (rel_off[:, -1]) on."""
+    g, ec = side.ids_grp.shape
+    out = np.zeros((g, ec, feats.shape[1]), np.float32)
+    if g == 1:
+        out[0, slot] = feats
+    else:
+        bounds = np.zeros(g + 1, np.int64)
+        np.cumsum(side.rel_off[:, -1].astype(np.int64) * TILE_N,
+                  out=bounds[1:])
+        chunk = np.searchsorted(bounds, slot, side="right") - 1
+        out[chunk, slot - bounds[chunk]] = feats
+    return _EdgeSellSide(**{f.name: getattr(side, f.name)
+                            for f in dataclasses.fields(side)},
+                         edge_feat=out)
+
+
 def suggest_num_chunks_sell(
     e_ell: int, e2_ell: int, max_hd: int, *, budget_bytes: int
 ) -> int:
@@ -421,6 +463,7 @@ def prepare_sell_tiles(
     fixed: tuple[int, int, int, int] | None = None,
     split_cap: int | None = DEFAULT_SPLIT_CAP,
     force_split: tuple[bool, bool] = (False, False),
+    edge_features: np.ndarray | None = None,
 ) -> SellTiles:
     """Build the two-sided SELL-128 layout from CSR (host side, once per
     graph or per sampled batch). Every leaf is a numpy array until
@@ -436,7 +479,9 @@ def prepare_sell_tiles(
     sides' total column and row-slice counts, so that layouts built for
     different edge sets have identical shapes (ValueError if one needs
     more); num_edges is then -1 and pad_overhead 0.0, the same for every
-    layout of the tuple."""
+    layout of the tuple. edge_features [E, k] (CSR edge order): each side
+    carries them per slot (_EdgeSellSide.edge_feat), built under the span
+    layout.edge_features; without them nothing more is built or held."""
     row_ptr = np.asarray(row_ptr, np.int64)
     col_idx = np.asarray(col_idx, np.int32)
     ns = num_nodes if num_src_nodes is None else num_src_nodes
@@ -494,6 +539,15 @@ def prepare_sell_tiles(
             sptr, dst_by_src, ns, node_pad_d, num_chunks,
             fixed=fx_s, split_cap=split_cap, force_split=force_split[1],
         )
+    if edge_features is not None:
+        with span("layout.edge_features"):
+            ef = np.asarray(edge_features, np.float32)
+            if ef.ndim != 2 or ef.shape[0] != num_edges:
+                raise ValueError(
+                    f"edge_features {ef.shape} must be [num_edges="
+                    f"{num_edges}, k]")
+            dst_side = _with_edge_features(dst_side, slot_d, ef)
+            src_side = _with_edge_features(src_side, slot_s, ef[order])
     g = max(1, num_chunks)
     if g > 1:
         ell_perm = np.zeros(1, np.int32)  # packet path unused when chunked
@@ -545,7 +599,8 @@ def suggest_chunks_for_graph(
 
 
 def setup_full_graph_sell(
-    graph, heads, out_dims, *, device, labels=None, budget_bytes=None
+    graph, heads, out_dims, *, device, labels=None, budget_bytes=None,
+    edge_features=None,
 ):
     """One-stop full-graph SELL setup: builds the two-sided layout —
     auto-chunked so the edge-space temporaries fit budget_bytes (default:
@@ -555,8 +610,11 @@ def setup_full_graph_sell(
 
     Returns (sell_tiles, features, labels, num_valid), all on the host;
     num_valid is None when no padding row was added. Padding labels are
-    -1 (ignored by the loss). Runs under the span setup.layout, its steps
-    under layout.chunk_plan, .dst_side, .csc_sort, .src_side and .pad."""
+    -1 (ignored by the loss; whole rows of [N, C] multi-label labels).
+    edge_features [E, k] (CSR edge order), or None: the layout carries
+    them per slot (prepare_sell_tiles). Runs under the span setup.layout,
+    its steps under layout.chunk_plan, .dst_side, .csc_sort, .src_side,
+    .edge_features and .pad."""
     with span("setup.layout"):
         if budget_bytes is None:
             budget_bytes = default_chunk_budget(device, graph.num_edges)
@@ -567,7 +625,7 @@ def setup_full_graph_sell(
             )
         st = prepare_sell_tiles(
             graph.row_ptr, graph.col_idx, graph.num_nodes,
-            num_chunks=num_chunks
+            num_chunks=num_chunks, edge_features=edge_features,
         )
         with span("layout.pad"):
             labels = graph.labels if labels is None else labels
@@ -576,7 +634,8 @@ def setup_full_graph_sell(
             if n_pad != n:
                 feats = np.zeros((n_pad, graph.feature_dim), np.float32)
                 feats[:n] = graph.features
-                padded = np.full(n_pad, -1, np.int32)
+                labels = np.asarray(labels)
+                padded = np.full((n_pad, *labels.shape[1:]), -1, np.int32)
                 padded[:n] = labels
                 labels, num_valid = padded, n
     return st, feats, labels, num_valid
@@ -697,7 +756,14 @@ def _merge_rows_dst(u_p, m_p, l_p, side, n_pad, head_dim):
     return out, m_n + torch.log(l_n + SOFTMAX_EPS)
 
 
-def _forward_heads(zs, zd, a, st, num_nodes, negative_slope):
+def _edge_kw(side, g, w_e):
+    """K1/K2/K4's edge arguments for chunk g of `side`: none without W_e."""
+    if w_e is None:
+        return {}
+    return dict(edge_feat=side.edge_feat[g], w_e=w_e)
+
+
+def _forward_heads(zs, zd, a, st, num_nodes, negative_slope, w_e=None):
     """One head group: flat fp32 zs/zd [*, H*D] -> node-space
     (out [num_nodes, H*D], sigma [num_nodes, H])."""
     side = st.dst
@@ -708,6 +774,7 @@ def _forward_heads(zs, zd, a, st, num_nodes, negative_slope):
             zs, zd, a, side.perm[g * rows_c : (g + 1) * rows_c],
             side.ids_grp[g], side.cnt_grp[g], side.rel_off[g],
             negative_slope=negative_slope, normalize=not side.split,
+            **_edge_kw(side, g, w_e),
         )
         outs.append(o)
         ms.append(m)
@@ -724,7 +791,7 @@ def _forward_heads(zs, zd, a, st, num_nodes, negative_slope):
         return out_p[inv], m_p[inv] + torch.log(l_p[inv] + SOFTMAX_EPS)
 
 
-def _prepare(zs, zd, a, num_nodes, sell_tiles, streams):
+def _prepare(zs, zd, a, num_nodes, sell_tiles, streams, w_e=None):
     """Validate the op's inputs; returns (layout on zs's device, flat fp32
     zs [Ns, H*D], flat fp32 zd [Nd, H*D]), rounded once to bfloat16 with
     streams='bf16'."""
@@ -734,6 +801,12 @@ def _prepare(zs, zd, a, num_nodes, sell_tiles, streams):
             "(ops.sell_attention.prepare_sell_tiles(row_ptr, col_idx, n))"
         )
     st = sell_tiles
+    if w_e is not None and (st.edge_dim == 0
+                            or w_e.shape != (*a.shape, st.edge_dim)):
+        raise ValueError(
+            f"w_e {tuple(w_e.shape)} needs a layout built with edge features "
+            f"of its width (prepare_sell_tiles(edge_features=...)); this one "
+            f"carries {st.edge_dim}")
     if num_nodes not in (st.num_nodes, st.padded_num_nodes):
         raise ValueError(
             f"sell_tiles built for {st.num_nodes} "
@@ -772,7 +845,7 @@ def _head_groups(num_heads, head_dim):
             for h0 in range(0, num_heads, group)]
 
 
-def _forward_flat(zs2, zd2, a, st, num_nodes, negative_slope):
+def _forward_flat(zs2, zd2, a, st, num_nodes, negative_slope, w_e=None):
     """Flat fp32 zs/zd -> node-space (out [num_nodes, H*D], sigma
     [num_nodes, H]), one K1 launch per chunk and head group."""
     num_heads, head_dim = a.shape
@@ -782,6 +855,7 @@ def _forward_flat(zs2, zd2, a, st, num_nodes, negative_slope):
         o, s = _forward_heads(
             zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(),
             a[h0:h1].float().contiguous(), st, num_nodes, negative_slope,
+            None if w_e is None else w_e[h0:h1].float().contiguous(),
         )
         outs.append(o)
         sigmas.append(s)
@@ -799,6 +873,7 @@ def sell_forward(
     negative_slope: float,
     sell_tiles: SellTiles,
     streams: str = "f32",
+    w_e: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SELL attention forward. Returns (out, sigma): out in the shape of
     zs restricted to num_nodes rows, sigma = m + log(l + 1e-8) per node and
@@ -807,9 +882,11 @@ def sell_forward(
     Heads run in groups of heads_per_launch(D) per K1 launch (at most 32
     heads and 512 lanes); heads are independent, so groups change nothing.
     streams='bf16': zs and zd are rounded once to bfloat16 and carried as
-    fp32, so the result equals the exact path on rounded projections."""
-    st, zs2, zd2 = _prepare(zs, zd, a, num_nodes, sell_tiles, streams)
-    out, sigma = _forward_flat(zs2, zd2, a, st, num_nodes, negative_slope)
+    fp32, so the result equals the exact path on rounded projections.
+    w_e [H, D, k]: the scores read the layout's per-slot edge features."""
+    st, zs2, zd2 = _prepare(zs, zd, a, num_nodes, sell_tiles, streams, w_e)
+    out, sigma = _forward_flat(zs2, zd2, a, st, num_nodes, negative_slope,
+                               w_e)
     if zs.dim() != 2:
         out = out.reshape(num_nodes, *a.shape)
     return out, sigma
@@ -834,43 +911,65 @@ def _fit_rows(x, n):
     return torch.cat([x, x.new_zeros((n - x.shape[0], *x.shape[1:]))])
 
 
-def _bwd_heads(zs_g, zd_g, g_g, sigma_g, r, a_g, st, negative_slope):
+def _edge_grad(dwe_part, heads, head_dim):
+    """dW_e [H, D, k] of a head group from K2's partials [P, k, H*D]: one
+    sum over P in a fixed order, under the span attn.edge_grad."""
+    with span("attn.edge_grad"):
+        dwe = dwe_part.sum(0)
+        return dwe.t().reshape(heads, head_dim, dwe.shape[0])
+
+
+def _bwd_heads(zs_g, zd_g, g_g, sigma_g, r, a_g, st, negative_slope,
+               w_e=None):
     """One head group's backward kernels -> row-space (dzs rows, dzd rows,
-    da). Unchunked: K2 over the dst rows with its c1 packets, K3 over the
-    src rows. Chunked: K2 once per dst chunk without packets (d_a summed
-    over the chunks in order), then K4 once per src chunk, which rebuilds
-    each edge's packet from the dst side's node-order tables."""
+    da, dW_e or None). Unchunked: K2 over the dst rows with its c1 packets,
+    K3 over the src rows. Chunked: K2 once per dst chunk without packets
+    (d_a summed over the chunks in order, dW_e's block partials added in
+    launch order), then K4 once per src chunk, which rebuilds each edge's
+    packet from the dst side's node-order tables."""
     kw = dict(negative_slope=negative_slope)
     tables = (zs_g, zd_g, g_g, sigma_g, r, a_g)
     if st.num_chunks == 1:
-        dzd_rows, da, c1 = sell_bwd_dst(
+        out = sell_bwd_dst(
             *tables, st.dst.perm, st.dst.gather_ids, st.dst.cnt,
-            st.dst.col_off, **kw)
+            st.dst.col_off, **_edge_kw(st.dst, 0, w_e), **kw)
+        dzd_rows, da, c1 = out[:3]
         dzs_rows = sell_segsum(c1, st.ell_perm, st.srcs.cnt, st.srcs.col_off)
-        return dzs_rows, dzd_rows, da
+        dwe = None if w_e is None else _edge_grad(out[3], *a_g.shape)
+        return dzs_rows, dzd_rows, da, dwe
 
     def chunks(side, spc):
         rows_c = spc * TILE_N
         for g in range(st.num_chunks):
-            yield (side.perm[g * rows_c: (g + 1) * rows_c], side.ids_grp[g],
-                   side.cnt_grp[g], side.rel_off[g])
+            yield g, (side.perm[g * rows_c: (g + 1) * rows_c],
+                      side.ids_grp[g], side.cnt_grp[g], side.rel_off[g])
 
-    dzd_parts, da = [], None
-    for lay in chunks(st.dst, st.spc_dst):
-        dzd_c, da_c, _ = sell_bwd_dst(*tables, *lay, emit_c1=False, **kw)
+    dzd_parts, da, dwe_part = [], None, None
+    for g, lay in chunks(st.dst, st.spc_dst):
+        ekw = _edge_kw(st.dst, g, w_e)
+        if w_e is not None:
+            ekw["dwe_part"] = dwe_part
+        out = sell_bwd_dst(*tables, *lay, emit_c1=False, **ekw, **kw)
+        dzd_c, da_c = out[:2]
+        if w_e is not None:
+            dwe_part = out[3]
         dzd_parts.append(dzd_c)
         da = da_c if da is None else da + da_c
-    dzs_parts = [sell_bwd_src(*tables, *lay, **kw)
-                 for lay in chunks(st.srcs, st.spc_src)]
+    dzs_parts = [sell_bwd_src(*tables, *lay, **_edge_kw(st.srcs, g, w_e),
+                              **kw)
+                 for g, lay in chunks(st.srcs, st.spc_src)]
+    dwe = None if w_e is None else _edge_grad(dwe_part, *a_g.shape)
     with span("attn.join"):
-        return torch.cat(dzs_parts), torch.cat(dzd_parts), da
+        return torch.cat(dzs_parts), torch.cat(dzd_parts), da, dwe
 
 
-def sell_backward(zs2, zd2, a, out2, sigma, g2, st, negative_slope):
+def sell_backward(zs2, zd2, a, out2, sigma, g2, st, negative_slope,
+                  w_e=None):
     """The op's backward on the layout `st` (on g2's device): flat fp32 zs2
     [Ns, H*D], zd2 [Nd, H*D] (the forward's rounded values), out2 and the
     upstream gradient g2 [n, H*D], sigma [n, H], n the op's num_nodes ->
-    (dzs [Ns, H*D], dzd [Nd, H*D], da [H, D]).
+    (dzs [Ns, H*D], dzd [Nd, H*D], da [H, D]), and dW_e [H, D, k] fourth
+    with w_e [H, D, k] (the layout's edge features then enter the scores).
 
     Per head group: r = <g, out> per node and head (the softmax Jacobian's
     segment term), the backward kernels (_bwd_heads: K2 and K3, or K2 and
@@ -879,25 +978,30 @@ def sell_backward(zs2, zd2, a, out2, sigma, g2, st, negative_slope):
     # K2 and K4 read g, sigma and r in zd's node space
     nd = zd2.shape[0]
     g2, out2, sigma = (_fit_rows(x, nd) for x in (g2, out2, sigma))
-    dzs, dzd, da = [], [], []
+    dzs, dzd, da, dwe = [], [], [], []
     for h0, h1 in _head_groups(num_heads, head_dim):
         lanes = slice(h0 * head_dim, h1 * head_dim)
         g_g = g2[:, lanes].contiguous()
         r = (g_g * out2[:, lanes]).view(nd, h1 - h0, head_dim).sum(-1)
-        dzs_rows, dzd_rows, da_g = _bwd_heads(
+        dzs_rows, dzd_rows, da_g, dwe_g = _bwd_heads(
             zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(), g_g,
             sigma[:, h0:h1].contiguous(), r, a[h0:h1].float().contiguous(),
             st, negative_slope,
+            None if w_e is None else w_e[h0:h1].float().contiguous(),
         )
+        dwe.append(dwe_g)
         with span("attn.join"):
             dzd.append(_rows_to_nodes_sum(
                 dzd_rows, st.dst, st.padded_num_nodes, zd2.shape[0]))
             dzs.append(_rows_to_nodes_sum(
                 dzs_rows, st.srcs, st.padded_src_nodes, zs2.shape[0]))
         da.append(da_g)
-    return (torch.cat(dzs, 1) if len(dzs) > 1 else dzs[0],
-            torch.cat(dzd, 1) if len(dzd) > 1 else dzd[0],
-            torch.cat(da, 0) if len(da) > 1 else da[0])
+    out = (torch.cat(dzs, 1) if len(dzs) > 1 else dzs[0],
+           torch.cat(dzd, 1) if len(dzd) > 1 else dzd[0],
+           torch.cat(da, 0) if len(da) > 1 else da[0])
+    if w_e is None:
+        return out
+    return out + (torch.cat(dwe, 0) if len(dwe) > 1 else dwe[0],)
 
 
 class _SellAttention(torch.autograd.Function):
@@ -914,33 +1018,39 @@ class _SellAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, zs, zd, a, num_nodes, negative_slope, sell_tiles,
-                streams, kept):
-        st, zs2, zd2 = _prepare(zs, zd, a, num_nodes, sell_tiles, streams)
+                streams, kept, w_e):
+        st, zs2, zd2 = _prepare(zs, zd, a, num_nodes, sell_tiles, streams,
+                                w_e)
         if kept:
             out2, sigma = kept.pop("result")
             sell_attention.reused += len(_head_groups(*a.shape))
         else:
             out2, sigma = _forward_flat(zs2, zd2, a, st, num_nodes,
-                                        negative_slope)
+                                        negative_slope, w_e)
             if kept is not None:
                 kept["result"] = out2.detach(), sigma
         sdt = torch.bfloat16 if streams == "bf16" else torch.float32
-        ctx.save_for_backward(zs2.to(sdt), zd2.to(sdt), a, out2, sigma)
+        ctx.save_for_backward(zs2.to(sdt), zd2.to(sdt), a, out2, sigma,
+                              *(() if w_e is None else (w_e,)))
         ctx.st, ctx.slope = st, negative_slope
         ctx.shapes = (zs.shape, zd.shape, zs.dtype, zd.dtype)
         return out2 if zs.dim() == 2 else out2.reshape(num_nodes, *a.shape)
 
     @staticmethod
     def backward(ctx, grad_out):
-        zs2, zd2, a, out2, sigma = ctx.saved_tensors
+        zs2, zd2, a, out2, sigma, *w_e = ctx.saved_tensors
+        w_e = w_e[0] if w_e else None
         zs_shape, zd_shape, zs_dtype, zd_dtype = ctx.shapes
         g2 = grad_out.reshape(out2.shape).float().contiguous()
-        dzs, dzd, da = sell_backward(
+        grads = sell_backward(
             zs2.float(), zd2.float(), a, out2, sigma, g2, ctx.st, ctx.slope,
+            w_e,
         )
+        dzs, dzd, da = grads[:3]
+        dwe = None if w_e is None else grads[3].to(w_e.dtype)
         return (dzs.reshape(zs_shape).to(zs_dtype),
                 dzd.reshape(zd_shape).to(zd_dtype), da.to(a.dtype),
-                None, None, None, None, None)
+                None, None, None, None, None, dwe)
 
 
 def sell_attention(
@@ -953,14 +1063,17 @@ def sell_attention(
     sell_tiles: SellTiles,
     streams: str = "f32",
     kept: dict | None = None,
+    w_e: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Drop-in replacement for the 'torch' edge attention on the SELL
     layout (see the module docstring). Returns out in the shape of zs;
-    differentiable in zs, zd and a on any layout, chunked or not. `kept`:
-    a checkpointed layer's holder (models/gatv2.py), whose recompute
-    reuses the first call's result instead of running K1 again."""
+    differentiable in zs, zd and a on any layout, chunked or not, and in
+    w_e [H, D, k], which makes each score read the layout's per-slot edge
+    features (SellTiles built with edge_features). `kept`: a checkpointed
+    layer's holder (models/gatv2.py), whose recompute reuses the first
+    call's result instead of running K1 again."""
     return _SellAttention.apply(
-        zs, zd, a, num_nodes, negative_slope, sell_tiles, streams, kept
+        zs, zd, a, num_nodes, negative_slope, sell_tiles, streams, kept, w_e
     )
 
 

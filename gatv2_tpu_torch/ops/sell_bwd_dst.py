@@ -23,6 +23,13 @@ be compared element for element:
      c1 [Ec, H*D] fp32 packets in ELL slot order, or None with
      emit_c1=False. Only the real slots are defined: the kernel leaves
      padding slots unwritten. dzd and da do not depend on emit_c1.
+  With edge_feat [Ec, k] and w_e [H, D, k] (the edge-feature variant) the
+  scores read LeakyReLU(zs + zd + W_e f), and a fourth output is dW_e's
+  partials [P, k, H*D]: their sum over P, plus what `dwe_part` held, is
+  sum over the real slots of ds (x) f, transposed. The kernel adds each
+  block's partial into row P = block of `dwe_part` (zeros when None), so
+  launches over the chunks of one layout accumulate in launch order; the
+  twin adds its whole sum into row 0.
 
 Node-order tables are read through perm only on rows that have an edge, and
 zs only on real slots, so the ids of padding rows and slots (the padded
@@ -36,7 +43,15 @@ import ctypes
 import torch
 
 from gatv2_tpu_torch.ops.segment import EXP_CLAMP
-from gatv2_tpu_torch.ops.sell_fwd import MAX_HD, MAX_HEADS, NEG_INF, TILE_N
+from gatv2_tpu_torch.ops.sell_fwd import (
+    MAX_HD,
+    MAX_HEADS,
+    NEG_INF,
+    TILE_N,
+    check_edge,
+    edge_args,
+    edge_term,
+)
 
 BLOCK = 256  # threads per block (csrc/sell_bwd_dst.cu kBlock)
 # thread blocks per launch at most; blocks stride over the rows, so the d_a
@@ -69,7 +84,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def sell_bwd_dst_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
-                       col_off, *, negative_slope: float, emit_c1: bool = True):
+                       col_off, *, negative_slope: float, emit_c1: bool = True,
+                       edge_feat=None, w_e=None, dwe_part=None):
     """K2's plain PyTorch twin: the masked column-by-column algebra of the
     TPU kernel, every slice at once. Padding slots keep their masked terms
     (alpha = exp(-80) on rows with edges). Runs on any device."""
@@ -93,6 +109,9 @@ def sell_bwd_dst_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
     zd_p, g_p, sig_p, r_p = by_row(zd), by_row(g), by_row(sigma), by_row(r)
     zs_z = torch.cat([zs, zs.new_zeros((1, hd))])  # pad slots -> 0
     a_flat = a.reshape(hd)
+    dwe = None
+    if edge_feat is not None:
+        dwe = zs.new_zeros((edge_feat.shape[1], hd))
     for k in range(int(widths.max()) if widths.numel() else 0):
         act = torch.nonzero(widths > k).squeeze(1)  # slices with column k
         col = col_off[act] + k
@@ -102,6 +121,8 @@ def sell_bwd_dst_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
         z = zs_z[torch.where(valid, ids[slot], zs.shape[0])]
         gg = g_p[rr]
         s = z + zd_p[rr]
+        if edge_feat is not None:
+            s = s + edge_term(edge_feat, w_e, slot)
         s_act = torch.where(s > 0, s, negative_slope * s)
         sc = (s_act.view(-1, num_heads, head_dim) * a).sum(-1)
         sc = sc + torch.where(valid, 0.0, NEG_INF)[:, None]
@@ -113,7 +134,16 @@ def sell_bwd_dst_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
         da = da + (de * s_act).sum(0)
         if emit_c1:
             c1[slot] = alpha.repeat_interleave(head_dim, 1) * gg + ds
-    return dzd, da.view(num_heads, head_dim), c1
+        if dwe is not None:
+            # real slots only: a padding slot's features are zeros anyway
+            dwe = dwe + (edge_feat[slot] * valid[:, None]).T @ ds
+    if dwe is None:
+        return dzd, da.view(num_heads, head_dim), c1
+    if dwe_part is None:
+        dwe_part = dwe[None]
+    else:
+        dwe_part[0] += dwe
+    return dzd, da.view(num_heads, head_dim), c1, dwe_part
 
 
 def _check(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
@@ -164,14 +194,19 @@ def _check(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
 
 
 def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
-                 negative_slope: float, emit_c1: bool = True):
+                 negative_slope: float, emit_c1: bool = True, edge_feat=None,
+                 w_e=None, dwe_part=None):
     """K2. On CUDA tensors it launches csrc/sell_bwd_dst.cu (building it at
     the first call) or raises; on CPU tensors it runs sell_bwd_dst_plain.
-    Returns (dzd, da, c1) as described in the module docstring."""
+    Returns (dzd, da, c1), and with edge_feat and w_e (the kernel's
+    edge-feature variant) (dzd, da, c1, dwe_part), as described in the
+    module docstring."""
+    check_edge(edge_feat, w_e, a, gather_ids, "sell_bwd_dst")
     if zs.device.type == "cpu":
         return sell_bwd_dst_plain(
             zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
             negative_slope=negative_slope, emit_c1=emit_c1,
+            edge_feat=edge_feat, w_e=w_e, dwe_part=dwe_part,
         )
     if zs.device.type != "cuda":
         raise ValueError(f"sell_bwd_dst: unsupported device {zs.device}")
@@ -181,25 +216,41 @@ def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
     rows = perm.numel()
     dzd = zs.new_empty((rows, hd))
     c1 = zs.new_empty((gather_ids.numel(), hd)) if emit_c1 else None
+    ef, wt, k = edge_args(edge_feat, w_e)
     if rows == 0:  # a grid of zero blocks is an invalid launch
-        return dzd, a.new_zeros(a.shape), c1
+        out = (dzd, a.new_zeros(a.shape), c1)
+        if ef is not None:
+            out += (dwe_part if dwe_part is not None
+                    else zs.new_zeros((1, k, hd)),)
+        return out
     from gatv2_tpu_torch.ops.build import load_library
 
     lib = load_library("sell_bwd_dst")
     fn = lib.gatv2_sell_bwd_dst
-    fn.argtypes = [_P] * 10 + [_I] * 3 + [ctypes.c_float, _I] + [_P] * 4
+    fn.argtypes = ([_P] * 10 + [_I] * 3 + [ctypes.c_float, _I] + [_P] * 2
+                   + [_I] + [_P] * 5)
     fn.restype = _I
     per_block = rows_per_block(num_heads, head_dim, zs, zd, g, a, dzd, c1)
     blocks = min(-(-rows // per_block), MAX_BLOCKS)
     da_part = zs.new_empty((blocks, hd))
+    if ef is not None:
+        if dwe_part is None:
+            dwe_part = zs.new_zeros((blocks, k, hd))
+        elif dwe_part.shape != (blocks, k, hd) or \
+                not dwe_part.is_contiguous():
+            raise ValueError(
+                f"sell_bwd_dst: dwe_part {tuple(dwe_part.shape)} must be a "
+                f"contiguous [{blocks}, {k}, {hd}] (the launch's blocks)")
     with torch.cuda.device(zs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             zs.data_ptr(), zd.data_ptr(), g.data_ptr(), sigma.data_ptr(),
             r.data_ptr(), a.data_ptr(), perm.data_ptr(), gather_ids.data_ptr(),
             cnt.data_ptr(), col_off.data_ptr(), rows, num_heads, head_dim,
-            float(negative_slope), blocks, dzd.data_ptr(), da_part.data_ptr(),
-            c1.data_ptr() if emit_c1 else None, stream,
+            float(negative_slope), blocks, ef,
+            None if wt is None else wt.data_ptr(), k, dzd.data_ptr(),
+            da_part.data_ptr(), c1.data_ptr() if emit_c1 else None,
+            None if ef is None else dwe_part.data_ptr(), stream,
         )
     if err != 0:
         lib.gatv2_cuda_error_string.restype = ctypes.c_char_p
@@ -209,7 +260,8 @@ def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
             f"sell_bwd_dst launch failed: CUDA error {err} ({msg})")
     sell_bwd_dst.launches += 1
     # the per-block partials summed in a fixed order: deterministic
-    return dzd, da_part.sum(0).view(num_heads, head_dim), c1
+    out = (dzd, da_part.sum(0).view(num_heads, head_dim), c1)
+    return out if ef is None else out + (dwe_part,)
 
 
 sell_bwd_dst.launches = 0  # K2 launches since the last reset

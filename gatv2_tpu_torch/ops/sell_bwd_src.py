@@ -22,6 +22,9 @@ they can be compared element for element:
               (padding slots carry the dst side's padded node count)
   cnt         [Ec/128] int32 — the chunk's cnt_grp
   col_off     [spc+1] int32 — the chunk's rel_off
+  edge_feat   [Ec, k] fp32, optional — the chunk's per-slot edge features
+              (the src side's edge_feat); with w_e [H, D, k] the scores
+              read LeakyReLU(zs + zd + W_e f) (the edge-feature variant)
   -> dzs [spc*128, H*D] fp32 in row order: per row, the sum over its real
      slots of the edge's packet c1 = alpha * g[dst] + ds, rebuilt from the
      dst side's node-order tables (K2's packet, without a packet buffer).
@@ -38,13 +41,19 @@ import torch
 
 from gatv2_tpu_torch.ops.segment import EXP_CLAMP
 from gatv2_tpu_torch.ops.sell_bwd_dst import _check
-from gatv2_tpu_torch.ops.sell_fwd import TILE_N
+from gatv2_tpu_torch.ops.sell_fwd import (
+    TILE_N,
+    check_edge,
+    edge_args,
+    edge_term,
+)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def sell_bwd_src_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
-                       col_off, *, negative_slope: float):
+                       col_off, *, negative_slope: float, edge_feat=None,
+                       w_e=None):
     """K4's plain PyTorch twin: the TPU kernel's column-by-column algebra,
     every slice of the chunk at once, padding slots masked out (in the TPU
     kernel they gather the tables' appended zero row, g = r = 0, and add
@@ -74,6 +83,8 @@ def sell_bwd_src_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
         d = torch.where(valid, ids[slot], nd)
         z, gg = zs_p[rr], g_z[d]
         s = z + zd_z[d]
+        if edge_feat is not None:
+            s = s + edge_term(edge_feat, w_e, slot)
         s_act = torch.where(s > 0, s, negative_slope * s)
         sc = (s_act.view(-1, num_heads, head_dim) * a).sum(-1)
         alpha = torch.exp(torch.clamp(sc - sig_z[d], EXP_CLAMP, 0.0))
@@ -86,14 +97,16 @@ def sell_bwd_src_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
 
 
 def sell_bwd_src(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
-                 negative_slope: float):
+                 negative_slope: float, edge_feat=None, w_e=None):
     """K4. On CUDA tensors it launches csrc/sell_bwd_src.cu (building it at
     the first call) or raises; on CPU tensors it runs sell_bwd_src_plain.
-    Returns dzs as described in the module docstring."""
+    Returns dzs as described in the module docstring; with edge_feat and
+    w_e it launches the kernel's edge-feature variant."""
+    check_edge(edge_feat, w_e, a, gather_ids, "sell_bwd_src")
     if zs.device.type == "cpu":
         return sell_bwd_src_plain(
             zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
-            negative_slope=negative_slope,
+            negative_slope=negative_slope, edge_feat=edge_feat, w_e=w_e,
         )
     if zs.device.type != "cuda":
         raise ValueError(f"sell_bwd_src: unsupported device {zs.device}")
@@ -109,15 +122,18 @@ def sell_bwd_src(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
 
     lib = load_library("sell_bwd_src")
     fn = lib.gatv2_sell_bwd_src
-    fn.argtypes = [_P] * 10 + [_I] * 3 + [ctypes.c_float] + [_P] * 2
+    fn.argtypes = ([_P] * 10 + [_I] * 3 + [ctypes.c_float] + [_P] * 2
+                   + [_I] + [_P] * 2)
     fn.restype = _I
+    ef, wt, k = edge_args(edge_feat, w_e)
     with torch.cuda.device(zs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             zs.data_ptr(), zd.data_ptr(), g.data_ptr(), sigma.data_ptr(),
             r.data_ptr(), a.data_ptr(), perm.data_ptr(), gather_ids.data_ptr(),
             cnt.data_ptr(), col_off.data_ptr(), rows, num_heads, head_dim,
-            float(negative_slope), dzs.data_ptr(), stream,
+            float(negative_slope), ef, None if wt is None else wt.data_ptr(),
+            k, dzs.data_ptr(), stream,
         )
     if err != 0:
         lib.gatv2_cuda_error_string.restype = ctypes.c_char_p

@@ -15,6 +15,10 @@ be compared element for element:
   gather_ids  [Ec] int32 — src node per ELL slot (padding slots unread)
   cnt         [Ec/128] int32 — real rows per 128-edge column
   col_off     [T+1] int32 — column offsets of the T slices
+  edge_feat   [Ec, k] fp32, optional — each slot's edge features (the
+              side's edge_feat of this chunk); with w_e [H, D, k] each
+              score reads LeakyReLU(zs + zd + W_e f) (the edge-feature
+              variant of the kernel)
   -> out [T*128, H*D], m [T*128, H], l [T*128, H], all fp32, in row order:
      out = acc / (l + 1e-8) if normalize else the raw accumulator.
 
@@ -34,6 +38,8 @@ TILE_N = 128
 NEG_INF = -1e30
 MAX_HD = 512  # H*D one launch takes (csrc/sell_fwd.cu kMaxHd)
 MAX_HEADS = 32  # heads one launch takes (csrc/sell_fwd.cu kMaxHeads)
+# edge-feature width the kernels take (csrc/lane_groups.cuh kMaxEdgeDim)
+MAX_EDGE_DIM = 16
 
 
 def heads_per_launch(head_dim: int) -> int:
@@ -44,8 +50,39 @@ def heads_per_launch(head_dim: int) -> int:
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+def edge_term(edge_feat, w_e, slot):
+    """W_e f of the slots `slot`: [n, H*D] from edge_feat [Ec, k] and w_e
+    [H, D, k]."""
+    return edge_feat[slot] @ w_e.reshape(-1, w_e.shape[-1]).T
+
+
+def check_edge(edge_feat, w_e, a, gather_ids, kernel):
+    """ValueError unless edge_feat and w_e are both None, or both given and
+    agree with a [H, D] and the layout's slots."""
+    if (edge_feat is None) != (w_e is None):
+        raise ValueError(f"{kernel}: edge_feat and w_e go together")
+    if edge_feat is None:
+        return
+    k = w_e.shape[-1]
+    if w_e.shape != (*a.shape, k) or edge_feat.shape != (
+            gather_ids.numel(), k):
+        raise ValueError(
+            f"{kernel}: w_e {tuple(w_e.shape)} must be [H, D, k] of a "
+            f"{tuple(a.shape)} and edge_feat {tuple(edge_feat.shape)} "
+            f"[{gather_ids.numel()} slots, k]")
+    for name, t in (("edge_feat", edge_feat), ("w_e", w_e)):
+        if t.device != a.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"{kernel}: {name} must be contiguous fp32 on {a.device}")
+    if k > MAX_EDGE_DIM:
+        raise ValueError(
+            f"{kernel}: edge features of width {k} exceed {MAX_EDGE_DIM}")
+
+
 def sell_fwd_plain(zs, zd, a, perm, gather_ids, cnt, col_off, *,
-                   negative_slope: float, normalize: bool):
+                   negative_slope: float, normalize: bool, edge_feat=None,
+                   w_e=None):
     """K1's plain PyTorch twin: the masked column-by-column online softmax
     of the TPU kernel, every slice at once. Runs on any device."""
     num_heads, head_dim = a.shape
@@ -64,9 +101,11 @@ def sell_fwd_plain(zs, zd, a, perm, gather_ids, cnt, col_off, *,
         col = col_off[act] + k
         r = (act[:, None] * TILE_N + lane).reshape(-1)
         valid = (lane[None, :] < cnt[col][:, None]).reshape(-1)
-        src = ids[(col[:, None] * TILE_N + lane).reshape(-1)]
-        z = zs_z[torch.where(valid, src, zs.shape[0])]
+        slot = (col[:, None] * TILE_N + lane).reshape(-1)
+        z = zs_z[torch.where(valid, ids[slot], zs.shape[0])]
         s = z + zd_p[r]
+        if edge_feat is not None:
+            s = s + edge_term(edge_feat, w_e, slot)
         s = torch.where(s > 0, s, negative_slope * s)
         sc = (s.view(-1, num_heads, head_dim) * a).sum(-1)
         sc = sc + torch.where(valid, 0.0, NEG_INF)[:, None]
@@ -81,6 +120,16 @@ def sell_fwd_plain(zs, zd, a, perm, gather_ids, cnt, col_off, *,
     if normalize:
         acc = acc / (l.repeat_interleave(head_dim, 1) + SOFTMAX_EPS)
     return acc, m, l
+
+
+def edge_args(edge_feat, w_e):
+    """The kernels' edge arguments: the edge_feat pointer, W_e as a [k,
+    H*D] tensor (the caller holds it over the launch) and k; nulls and 0
+    without edge features."""
+    if edge_feat is None:
+        return None, None, 0
+    k = w_e.shape[-1]
+    return edge_feat.data_ptr(), w_e.reshape(-1, k).t().contiguous(), k
 
 
 def _check(zs, zd, a, perm, gather_ids, cnt, col_off):
@@ -119,14 +168,18 @@ def _check(zs, zd, a, perm, gather_ids, cnt, col_off):
 
 
 def sell_fwd(zs, zd, a, perm, gather_ids, cnt, col_off, *,
-             negative_slope: float, normalize: bool):
+             negative_slope: float, normalize: bool, edge_feat=None,
+             w_e=None):
     """K1. On CUDA tensors it launches csrc/sell_fwd.cu (building it at the
     first call) or raises; on CPU tensors it runs sell_fwd_plain. Returns
-    (out, m, l) as described in the module docstring."""
+    (out, m, l) as described in the module docstring. With edge_feat and
+    w_e it launches the kernel's edge-feature variant."""
+    check_edge(edge_feat, w_e, a, gather_ids, "sell_fwd")
     if zs.device.type == "cpu":
         return sell_fwd_plain(
             zs, zd, a, perm, gather_ids, cnt, col_off,
             negative_slope=negative_slope, normalize=normalize,
+            edge_feat=edge_feat, w_e=w_e,
         )
     if zs.device.type != "cuda":
         raise ValueError(f"sell_fwd: unsupported device {zs.device}")
@@ -135,8 +188,10 @@ def sell_fwd(zs, zd, a, perm, gather_ids, cnt, col_off, *,
 
     lib = load_library("sell_fwd")
     fn = lib.gatv2_sell_fwd
-    fn.argtypes = [_P] * 7 + [_I] * 3 + [ctypes.c_float, _I] + [_P] * 4
+    fn.argtypes = ([_P] * 7 + [_I] * 3 + [ctypes.c_float, _I] + [_P] * 2
+                   + [_I] + [_P] * 4)
     fn.restype = _I
+    ef, wt, k = edge_args(edge_feat, w_e)
     num_heads, head_dim = a.shape
     rows = perm.numel()
     out = zs.new_empty((rows, num_heads * head_dim))
@@ -148,7 +203,8 @@ def sell_fwd(zs, zd, a, perm, gather_ids, cnt, col_off, *,
             zs.data_ptr(), zd.data_ptr(), a.data_ptr(), perm.data_ptr(),
             gather_ids.data_ptr(), cnt.data_ptr(), col_off.data_ptr(),
             rows, num_heads, head_dim, float(negative_slope), int(normalize),
-            out.data_ptr(), m.data_ptr(), l.data_ptr(), stream,
+            ef, None if wt is None else wt.data_ptr(), k, out.data_ptr(),
+            m.data_ptr(), l.data_ptr(), stream,
         )
     if err != 0:
         lib.gatv2_cuda_error_string.restype = ctypes.c_char_p

@@ -580,6 +580,7 @@ class ShardedTrainer:
         halo: bool = True,
         device: str | torch.device = "cuda",
     ):
+        model_config.check_full_graph_only("--mesh (multi-GPU training)")
         self.model_config = model_config
         self.train_config = train_config
         self.device = dev = resolve_device(device)

@@ -3,8 +3,9 @@
 
 Runs one full-graph forward (on CUDA through K1 with --impl sell, the
 default, or K5 with --impl pallas) and writes `predictions.txt` (one
-predicted label per node) and, with --save-probs, `probs.txt` (softmax
-rows), from a text weight dump (--load-weights) or the newest checkpoint of
+predicted label per node; with --loss bce one line of C 0/1 task
+predictions per node) and, with --save-probs, `probs.txt` (softmax rows;
+per-task sigmoids with --loss bce), from a text weight dump (--load-weights) or the newest checkpoint of
 a training run (--checkpoint-dir; either package's).
 
 Example:
@@ -44,8 +45,10 @@ def main(argv: list[str] | None = None) -> int:
 
     graph = load_dataset(train_config.dataset, train_config.data_root)
     model_config = dataclasses.replace(
-        model_config, num_classes=graph.num_classes, in_dim=graph.feature_dim
+        model_config, num_classes=graph.num_classes, in_dim=graph.feature_dim,
+        edge_dim=graph.edge_dim if args.edge_features else 0,
     )
+    edge_features = graph.edge_features if args.edge_features else None
 
     if args.load_weights:
         params = load_params_txt(args.load_weights, model_config)
@@ -74,23 +77,38 @@ def main(argv: list[str] | None = None) -> int:
     edge_tiles, src, dst = None, None, None
     feats = graph.features
     setup = {"sell": setup_full_graph_sell, "pallas": setup_full_graph}
+    edge_kw = {}
+    if edge_features is not None:
+        if train_config.impl == "sell":
+            edge_kw = dict(edge_features=edge_features)
+        elif train_config.impl != "torch":
+            raise SystemExit(
+                f"Error: --edge-features runs on --impl torch or sell, not "
+                f"{train_config.impl}.")
     if train_config.impl in setup:
         edge_tiles, feats, _, _ = setup[train_config.impl](
-            graph, model_config.heads, model_config.out_dims, device=device
-        )
+            graph, model_config.heads, model_config.out_dims, device=device,
+            **edge_kw)
     else:
         src, dst = graph.src, graph.dst
 
     kernel = {"sell": ("K1", sell_fwd), "pallas": ("K5", pallas_fwd)}.get(
         train_config.impl)
     launches0 = kernel[1].launches if kernel else 0
+    # inference: BatchNorm (--norm batch) normalises by its running
+    # statistics
     with torch.inference_mode():
         logits = model_forward(
             params, feats, src, dst, model_config, impl=train_config.impl,
             edge_tiles=edge_tiles, device=device,
+            edge_feat=edge_features if train_config.impl == "torch" else None,
         )[:num_nodes]
-        preds = logits.argmax(dim=-1).cpu().numpy().astype(np.int64)
-        probs = torch.softmax(logits, dim=-1).cpu().numpy()
+        if model_config.loss == "bce":
+            preds = (logits > 0).cpu().numpy().astype(np.int64)
+            probs = torch.sigmoid(logits).cpu().numpy()
+        else:
+            preds = logits.argmax(dim=-1).cpu().numpy().astype(np.int64)
+            probs = torch.softmax(logits, dim=-1).cpu().numpy()
     if kernel:
         tag, k = kernel
         print(f"{tag} {k.__name__} launches: {k.launches - launches0}")
@@ -98,7 +116,10 @@ def main(argv: list[str] | None = None) -> int:
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     with open(out / "predictions.txt", "w") as f:
-        f.write(" ".join(map(str, preds)))
+        if preds.ndim == 2:
+            f.write("\n".join(" ".join(map(str, row)) for row in preds))
+        else:
+            f.write(" ".join(map(str, preds)))
     if args.save_probs:
         np.savetxt(out / "probs.txt", probs, fmt="%.6g")
     acc = float((preds == graph.labels).mean())

@@ -151,8 +151,13 @@ def _run(model_config, train_config, args, info, rank: int) -> int:
     print(f"Using dataset: {train_config.dataset}")
     print(f"Dataset path: {dataset_dir}/")
     graph = load_dataset(train_config.dataset, data_root)
+    if args.edge_features and graph.edge_features is None:
+        raise SystemExit(
+            f"Error: --edge-features but {dataset_dir}/ has no "
+            "edge_features.txt.")
     model_config = dataclasses.replace(
-        model_config, num_classes=graph.num_classes, in_dim=graph.feature_dim
+        model_config, num_classes=graph.num_classes, in_dim=graph.feature_dim,
+        edge_dim=graph.edge_dim if args.edge_features else 0,
     )
     print(f"Max degree = {graph.max_degree}")
     print(f"Number of classes = {graph.num_classes}")

@@ -5,7 +5,10 @@ One atomic npz per save, with the JAX package's keys: `p{i}` for the
 parameter leaves and `o{i}` for the optimizer leaves, both in JAX's flatten
 order (per layer a, w_dst, w_src, then w_o; Adam's m leaves, then its v
 leaves), and `__meta__`, a JSON string holding the epoch and run_meta's
-config fingerprint. The port writes no `params_treedef` / `opt_treedef`
+config fingerprint; with the edge-conditioned block (models/gatv2.py)
+its leaves sit among the layer's by name, and `b{i}` hold the module's
+buffers (BatchNorm's running mean and variance), which a plain model has
+none of. The port writes no `params_treedef` / `opt_treedef`
 (JAX pytree reprs): the JAX package's restore then skips its structure
 check, so either package restores the other's checkpoints. Restore checks
 the leaf count and every shape against the current run and fails with an
@@ -55,7 +58,12 @@ def run_meta(model_config: Any = None, train_config: Any = None) -> dict:
         # execution knobs may differ between the saving and resuming runs
         # without changing what the params mean
         skip = {"matmul_precision", "remat", "compute_dtype", "param_dtype"}
-        meta["model_config"] = {k: d[k] for k in sorted(d) if k not in skip}
+        # the edge-conditioned block's fields, which the JAX package has
+        # not, count only when set: a plain model keeps the JAX hash
+        block = {"edge_dim": 0, "residual": False, "norm": "none",
+                 "loss": "ce"}
+        meta["model_config"] = {k: d[k] for k in sorted(d) if k not in skip
+                                and not (k in block and d[k] == block[k])}
     if train_config is not None:
         d = dataclasses.asdict(train_config)
         # only fields whose change breaks a resume: the optimizer family and
@@ -82,7 +90,8 @@ def save(directory: str, params: GATv2, opt_state: dict, epoch: int, *,
     os.close(fd)
     np.savez(tmp, __meta__=json.dumps({"epoch": int(epoch), **(meta or {})}),
              **flat(param_leaves(params), "p"),
-             **flat(opt_leaves(opt_state), "o"))
+             **flat(opt_leaves(opt_state), "o"),
+             **flat(list(params.buffers()), "b"))
     os.replace(tmp, path)
     return path
 
@@ -140,6 +149,7 @@ def restore(path: str | pathlib.Path, params: GATv2,
         meta = json.loads(str(z["__meta__"]))
         flat = {k: z[k] for k in z.files if k != "__meta__"}
     _copy_into(param_leaves(params), flat, "p", what="parameter", path=path)
+    _copy_into(list(params.buffers()), flat, "b", what="buffer", path=path)
     if opt_state:
         _copy_into(opt_leaves(opt_state), flat, "o", what="optimizer",
                    path=path)

@@ -36,23 +36,26 @@ from gatv2_tpu_torch.utils.metrics import span
 def train_epoch(params: GATv2, opt_state: dict, t: torch.Tensor, features,
                 src, dst, labels, model_config: ModelConfig,
                 train_config: TrainConfig, *, edge_tiles: Any = None,
-                num_valid: int | None = None
+                num_valid: int | None = None, edge_feat=None,
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One epoch: loss, gradients, update, written into params and
     opt_state in place. t: Adam's 1-indexed step as a 0-d fp32 tensor on
     the device (optim.step_count). Returns (loss, accuracy) as 0-d tensors
     on the device; nothing is read back (train_config.debug_nans checks,
-    and so waits, by design). Runs under the span train.step."""
+    and so waits, by design). Runs under the span train.step. edge_feat
+    [E, k]: impl 'torch''s edge features (the SELL layout holds its own);
+    labels are [N, C] 0/1 with model_config.loss 'bce'."""
     with span("train.step"):
+        kw = {} if edge_feat is None else dict(edge_feat=edge_feat)
         loss, acc = loss_fn(
             params, features, src, dst, labels, model_config,
             impl=train_config.impl, edge_tiles=edge_tiles,
-            num_valid=num_valid,
+            num_valid=num_valid, **kw,
         )
         grads = optim.gradients(loss, params,
                                 debug_nans=train_config.debug_nans)
         optim.apply_updates(optim.param_leaves(params), grads, opt_state, t,
-                            train_config)
+                            train_config, optim.param_names(params))
     return loss.detach(), acc
 
 
@@ -63,6 +66,7 @@ def make_multi_epoch_runner(
     *,
     edge_tiles: Any = None,
     num_valid: int | None = None,
+    edge_feat: Any = None,
 ) -> Callable:
     """K = num_epochs epochs of train_epoch with no read-back between them.
 
@@ -72,7 +76,8 @@ def make_multi_epoch_runner(
     package; t0 is the number of epochs already done (Adam's t runs t0+1
     ... t0+K); losses and accs are fp32 tensors on the device. edge_tiles
     and num_valid are a Trainer's (SellTiles for impl='sell', EdgeTiles for
-    'pallas', on the device)."""
+    'pallas', on the device), and so is edge_feat (impl 'torch''s edge
+    features; a SELL layout carries its own)."""
     if num_epochs < 1:
         raise ValueError(f"num_epochs must be >= 1, got {num_epochs}")
 
@@ -81,12 +86,27 @@ def make_multi_epoch_runner(
         out = [train_epoch(params, opt_state, optim.step_count(t0 + k, dev),
                            features, src, dst, labels, model_config,
                            train_config, edge_tiles=edge_tiles,
-                           num_valid=num_valid)
+                           num_valid=num_valid, edge_feat=edge_feat)
                for k in range(1, num_epochs + 1)]
         losses, accs = (torch.stack(x) for x in zip(*out))
         return params, opt_state, losses, accs
 
     return run
+
+
+def edge_features_for(graph: Graph, model_config: ModelConfig):
+    """The graph's edge features [E, k] when the model reads them
+    (model_config.edge_dim > 0), else None; ValueError when the model
+    wants features the graph lacks or of another width."""
+    if model_config.edge_dim == 0:
+        return None
+    ef = graph.edge_features
+    if ef is None or ef.shape[1] != model_config.edge_dim:
+        raise ValueError(
+            f"edge_dim={model_config.edge_dim} needs the graph's edge "
+            f"features of that width; it has "
+            f"{'none' if ef is None else ef.shape[1]}")
+    return ef
 
 
 class Trainer:
@@ -131,12 +151,16 @@ class Trainer:
             labels = splits.masked_labels(labels, "train")
             self.num_valid = int(splits.train.sum())
         feats, self.src, self.dst, self.edge_tiles = graph.features, None, None, None
+        if train_config.impl == "pallas":
+            model_config.check_full_graph_only("--impl pallas")
+        edge_features = edge_features_for(graph, model_config)
+        self.edge_feat = None
         if train_config.impl == "sell":
             from gatv2_tpu_torch.ops.sell_attention import setup_full_graph_sell
 
             st, feats, labels, pad_valid = setup_full_graph_sell(
                 graph, model_config.heads, model_config.out_dims, device=dev,
-                labels=labels,
+                labels=labels, edge_features=edge_features,
             )
             with span("setup.layout"), span("layout.to_device"):
                 self.edge_tiles = st.to(dev)
@@ -155,6 +179,8 @@ class Trainer:
         elif train_config.impl == "torch":
             self.src = torch.as_tensor(graph.src, device=dev)
             self.dst = torch.as_tensor(graph.dst, device=dev)
+            if edge_features is not None:
+                self.edge_feat = torch.as_tensor(edge_features, device=dev)
         else:
             raise ValueError(
                 f"Trainer: impl must be 'torch', 'sell' or 'pallas', got "
@@ -172,7 +198,7 @@ class Trainer:
 
             self._masks = tuple(
                 padmask(m) for m in (splits.train, splits.val, splits.test))
-            full = np.full(n_all, -1, np.int32)
+            full = np.full((n_all, *graph.labels.shape[1:]), -1, np.int32)
             full[: graph.num_nodes] = graph.labels
             self._eval_labels = torch.as_tensor(full, device=dev)
 
@@ -185,7 +211,10 @@ class Trainer:
         self._params = params.to(self.device)
 
     def _forward_kw(self):
-        return dict(impl=self.train_config.impl, edge_tiles=self.edge_tiles)
+        kw = dict(impl=self.train_config.impl, edge_tiles=self.edge_tiles)
+        if self.edge_feat is not None:
+            kw["edge_feat"] = self.edge_feat
+        return kw
 
     def step(self) -> tuple[float, float]:
         """One epoch (train_epoch at Adam step self.epoch), then its
@@ -195,7 +224,7 @@ class Trainer:
             optim.step_count(self.epoch, self.device), self.features,
             self.src, self.dst, self.labels, self.model_config,
             self.train_config, edge_tiles=self.edge_tiles,
-            num_valid=self.num_valid,
+            num_valid=self.num_valid, edge_feat=self.edge_feat,
         )
         return float(loss), float(acc)
 
@@ -232,7 +261,10 @@ class Trainer:
             raise ValueError("Trainer built without splits")
         logits = self._params(self.features, self.src, self.dst,
                               self.model_config, **self._forward_kw())
-        hit = (logits.argmax(dim=-1) == self._eval_labels).float()
+        if self.model_config.loss == "bce":
+            hit = ((logits > 0) == (self._eval_labels > 0)).float().mean(1)
+        else:
+            hit = (logits.argmax(dim=-1) == self._eval_labels).float()
         return {
             k: float(torch.where(m, hit, 0.0).sum() / m.sum().clamp(min=1))
             for k, m in zip(("train", "val", "test"), self._masks)

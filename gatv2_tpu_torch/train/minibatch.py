@@ -99,6 +99,7 @@ class MinibatchTrainer:
         splits: Any = None,
         device: str | torch.device = "cuda",
     ):
+        model_config.check_full_graph_only("--batch-size (minibatch training)")
         self.graph = graph
         self.model_config = model_config
         self.train_config = train_config
@@ -372,6 +373,7 @@ class DataParallelMinibatchTrainer(MinibatchTrainer):
         from gatv2_tpu_torch.parallel.mesh import make_mesh
         from gatv2_tpu_torch.parallel.sharded import broadcast_seed
 
+        model_config.check_full_graph_only("--mesh (multi-GPU training)")
         dev = resolve_device(device)
         self.mesh = make_mesh(num_devices, device=dev)
         if self.mesh is None:

@@ -30,18 +30,18 @@ ADAM_EPS = 1e-8
 def param_leaves(params: GATv2) -> list[torch.Tensor]:
     """The parameters in JAX's flatten order of the tree
     {"layers": ({"a", "w_dst", "w_src"}, ...), "w_o"} (dict keys sorted):
-    per layer a, w_dst, w_src; then w_o."""
-    leaves = []
-    for layer in params.layers:
-        leaves += [layer.a, layer.w_dst, layer.w_src]
+    per layer a, w_dst, w_src; then w_o. The edge-conditioned block's
+    leaves sit among them by name (GATv2Layer.leaves: a, bn_b, bn_g,
+    w_dst, w_e, w_res, w_src)."""
+    leaves = [p for layer in params.layers for _, p in layer.named_leaves()]
     leaves.append(params.w_o)
     return leaves
 
 
 def param_names(params: GATv2) -> list[str]:
     """The names of param_leaves(params), in the same order."""
-    return [f"layers.{l}.{k}" for l in range(len(params.layers))
-            for k in ("a", "w_dst", "w_src")] + ["w_o"]
+    return [f"layers.{l}.{k}" for l, layer in enumerate(params.layers)
+            for k, _ in layer.named_leaves()] + ["w_o"]
 
 
 def _check_finite(what: str, t: torch.Tensor) -> None:
@@ -85,11 +85,22 @@ def init_opt_state(params: GATv2, optimizer: str) -> dict:
     raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
-def clip_by_group_norm(grads: list[torch.Tensor], clip_norm: float
+# the clip groups of a layer's leaves: the weights, and the attention
+# vectors (with BatchNorm's affine pair); the JAX package sums w_src then
+# w_dst per layer, and the block's w_e and w_res follow
+_W_ORDER = ("w_src", "w_dst", "w_e", "w_res")
+_A_ORDER = ("a", "bn_g", "bn_b")
+
+
+def clip_by_group_norm(grads: list[torch.Tensor], clip_norm: float,
+                       names: list[str] | None = None
                        ) -> list[torch.Tensor]:
     """Global-L2-norm clip per parameter group (reference semantics);
-    grads in param_leaves order."""
-    num_layers = (len(grads) - 1) // 3
+    grads in param_leaves order, `names` their param_names (default: the
+    plain model's a, w_dst, w_src per layer, then w_o)."""
+    if names is None:
+        names = [f"layers.{l}.{k}" for l in range((len(grads) - 1) // 3)
+                 for k in ("a", "w_dst", "w_src")] + ["w_o"]
 
     def scale_of(leaves):
         sq = sum(torch.sum(torch.square(g)) for g in leaves)
@@ -97,14 +108,22 @@ def clip_by_group_norm(grads: list[torch.Tensor], clip_norm: float
         return torch.where(norm > clip_norm, clip_norm / norm,
                            torch.ones_like(norm))
 
-    a_idx = [3 * l for l in range(num_layers)]
-    # the JAX package sums w_src then w_dst per layer
-    w_idx = [i for l in range(num_layers) for i in (3 * l + 2, 3 * l + 1)]
+    index = {n: i for i, n in enumerate(names)}
+    layers = sorted({int(n.split(".")[1]) for n in names if "." in n})
+
+    def group(order):
+        return [index[f"layers.{l}.{k}"] for l in layers for k in order
+                if f"layers.{l}.{k}" in index]
+
+    w_idx, a_idx = group(_W_ORDER), group(_A_ORDER)
     w_scale = scale_of([grads[i] for i in w_idx])
     a_scale = scale_of([grads[i] for i in a_idx])
     o_scale = scale_of([grads[-1]])
-    scales = [a_scale if i % 3 == 0 else w_scale
-              for i in range(3 * num_layers)] + [o_scale]
+    scales = [o_scale] * len(grads)
+    for i in w_idx:
+        scales[i] = w_scale
+    for i in a_idx:
+        scales[i] = a_scale
     return [g * s for g, s in zip(grads, scales)]
 
 
@@ -117,13 +136,15 @@ def step_count(t: int, device: str | torch.device) -> torch.Tensor:
 
 @torch.no_grad()
 def apply_updates(leaves: list[torch.Tensor], grads: list[torch.Tensor],
-                  opt_state: dict, t: int | torch.Tensor, config) -> None:
+                  opt_state: dict, t: int | torch.Tensor, config,
+                  names: list[str] | None = None) -> None:
     """One optimizer step, written into `leaves` (and the Adam moments in
     `opt_state`) in place. t: the 1-indexed epoch, Adam's bias-correction
     step, as an int or as a 0-d fp32 tensor on the leaves' device
-    (step_count; the runners keep it there)."""
+    (step_count; the runners keep it there). names: the leaves'
+    param_names, for the clip groups (default: the plain model's)."""
     if config.clip:
-        grads = clip_by_group_norm(grads, config.clip_norm)
+        grads = clip_by_group_norm(grads, config.clip_norm, names)
     if config.optimizer == "sgd":
         for p, g in zip(leaves, grads):
             p.sub_(config.lr * g)

@@ -913,3 +913,134 @@ def test_merge_ops_on_the_card_match_the_cpu(cuda, kind):
                           want):
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+EDGE_CASES = [
+    # the edge-feature variants of K1, K2 and K4: the ogbn-proteins width
+    # (6 heads of 80, 5 vectors a lane), a narrow width, 4-byte loads (a
+    # width that is not a multiple of 4), split rows, no edges at all, and
+    # rows without an edge beside a hub
+    ("uniform", 6, 80), ("uniform", 4, 12), ("uniform", 3, 7),
+    ("zipf-split", 2, 24), ("zero-edge", 2, 8), ("isolated", 6, 80),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("case,h,d", EDGE_CASES)
+def test_edge_feature_kernels_match_twins(cuda, case, h, d, chunks):
+    """With 8-dim edge features, on one and on 3 chunks: K1 per dst chunk,
+    K2 per dst chunk (with packets unchunked, and its dW_e partials added
+    over the chunks) and K4 per src chunk against their twins, each held
+    against float64."""
+    row_ptr, col_idx, n = _layout(case)
+    rng = np.random.default_rng(9)
+    e, k = len(col_idx), 8
+    ef = rng.normal(size=(e, k)).astype(np.float32)
+    st = tsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=chunks,
+                                edge_features=ef).to(cuda)
+    zs, zd, g = (torch.from_numpy(rng.normal(size=(n, h * d))
+                                  .astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    a = torch.from_numpy(rng.normal(size=(h, d)).astype(np.float32)).to(cuda)
+    w_e = torch.from_numpy((0.3 * rng.normal(size=(h, d, k)))
+                           .astype(np.float32)).to(cuda)
+    out, sigma = tsa.sell_forward(zs, zd, a, n, negative_slope=SLOPE,
+                                  sell_tiles=st, w_e=w_e)
+    r = (g * out).view(n, h, d).sum(-1)
+    tables = (zs, zd, g, sigma, r, a)
+
+    def chunk(side, spc, c):
+        rows_c = spc * TILE_N
+        return (side.perm[c * rows_c: (c + 1) * rows_c], side.ids_grp[c],
+                side.cnt_grp[c], side.rel_off[c])
+
+    def f64(ts):
+        return [t.double() for t in ts]
+
+    part = None
+    twin_dwe = twin64 = 0
+    for c in range(chunks):
+        lay = chunk(st.dst, st.spc_dst, c)
+        ekw = dict(edge_feat=st.dst.edge_feat[c], w_e=w_e)
+        o, m, l = sell_fwd(zs, zd, a, *lay, negative_slope=SLOPE,
+                           normalize=not st.dst.split, **ekw)
+        w = sell_fwd_plain(zs, zd, a, *lay, negative_slope=SLOPE,
+                           normalize=not st.dst.split, **ekw)
+        w64 = sell_fwd_plain(*f64((zs, zd, a)), *lay, negative_slope=SLOPE,
+                             normalize=not st.dst.split,
+                             edge_feat=ekw["edge_feat"].double(),
+                             w_e=w_e.double())
+        torch.cuda.synchronize()
+        assert _close_by_row(m, w[1], rtol=1e-4, atol=1e-4)
+        assert _close_f64(o, w[0], w64[0])
+        emit = chunks == 1
+        dzd, da, c1, part = sell_bwd_dst(*tables, *lay, negative_slope=SLOPE,
+                                         emit_c1=emit, dwe_part=part, **ekw)
+        wd = sell_bwd_dst_plain(*tables, *lay, negative_slope=SLOPE,
+                                emit_c1=emit, **ekw)
+        wd64 = sell_bwd_dst_plain(*f64(tables), *lay, negative_slope=SLOPE,
+                                  emit_c1=emit,
+                                  edge_feat=ekw["edge_feat"].double(),
+                                  w_e=w_e.double())
+        torch.cuda.synchronize()
+        assert _close_f64(dzd, wd[0], wd64[0])
+        assert _close_f64(da, wd[1], wd64[1])
+        real = _real_slots(lay[2])
+        if emit and bool(real.any()):
+            assert _close_f64(c1[real], wd[2][real], wd64[2][real])
+        twin_dwe = twin_dwe + wd[3].sum(0)
+        twin64 = twin64 + wd64[3].sum(0)
+        if chunks > 1:
+            lay = chunk(st.srcs, st.spc_src, c)
+            ekw = dict(edge_feat=st.srcs.edge_feat[c], w_e=w_e)
+            dzs = sell_bwd_src(*tables, *lay, negative_slope=SLOPE, **ekw)
+            ws = sell_bwd_src_plain(*tables, *lay, negative_slope=SLOPE,
+                                    **ekw)
+            ws64 = sell_bwd_src_plain(*f64(tables), *lay,
+                                      negative_slope=SLOPE,
+                                      edge_feat=ekw["edge_feat"].double(),
+                                      w_e=w_e.double())
+            torch.cuda.synchronize()
+            assert _close_f64(dzs, ws, ws64)
+    assert _close_f64(part.sum(0), twin_dwe, twin64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunks", [1, 3])
+def test_edge_feature_op_matches_torch_path(cuda, chunks):
+    """sell_attention with w_e on the card (K1, K2, and K3 or K4) against
+    the 'torch' edge attention on the card: the output and the gradients
+    of zs, zd, a and w_e, at the ogbn-proteins head width."""
+    from gatv2_tpu_torch.ops.attention import edge_attention
+
+    g = random_graph(1500, 12000, 8, 3, seed=21)
+    n, h, d, k = g.num_nodes, 6, 80, 8
+    rng = np.random.default_rng(10)
+    ef = rng.normal(size=(g.num_edges, k)).astype(np.float32)
+    st = tsa.prepare_sell_tiles(g.row_ptr, g.col_idx, n, num_chunks=chunks,
+                                edge_features=ef).to(cuda)
+    leaves = [torch.from_numpy(rng.normal(size=s).astype(np.float32) * c)
+              .to(cuda) for s, c in (((n, h * d), 1.0), ((n, h * d), 1.0),
+                                     ((h, d), 0.2), ((h, d, k), 0.2))]
+    up = torch.from_numpy(rng.normal(size=(n, h * d)).astype(np.float32)) \
+        .to(cuda)
+    src = torch.as_tensor(g.src, device=cuda)
+    dst = torch.as_tensor(g.dst, device=cuda)
+    eft = torch.as_tensor(ef, device=cuda)
+
+    def run(impl):
+        x = [t.clone().requires_grad_(True) for t in leaves]
+        zs, zd = x[0], x[1]
+        if impl == "torch":
+            zs, zd = zs.view(n, h, d), zd.view(n, h, d)
+        out = edge_attention(zs, zd, x[2], src, dst, n, negative_slope=SLOPE,
+                             impl=impl, edge_tiles=st, edge_feat=eft,
+                             w_e=x[3]).reshape(n, h * d)
+        (out * up).sum().backward()
+        return [out.detach()] + [t.grad for t in x]
+
+    got, want = run("sell"), run("torch")
+    for name, a_, b_ in zip(("out", "dzs", "dzd", "da", "dw_e"), got, want):
+        scale = float(b_.abs().max())
+        assert float((a_ - b_).abs().max()) <= 1e-4 * scale + 1e-5, name

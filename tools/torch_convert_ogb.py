@@ -16,6 +16,14 @@ Two input modes (no network access at convert time):
 Edges are directed src->dst and stored CSR-by-destination (in-neighbour
 lists), the reference's convention. --make-undirected adds the reverse
 edges (standard for arxiv/products). A host-side tool: it needs no card.
+
+Datasets with edge features and multi-label tasks (ogbn-proteins: raw/
+edge-feat.csv.gz [E, 8], node-label.csv.gz [N, 112], no node-feat.csv.gz)
+are written with edge_features.txt beside the four files (each edge's
+features, the reverse edge's the same with --make-undirected, in CSR
+order) and one line of task labels per node. A dataset without node
+features gets, as DGL's ogbn-proteins example gives it, each node's mean
+of its in-edges' features (after --make-undirected: of all its edges).
 """
 
 from __future__ import annotations
@@ -41,8 +49,15 @@ def _read_csv_gz(path: pathlib.Path, dtype) -> np.ndarray:
 
 def load_from_raw(raw_dir: pathlib.Path, split_name: str = "sales_ranking"):
     edges = _read_csv_gz(raw_dir / "edge.csv.gz", np.int64)  # [E, 2] src,dst
-    feats = _read_csv_gz(raw_dir / "node-feat.csv.gz", np.float32)
-    labels = _read_csv_gz(raw_dir / "node-label.csv.gz", np.int64).reshape(-1)
+    labels = _read_csv_gz(raw_dir / "node-label.csv.gz", np.int64)
+    if labels.shape[1] == 1:
+        labels = labels.reshape(-1)
+    edge_feats = None
+    if (raw_dir / "edge-feat.csv.gz").exists():
+        edge_feats = _read_csv_gz(raw_dir / "edge-feat.csv.gz", np.float32)
+    feats = None  # made from the edge features (main) when absent
+    if (raw_dir / "node-feat.csv.gz").exists():
+        feats = _read_csv_gz(raw_dir / "node-feat.csv.gz", np.float32)
     split_dir = raw_dir / "split"
     splits = None
     if split_dir.exists():
@@ -52,7 +67,7 @@ def load_from_raw(raw_dir: pathlib.Path, split_name: str = "sales_ranking"):
         )
         if candidates:
             sd = candidates[0]
-            n = feats.shape[0]
+            n = labels.shape[0]
             masks = {}
             for part, fname in (("train", "train.csv.gz"),
                                 ("val", "valid.csv.gz"),
@@ -62,7 +77,7 @@ def load_from_raw(raw_dir: pathlib.Path, split_name: str = "sales_ranking"):
                 m[idx] = True
                 masks[part] = m
             splits = Splits(**masks)
-    return edges, feats, labels, splits
+    return edges, feats, labels, splits, edge_feats
 
 
 def load_from_ogb(name: str, ogb_root: pathlib.Path):
@@ -71,10 +86,15 @@ def load_from_ogb(name: str, ogb_root: pathlib.Path):
     ds = NodePropPredDataset(name=name, root=str(ogb_root))
     graph, labels = ds[0]
     edges = graph["edge_index"].T.astype(np.int64)  # [E, 2]
-    feats = graph["node_feat"].astype(np.float32)
-    labels = labels.reshape(-1).astype(np.int64)
+    feats = (None if graph.get("node_feat") is None
+             else graph["node_feat"].astype(np.float32))
+    edge_feats = (None if graph.get("edge_feat") is None
+                  else graph["edge_feat"].astype(np.float32))
+    labels = labels.astype(np.int64)
+    if labels.shape[1] == 1:
+        labels = labels.reshape(-1)
     idx = ds.get_idx_split()
-    n = feats.shape[0]
+    n = labels.shape[0]
 
     def mask(key):
         m = np.zeros(n, bool)
@@ -82,7 +102,29 @@ def load_from_ogb(name: str, ogb_root: pathlib.Path):
         return m
 
     splits = Splits(train=mask("train"), val=mask("valid"), test=mask("test"))
-    return edges, feats, labels, splits
+    return edges, feats, labels, splits, edge_feats
+
+
+def edges_and_features_to_csr(edges, edge_feats, num_nodes,
+                              make_undirected):
+    """(row_ptr, col_idx, edge features in CSR order): edges_to_csr's
+    order (a stable sort by destination after the reverse edges are
+    appended), each reverse edge with its edge's features."""
+    src, dst = edges[:, 0], edges[:, 1]
+    if make_undirected:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+        edge_feats = np.concatenate([edge_feats, edge_feats])
+    row_ptr, col_idx = edges_to_csr(src, dst, num_nodes)
+    return row_ptr, col_idx, edge_feats[np.argsort(dst, kind="stable")]
+
+
+def mean_in_edge_features(row_ptr, edge_feats):
+    """[N, k]: each node's mean of its in-edges' features (0 without)."""
+    deg = np.diff(row_ptr)
+    cs = np.zeros((len(edge_feats) + 1, edge_feats.shape[1]))
+    np.cumsum(edge_feats, axis=0, out=cs[1:])
+    sums = cs[row_ptr[1:]] - cs[row_ptr[:-1]]
+    return (sums / np.maximum(deg, 1)[:, None]).astype(np.float32)
 
 
 def main(argv=None) -> int:
@@ -99,23 +141,35 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     if args.raw_dir:
-        edges, feats, labels, splits = load_from_raw(args.raw_dir)
+        edges, feats, labels, splits, edge_feats = load_from_raw(args.raw_dir)
     elif args.ogb_root:
-        edges, feats, labels, splits = load_from_ogb(args.name, args.ogb_root)
+        edges, feats, labels, splits, edge_feats = load_from_ogb(
+            args.name, args.ogb_root)
     else:
         ap.error("one of --raw-dir / --ogb-root is required")
 
-    n = feats.shape[0]
-    row_ptr, col_idx = edges_to_csr(edges[:, 0], edges[:, 1], n,
-                                    make_undirected=args.make_undirected)
+    n = labels.shape[0]
+    if edge_feats is None:
+        row_ptr, col_idx = edges_to_csr(edges[:, 0], edges[:, 1], n,
+                                        make_undirected=args.make_undirected)
+    else:
+        row_ptr, col_idx, edge_feats = edges_and_features_to_csr(
+            edges, edge_feats, n, args.make_undirected)
+    if feats is None:
+        if edge_feats is None:
+            raise SystemExit("the dataset has neither node nor edge features")
+        feats = mean_in_edge_features(row_ptr, edge_feats)
     g = Graph(features=feats, row_ptr=row_ptr, col_idx=col_idx,
-              labels=labels.astype(np.int32))
+              labels=labels.astype(np.int32), edge_features=edge_feats)
     save_dataset(g, args.out)
     if splits is not None:
         save_split_files(splits, args.out)
+    tasks = (f"{labels.shape[1]} tasks" if labels.ndim == 2
+             else f"{int(labels.max()) + 1} classes")
     print(
         f"wrote {args.out}: {g.num_nodes} nodes, {g.num_edges} edges, "
-        f"{g.feature_dim} features, {int(labels.max()) + 1} classes"
+        f"{g.feature_dim} features, {tasks}"
+        + (f", {g.edge_dim} edge features" if edge_feats is not None else "")
         + (", with split masks" if splits is not None else "")
     )
     return 0
