@@ -92,11 +92,14 @@ Phases (any failure exits non-zero):
      (phase_edge_features): the edge-feature variants of K1, K2 and K4 on
      one chunk of a layout at ogbn-proteins' in-degree (~600 edges a row,
      6 x 80 heads, 8-dim edge features) against their twins and float64,
-     out / m / l, dzd / da / the summed dW_e partials and dzs; then 2
+     out / m / l, dzd / da / the summed dW_e partials and dzs, and K2's
+     time beside the same source built to take one edge a step, whose
+     dzd, d_a partials and dW_e partials it must equal to the bit; then 2
      layers of that block (residual, BatchNorm, multi-label loss) on a
      forced 3-chunk layout with remat, sell (K1, K2, K4 with the edge
      term) against the torch path's losses, K1 launched once per layer,
-     chunk and epoch;
+     chunk and epoch, every K2 launch in edge steps
+     (sell_bwd_dst.edge_ring_launches);
  13. its times: device step, host sample + tile, the pipeline ratio of
      tools/bench_minibatch.py, each kernel beside its bound (K5 and K6:
      and per-edge gather floor), its twin and, for K7, index_add_; a profiler table; peak memory; and the minibatch
@@ -563,6 +566,8 @@ def zero_counters():
         k["fn"].launches = 0
     # K1's and K5's launches with normalize=False (the merged-softmax ops)
     sell_fwd.raw_launches = pallas_fwd.raw_launches = 0
+    # K2's launches with edge features, whose rows go in steps of edges
+    sell_bwd_dst.edge_ring_launches = 0
     # head groups whose forward a remat recompute took from the first call
     tsa.sell_attention.reused = tpa.edge_attention_pallas.reused = 0
 
@@ -2742,6 +2747,10 @@ EDGE_KERNEL_GRAPH = dict(num_nodes=4_000, num_edges=2_388_000, heads=6,
 # by fp32 rounding of ~600-term sums; a K2 whose dW_e came out 0 would read
 # a relative error of 1
 EDGE_KERNEL_RTOL, EDGE_KERNEL_ATOL = 1e-4, 1e-5
+# K2 with edge features on that chunk 0, without packets, as the kernel
+# took it when it computed one edge at a time with 16 features held a slot
+K2_EDGE_BEFORE_MS = 3.017
+K2_EDGE_BEFORE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
 def edge_kernels_at_proteins_degree(dev, card):
@@ -2814,7 +2823,33 @@ def edge_kernels_at_proteins_degree(dev, card):
     torch.cuda.synchronize()
     compare("K4 dzs", got, twin, EDGE_KERNEL_RTOL, EDGE_KERNEL_ATOL)
     compare_f64("K4 dzs", got, twin, twin64)
-    del st, zs, zd, gr, out, sigma, r, tables, got, twin, twin64
+    # K2 as the chunked backward launches it (no packets), timed beside the
+    # same source built to take one edge a step, the arithmetic and order of
+    # the kernel before its edges went in steps: the two must agree to the
+    # bit in dzd, the d_a partials and the dW_e partials
+    variants = _tool("torch_kernel_variants")
+    ms, outs = {}, {}
+    for name, fn in (
+            ("as built", variants.k2_fn(build.load_library("sell_bwd_dst"))),
+            ("one edge a step", variants.k2_variant(
+                "k2_one_edge_a_step", {"kEdgeStep": "1"}))):
+        launch, *res = variants.k2_edge_launch(
+            fn, tables, dst, st.dst.edge_feat[0], w_e, SLOPE)
+        if launch() != 0:
+            fail(f"edge-feature kernels: K2 {name} did not launch")
+        torch.cuda.synchronize()
+        outs[name] = [("dzd", res[0]), ("d_a partials", res[1]),
+                      ("dW_e partials", res[2].clone())]
+        ms[name] = cuda_ms(launch)
+    reading = variants.bit_reading(outs["as built"], outs["one edge a step"])
+    print(f"  K2 on chunk 0 without packets: {ms['as built']:.3f} ms, one "
+          f"edge a step {ms['one edge a step']:.3f} ms (before the steps: "
+          f"{K2_EDGE_BEFORE_MS} ms on these inputs, {K2_EDGE_BEFORE_CARD}); "
+          f"against one edge a step: {', '.join(reading)}")
+    if not all(r.endswith("equal") for r in reading):
+        fail("edge-feature kernels: K2 in steps of edges does not give the "
+             "bits of one edge a step")
+    del st, zs, zd, gr, out, sigma, r, tables, got, twin, twin64, outs
     torch.cuda.empty_cache()
 
 
@@ -2858,6 +2893,7 @@ def phase_edge_features(dev, card):
             got.append(tr.step()[0])
         torch.cuda.synchronize()
         counts = read_counters()
+        ring = sell_bwd_dst.edge_ring_launches
         losses[impl] = got
         if impl == "sell":
             want_k1 = 2 * tr.edge_tiles.num_chunks * EDGE_EPOCHS
@@ -2868,12 +2904,17 @@ def phase_edge_features(dev, card):
                      f"{tsa.sell_attention.reused} head groups")
             if counts["sell_bwd_src"] == 0 or counts["sell_bwd_dst"] == 0:
                 fail(f"edge features: launches {counts}")
+            # every K2 launch of the block takes the edge steps
+            if ring != counts["sell_bwd_dst"]:
+                fail(f"edge features: {ring} of {counts['sell_bwd_dst']} K2 "
+                     f"launches took the edge steps")
         tr.epoch += 1
         ms[impl] = cuda_ms(tr.step, reps=2, warmup=1)
         print(f"edge features {impl} ({g.num_nodes} nodes, {g.num_edges} "
               f"edges, 2 layers of 6 x 80, k = 8, remat): launches "
-              f"{ {k: v for k, v in counts.items() if v} }; losses {got}; "
-              f"epoch {ms[impl]:.3f} ms [{card}]")
+              f"{ {k: v for k, v in counts.items() if v} } (K2 in edge steps "
+              f"{ring}); losses {got}; epoch "
+              f"{ms[impl]:.3f} ms [{card}]")
         del tr
         torch.cuda.empty_cache()
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["sell"],

@@ -69,13 +69,15 @@ inline Geometry geometry(int heads, int head_dim, bool aligned) {
 // and K4 take (ops/sell_fwd.py MAX_EDGE_DIM).
 constexpr int kMaxEdgeDim = 16;
 
-// Loads an edge's k features (k <= kMaxEdgeDim) into registers; every lane
-// of a group reads the same slot, so the loads are broadcast in L1.
-__device__ __forceinline__ void load_edge_feats(float (&f)[kMaxEdgeDim],
+// Loads an edge's k features (k <= KF, at most kMaxEdgeDim) into
+// registers; every lane of a group reads the same slot, so the loads are
+// broadcast in L1.
+template <int KF>
+__device__ __forceinline__ void load_edge_feats(float (&f)[KF],
                                                 const float* __restrict__ p,
                                                 int k) {
 #pragma unroll
-  for (int c = 0; c < kMaxEdgeDim; ++c) f[c] = c < k ? __ldg(p + c) : 0.f;
+  for (int c = 0; c < KF; ++c) f[c] = c < k ? __ldg(p + c) : 0.f;
 }
 
 // Copies W_e, laid out [k][H*D] (the wrappers transpose it), into the
@@ -130,15 +132,15 @@ struct Lane {
 
   // x[i] += W_e f[i] over this lane's features, for the R edges of a
   // ring at once: the edge term of the score's pre-activation, from W_e
-  // [k][H*D] in shared memory and each edge's features f[i]. Each W_e
-  // vector is read once for the R edges. Each feature sums its k products
-  // in order, then adds them to x, in K1, K2 and K4 alike, so all three
-  // rebuild the same value.
-  template <int R>
+  // [k][H*D] in shared memory and each edge's k <= KF features f[i]. Each
+  // W_e vector is read once for the R edges. Each feature sums its k
+  // products in order, then adds them to x, in K1, K2 and K4 alike, so all
+  // three rebuild the same value.
+  template <int R, int KF>
   __device__ __forceinline__ void add_edge(float (&x)[R][NV * VEC],
                                            const float* __restrict__ sw,
-                                           const float (&f)[R][kMaxEdgeDim],
-                                           int k, int hd) const {
+                                           const float (&f)[R][KF], int k,
+                                           int hd) const {
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       if (!ok[j]) continue;
@@ -148,7 +150,7 @@ struct Lane {
 #pragma unroll
         for (int v = 0; v < VEC; ++v) e[i][v] = 0.f;
 #pragma unroll
-      for (int c = 0; c < kMaxEdgeDim; ++c) {
+      for (int c = 0; c < KF; ++c) {
         if (c >= k) break;
         const float* w = sw + c * hd + off[j];
         float q[VEC];
@@ -173,38 +175,39 @@ struct Lane {
     }
   }
 
-  // add_edge of one edge.
-  __device__ __forceinline__ void add_edge(float (&x)[NV * VEC],
-                                           const float* __restrict__ sw,
-                                           const float (&f)[kMaxEdgeDim],
-                                           int k, int hd) const {
-    add_edge<1>(reinterpret_cast<float(&)[1][NV * VEC]>(x), sw,
-                reinterpret_cast<const float(&)[1][kMaxEdgeDim]>(f), k, hd);
-  }
-
-  // acc += g (x) f over this lane's features: the edge term's weight
-  // gradient, into a [k][H*D] table in shared memory that this lane's
-  // group alone writes (no other lane holds these features).
+  // acc += g[i] (x) f[i] over this lane's features, for the R edges of a
+  // ring at once: the edge term's weight gradient, into a [k][H*D] table
+  // in shared memory that this lane's group alone writes (no other lane
+  // holds these features). Each table vector is read and written once for
+  // the R edges, which it takes in order: the roundings of R calls of one
+  // edge each.
+  template <int R, int KF>
   __device__ __forceinline__ void add_outer(float* __restrict__ acc,
-                                            const float (&g)[NV * VEC],
-                                            const float (&f)[kMaxEdgeDim],
-                                            int k, int hd) const {
+                                            const float (&g)[R][NV * VEC],
+                                            const float (&f)[R][KF], int k,
+                                            int hd) const {
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
       if (!ok[j]) continue;
 #pragma unroll
-      for (int c = 0; c < kMaxEdgeDim; ++c) {
+      for (int c = 0; c < KF; ++c) {
         if (c >= k) break;
         float* a = acc + c * hd + off[j];
         if constexpr (VEC == 4) {
           float4 q = *reinterpret_cast<float4*>(a);
-          q.x = fmaf(g[4 * j], f[c], q.x);
-          q.y = fmaf(g[4 * j + 1], f[c], q.y);
-          q.z = fmaf(g[4 * j + 2], f[c], q.z);
-          q.w = fmaf(g[4 * j + 3], f[c], q.w);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            q.x = fmaf(g[i][4 * j], f[i][c], q.x);
+            q.y = fmaf(g[i][4 * j + 1], f[i][c], q.y);
+            q.z = fmaf(g[i][4 * j + 2], f[i][c], q.z);
+            q.w = fmaf(g[i][4 * j + 3], f[i][c], q.w);
+          }
           *reinterpret_cast<float4*>(a) = q;
         } else {
-          *a = fmaf(g[j], f[c], *a);
+          float q = *a;
+#pragma unroll
+          for (int i = 0; i < R; ++i) q = fmaf(g[i][j], f[i][c], q);
+          *a = q;
         }
       }
     }

@@ -70,12 +70,27 @@
 // 4 at 3 blocks 3.61 / 0.981 / 0.565; evict-first zs loads 3.23 / 0.909 /
 // 0.538 ms (no gain at F = 4).
 //
-// The edge-feature variant (EF, below) rebuilds each score with W_e f as
-// K1 does, and sums dW_e per lane group in shared memory (a read and a
-// write of 40 16-byte vectors a lane an edge at 6 heads x 80, k = 8): at
-// 205 registers and 154 KB of shared memory it keeps one block an SM and
-// took 300 ms a layer on ogbn-proteins (79.1 M edges, H*D = 480), the
-// largest part of that cell's epoch.
+// The edge-feature variant (KE > 0, below) rebuilds each score with W_e f
+// as K1 does, and sums dW_e per lane group in shared memory. At 6 heads x
+// 80 and k = 8 its 154 KB of shared memory keep one block an SM, and what
+// bounds it is the shared-memory pipe: one edge at a time, a lane read 40
+// 16-byte W_e vectors an edge and read and wrote 40 of its group's dW_e
+// table, 120 shared-memory instructions, and the kernel took 300 ms a
+// layer on ogbn-proteins (79.1 M edges, H*D = 480), the largest part of
+// that cell's epoch. So a row's edges go two at a time (kEdgeStep): each
+// W_e read and each table update serves both, 60 instructions an edge,
+// with the same roundings in the same order (dzd, d_a, dW_e and the
+// packets equal the one-edge kernel's to the bit). The registers this
+// costs are found by turning each zs row into its pre-activation and then
+// its ds in place and by holding 8 features a slot where the launch has at
+// most 8 (254 registers, no spills). Measured on one chunk's worth of the
+// cell's rows (tools/torch_kernel_variants.py k2e; NVIDIA H100 80GB HBM3,
+// 700.00 W): 12.41 ms against 16.66 one edge at a time with 16 features
+// held (15.98 with 8), where a bare gather of one zs row per real slot
+// takes 2.69 ms; three edges a step took 11.18 ms but spilled at 255
+// registers, and a ring of two steps (the next step's loads in flight)
+// 17.33 ms with 484 bytes spilled. In the cell's traced epochs K2 went
+// from 300 to 223 ms a layer.
 
 #include <cuda_runtime.h>
 
@@ -104,19 +119,66 @@ template <int F>
 constexpr int kRing = F <= 8 ? 2 : 1;
 template <int F>
 constexpr int kMinBlocks = F <= 4 ? 4 : F <= 8 ? 2 : 1;
+// The edge-feature variant takes a row's edges kEdgeStep at a time, so
+// that each W_e vector read and each dW_e table update serves that many
+// edges: a step's zs rows and features are loaded together, with the next
+// step's ids, and then computed, as in K1's ring.
+constexpr int kEdgeStep = 2;
+// Launches with at most this many edge features take an instantiation that
+// holds that many a slot in registers, not kMaxEdgeDim.
+constexpr int kNarrowEdgeDim = 8;
 
-// EF: the edge-feature variant. Each slot's k features (ef, in the slot
-// order of gather_ids) enter the score as W_e f, W_e laid out [k][H*D]
-// (we) and read once per block into shared memory, as in K1; and the
-// kernel adds dW_e = sum over the slots of ds (x) f. Each lane group sums
-// its own rows' products into a [k][H*D] table of its own in shared
-// memory (its lanes own disjoint features: no atomics); at the end the
-// block adds its groups' tables in group order and adds the result into
-// its row of dwe_part [blocks, k, H*D], so the launches over the chunks of
-// a layout accumulate in launch order and the wrapper's one sum over the
-// blocks fixes every rounding. Without EF the kernel is the one measured
-// above.
-template <int VEC, int NV, bool EF>
+// The source ids of step q of a row (its edges G*q .. G*q + G - 1; 0 past
+// deg).
+template <int G>
+__device__ __forceinline__ void load_step_ids(int (&id)[G],
+                                              const int* __restrict__ ids,
+                                              int q, int deg) {
+#pragma unroll
+  for (int e = 0; e < G; ++e) {
+    const int k = G * q + e;
+    id[e] = k < deg ? __ldg(ids + (size_t)k * kTileN) : 0;
+  }
+}
+
+// Step q of a row into registers: each edge's zs row (through id) and its
+// k features (column k at efs + k*128*k_ef); an edge past deg as
+// zeros.
+template <int G, int VEC, int NV, int KE>
+__device__ __forceinline__ void load_step(
+    const Lane<VEC, NV>& ln, float (&z)[G][NV * VEC], float (&fe)[G][KE],
+    const int (&id)[G], int q, int deg, const float* __restrict__ zs, int hd,
+    const float* __restrict__ efs, int k_ef) {
+#pragma unroll
+  for (int e = 0; e < G; ++e) {
+    const int k = G * q + e;
+    if (k < deg) {
+      ln.load(z[e], zs + (size_t)id[e] * hd, kZsEvictFirst);
+      load_edge_feats(fe[e], efs + (size_t)k * kTileN * k_ef, k_ef);
+    } else {
+#pragma unroll
+      for (int f = 0; f < NV * VEC; ++f) z[e][f] = 0.f;
+#pragma unroll
+      for (int c = 0; c < KE; ++c) fe[e][c] = 0.f;
+    }
+  }
+}
+
+// KE > 0: the edge-feature variant, holding at most KE features a slot.
+// Each slot's k features (ef, in the slot order of gather_ids) enter the
+// score as W_e f, W_e laid out [k][H*D] (we) and read once per block into
+// shared memory, as in K1; and the kernel adds dW_e = sum over the slots of
+// ds (x) f. Each lane group sums its own rows' products into a [k][H*D]
+// table of its own in shared memory (its lanes own disjoint features: no
+// atomics); at the end the block adds its groups' tables in group order and
+// adds the result into its row of dwe_part [blocks, k, H*D], so the
+// launches over the chunks of a layout accumulate in launch order and the
+// wrapper's one sum over the blocks fixes every rounding. A row's edges go
+// kEdgeStep at a time (the last step short of edges when the count is not a
+// multiple), each taken in edge order: dzd, d_a and each table entry take
+// the same roundings as one edge at a time. Without edge features (KE = 0)
+// the kernel is the one measured above.
+template <int VEC, int NV, int KE>
 __global__ void __launch_bounds__(kBlock, kMinBlocks<NV * VEC>)
 sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const float* __restrict__ g,
@@ -131,6 +193,7 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const float* __restrict__ we, int k_ef,
                     float* __restrict__ dzd, float* __restrict__ da_part,
                     float* __restrict__ c1, float* __restrict__ dwe_part) {
+  constexpr bool EF = KE > 0;
   constexpr int F = NV * VEC;
   constexpr int R = kRing<F>;
   __shared__ float s_da[kWarps][kMaxHd];  // each warp's d_a sums
@@ -176,52 +239,99 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                                  : 0.f;
       const float r_h = own_head ? __ldg(rr + (size_t)node * heads + h) : 0.f;
       const int* ids = gather_ids + (size_t)c0 * kTileN + r;  // column k: k*128
-      // EF: the slot's features, column k at efs + k*128*k_ef
-      const float* efs =
-          EF ? ef + ((size_t)c0 * kTileN + r) * k_ef : nullptr;
-      // the ring: slot j holds an edge's zs row from its load to its
-      // compute, and id[j] the source id of the next edge loaded into it;
-      // while edge k is computed, the loads of edges k+1 .. k+R-1 are in
-      // flight and the ids of the next R edges are known
-      int id[R];
-      float z[R][F];
-      float fe[R][kMaxEdgeDim];
+      if constexpr (EF) {
+        // step q: edges G*q .. G*q + G - 1, those past deg as zeros; the
+        // ids of step q + 1 are loaded before step q computes
+        constexpr int G = kEdgeStep;
+        const float* efs = ef + ((size_t)c0 * kTileN + r) * k_ef;
+        int id[G];
+        load_step_ids(id, ids, 0, deg);
+        for (int q = 0; G * q < deg; ++q) {
+          float z[G][F];
+          float fe[G][KE];
+          load_step(ln, z, fe, id, q, deg, zs, hd, efs, k_ef);
+          load_step_ids(id, ids, q + 1, deg);
+          const int n = min(G, deg - G * q);  // group-uniform
+          // dalpha from the zs rows, then the rows become the
+          // pre-activations in place
+          float dal[G];
 #pragma unroll
-      for (int j = 0; j < R; ++j)
-        id[j] = j < deg ? __ldg(ids + j * kTileN) : 0;
+          for (int e = 0; e < G; ++e) {
+            dal[e] = 0.f;
 #pragma unroll
-      for (int j = 0; j + 1 < R; ++j) {
-        if (j < deg) {
-          ln.load(z[j], zs + (size_t)id[j] * hd, kZsEvictFirst);
-          if constexpr (EF)
-            load_edge_feats(fe[j], efs + (size_t)j * kTileN * k_ef, k_ef);
-        }
-        id[j] = j + R < deg ? __ldg(ids + (size_t)(j + R) * kTileN) : 0;
-      }
-      for (int k0 = 0; k0 < deg; k0 += R) {
+            for (int f = 0; f < F; ++f) dal[e] += gv[f] * z[e][f];
 #pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const int k = k0 + i;
-          if (k >= deg) break;  // group-uniform
-          const int j = (i + R - 1) % R;  // the slot of edge k + R - 1
-          if (k + R - 1 < deg) {
-            ln.load(z[j], zs + (size_t)id[j] * hd, kZsEvictFirst);
-            if constexpr (EF)
-              load_edge_feats(fe[j],
-                              efs + (size_t)(k + R - 1) * kTileN * k_ef,
-                              k_ef);
-            const int kn = k + 2 * R - 1;
-            id[j] = kn < deg ? __ldg(ids + (size_t)kn * kTileN) : 0;
+            for (int f = 0; f < F; ++f) z[e][f] = z[e][f] + zdv[f];
           }
-          if constexpr (EF) {
-            float pre[F];
+          ln.add_edge(z, s_dyn, fe, k_ef, hd);
 #pragma unroll
-            for (int f = 0; f < F; ++f) pre[f] = z[i][f] + zdv[f];
-            ln.add_edge(pre, s_dyn, fe[i], k_ef, hd);
+          for (int e = 0; e < G; ++e) {
+            float(&x)[F] = z[e];  // the pre-activation, then ds
+            if (e >= n) {
+              // an edge past deg adds nothing to the tables: fmaf(0, 0, t)
+              // is t (no entry is -0)
+#pragma unroll
+              for (int f = 0; f < F; ++f) x[f] = 0.f;
+              continue;
+            }
+            float sc = 0.f;
+#pragma unroll
+            for (int f = 0; f < F; ++f)
+              sc += av[f] * (x[f] > 0.f ? x[f] : slope * x[f]);
+            sc = head_sum(sc, lph, mask);
+            const float da_h = head_sum(dal[e], lph, mask);
+            const float alpha =
+                expf(fminf(fmaxf(sc - sig, kExpClamp), 0.f));
+            const float de = alpha * (da_h - r_h);
+#pragma unroll
+            for (int f = 0; f < F; ++f) {
+              const bool pos = x[f] > 0.f;
+              const float ds = de * av[f] * (pos ? 1.f : slope);
+              dacc[f] = __fadd_rn(dacc[f], ds);
+              da_acc[f] = fmaf(de, pos ? x[f] : slope * x[f], da_acc[f]);
+              x[f] = ds;
+            }
+            if (emit) {
+              float pk[F];  // this edge's packet c1
+#pragma unroll
+              for (int f = 0; f < F; ++f) pk[f] = alpha * gv[f] + x[f];
+              ln.store(c1 + ((size_t)(c0 + G * q + e) * kTileN + r) * hd,
+                       pk);
+            }
+          }
+          ln.add_outer(s_dwe, z, fe, k_ef, hd);
+        }
+      } else {
+        // the ring: slot j holds an edge's zs row from its load to its
+        // compute, and id[j] the source id of the next edge loaded into
+        // it; while edge k is computed, the loads of edges k+1 .. k+R-1
+        // are in flight and the ids of the next R edges are known
+        int id[R];
+        float z[R][F];
+#pragma unroll
+        for (int j = 0; j < R; ++j)
+          id[j] = j < deg ? __ldg(ids + j * kTileN) : 0;
+#pragma unroll
+        for (int j = 0; j + 1 < R; ++j) {
+          if (j < deg) ln.load(z[j], zs + (size_t)id[j] * hd, kZsEvictFirst);
+          id[j] = j + R < deg ? __ldg(ids + (size_t)(j + R) * kTileN) : 0;
+        }
+        for (int k0 = 0; k0 < deg; k0 += R) {
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const int k = k0 + i;
+            if (k >= deg) break;  // group-uniform
+            const int j = (i + R - 1) % R;  // the slot of edge k + R - 1
+            if (k + R - 1 < deg) {
+              ln.load(z[j], zs + (size_t)id[j] * hd, kZsEvictFirst);
+              const int kn = k + 2 * R - 1;
+              id[j] = kn < deg ? __ldg(ids + (size_t)kn * kTileN) : 0;
+            }
             float sc = 0.f, dal = 0.f;
 #pragma unroll
             for (int f = 0; f < F; ++f) {
-              sc += av[f] * (pre[f] > 0.f ? pre[f] : slope * pre[f]);
+              const float s = z[i][f] + zdv[f];
+              sc += av[f] * (s > 0.f ? s : slope * s);
               dal += gv[f] * z[i][f];
             }
             sc = head_sum(sc, lph, mask);
@@ -229,46 +339,22 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
             const float alpha =
                 expf(fminf(fmaxf(sc - sig, kExpClamp), 0.f));
             const float de = alpha * (dal - r_h);
-            float pk[F], dsv[F];
+            float pk[F];  // this edge's packet c1
 #pragma unroll
             for (int f = 0; f < F; ++f) {
-              const bool pos = pre[f] > 0.f;
+              const float s = z[i][f] + zdv[f];
+              const bool pos = s > 0.f;
               const float ds = de * av[f] * (pos ? 1.f : slope);
+              // explicit roundings: whether the packet is written (ds used
+              // twice or once) must not change how dzd and d_a are
+              // contracted
               dacc[f] = __fadd_rn(dacc[f], ds);
-              da_acc[f] = fmaf(de, pos ? pre[f] : slope * pre[f], da_acc[f]);
+              da_acc[f] = fmaf(de, pos ? s : slope * s, da_acc[f]);
               pk[f] = alpha * gv[f] + ds;
-              dsv[f] = ds;
             }
-            ln.add_outer(s_dwe, dsv, fe[i], k_ef, hd);
             if (emit)
               ln.store(c1 + ((size_t)(c0 + k) * kTileN + r) * hd, pk);
-            continue;
           }
-          float sc = 0.f, dal = 0.f;
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-            const float s = z[i][f] + zdv[f];
-            sc += av[f] * (s > 0.f ? s : slope * s);
-            dal += gv[f] * z[i][f];
-          }
-          sc = head_sum(sc, lph, mask);
-          dal = head_sum(dal, lph, mask);
-          const float alpha = expf(fminf(fmaxf(sc - sig, kExpClamp), 0.f));
-          const float de = alpha * (dal - r_h);
-          float pk[F];  // this edge's packet c1
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-            const float s = z[i][f] + zdv[f];
-            const bool pos = s > 0.f;
-            const float ds = de * av[f] * (pos ? 1.f : slope);
-            // explicit roundings: whether the packet is written (ds used
-            // twice or once) must not change how dzd and d_a are contracted
-            dacc[f] = __fadd_rn(dacc[f], ds);
-            da_acc[f] = fmaf(de, pos ? s : slope * s, da_acc[f]);
-            pk[f] = alpha * gv[f] + ds;
-          }
-          if (emit)
-            ln.store(c1 + ((size_t)(c0 + k) * kTileN + r) * hd, pk);
         }
       }
     }
@@ -339,7 +425,7 @@ int gatv2_sell_bwd_dst(const float* zs, const float* zd, const float* g,
           aligned16(dzd) && (c1 == nullptr || aligned16(c1)));
   if (k == 0)
     return dispatch(geo, [&](auto vec, auto nv) {
-      sell_bwd_dst_kernel<decltype(vec)::value, decltype(nv)::value, false>
+      sell_bwd_dst_kernel<decltype(vec)::value, decltype(nv)::value, 0>
           <<<blocks, kBlock, 0, stream>>>(
               zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, rows,
               heads, head_dim, geo.lg, geo.lph, geo.qph, slope, nullptr,
@@ -348,9 +434,10 @@ int gatv2_sell_bwd_dst(const float* zs, const float* zd, const float* g,
     });
   // W_e and one dW_e table per lane group
   const size_t smem = sizeof(float) * (size_t)k * hd * (1 + kBlock / geo.lg);
-  return dispatch_edge(geo, [&](auto vec, auto nv) {
-    auto kernel =
-        sell_bwd_dst_kernel<decltype(vec)::value, decltype(nv)::value, true>;
+  auto launch_edge = [&](auto vec, auto nv, auto ke) {
+    auto kernel = sell_bwd_dst_kernel<decltype(vec)::value,
+                                      decltype(nv)::value,
+                                      decltype(ke)::value>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -359,6 +446,10 @@ int gatv2_sell_bwd_dst(const float* zs, const float* zd, const float* g,
         head_dim, geo.lg, geo.lph, geo.qph, slope, ef, we, k, dzd, da_part,
         c1, dwe_part);
     return (int)cudaGetLastError();
+  };
+  return dispatch_edge(geo, [&](auto vec, auto nv) {
+    return k <= kNarrowEdgeDim ? launch_edge(vec, nv, Int<kNarrowEdgeDim>{})
+                               : launch_edge(vec, nv, Int<kMaxEdgeDim>{});
   });
 }
 

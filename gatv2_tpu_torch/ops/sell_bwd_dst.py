@@ -259,9 +259,14 @@ def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
         raise RuntimeError(
             f"sell_bwd_dst launch failed: CUDA error {err} ({msg})")
     sell_bwd_dst.launches += 1
+    if ef is not None:
+        sell_bwd_dst.edge_ring_launches += 1
     # the per-block partials summed in a fixed order: deterministic
     out = (dzd, da_part.sum(0).view(num_heads, head_dim), c1)
     return out if ef is None else out + (dwe_part,)
 
 
 sell_bwd_dst.launches = 0  # K2 launches since the last reset
+# of those, the edge-feature launches, whose kernel takes a row's edges two
+# at a time (csrc/sell_bwd_dst.cu kEdgeStep)
+sell_bwd_dst.edge_ring_launches = 0

@@ -57,12 +57,24 @@ def _one_cpu_thread():
     torch.set_num_threads(threads)
 
 
-def _graph(seed=3):
+def _graph(seed=3, few=()):
+    """A random graph of N nodes, E edges (Poisson in-degrees around 13),
+    labels and edge features; `few` sets the in-degrees of the first
+    nodes (rows of one, two or three edges, which random degrees this size
+    never give), their edges drawn at random as the rest."""
     g = random_graph(N, E, F, 2, seed=seed)
     rng = np.random.default_rng(seed)
-    return Graph(g.features, g.row_ptr, g.col_idx,
+    row_ptr, col_idx = g.row_ptr, g.col_idx
+    if few:
+        deg = np.diff(row_ptr)
+        deg[:len(few)] = few
+        row_ptr = np.zeros(N + 1, np.int64)
+        np.cumsum(deg, out=row_ptr[1:])
+        col_idx = rng.integers(0, N, size=int(row_ptr[-1])).astype(np.int32)
+    e = int(row_ptr[-1])
+    return Graph(g.features, row_ptr, col_idx,
                  (rng.random((N, C)) < 0.5).astype(np.int32),
-                 edge_features=rng.standard_normal((E, K)).astype(np.float32))
+                 edge_features=rng.standard_normal((e, K)).astype(np.float32))
 
 
 def _config(**kw):
@@ -109,7 +121,21 @@ def _program_inputs(g, impl, chunks, cap):
 
 @pytest.mark.parametrize("impl,chunks,cap", LAYOUTS)
 def test_forward_and_every_gradient_match_the_reference(impl, chunks, cap):
-    g = _graph()
+    _check_forward_and_gradients(_graph(), impl, chunks, cap)
+
+
+@pytest.mark.parametrize("impl,chunks,cap", LAYOUTS)
+def test_rows_of_one_to_three_edges_match_the_reference(impl, chunks, cap):
+    """Rows of 0, 1, 2 and 3 in-edges, and of odd and even degree beside
+    them: the steps of K2's edge-feature variant with and without all
+    their edges (here through the twins, which the card tests hold the
+    kernels to)."""
+    g = _graph(few=(1, 2, 3, 0, 1, 3, 5))
+    assert {1, 2, 3} <= set(np.diff(g.row_ptr).tolist())
+    _check_forward_and_gradients(g, impl, chunks, cap)
+
+
+def _check_forward_and_gradients(g, impl, chunks, cap):
     mc = _config()
     params = _params(mc)
     leaves = optim.param_leaves(params)
@@ -189,6 +215,36 @@ def test_float64_torch_path_matches_the_float64_reference(remat):
                               w0):
         gap = float((p.detach() - w).norm() / (w - p0).norm())
         assert gap <= 1e-6, (name, gap)
+
+
+def test_k2_edge_ring_counter_stays_zero_on_the_cpu():
+    """On CPU tensors K2's wrapper runs its twin: neither its launch count
+    nor sell_bwd_dst.edge_ring_launches (the kernel's launches with edge
+    features) moves, with edge features or without."""
+    from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst
+
+    g = _graph()
+    st = tsa.prepare_sell_tiles(g.row_ptr, g.col_idx, N,
+                                edge_features=g.edge_features).to(
+                                    torch.device("cpu"))
+    rng = np.random.default_rng(0)
+    h, d = 2, 4
+    zs, zd, gr = (torch.tensor(rng.standard_normal((N, h * d)),
+                               dtype=torch.float32) for _ in range(3))
+    sigma, r = (torch.tensor(rng.standard_normal((N, h)), dtype=torch.float32)
+                for _ in range(2))
+    a = torch.tensor(rng.standard_normal((h, d)), dtype=torch.float32)
+    w_e = torch.tensor(rng.standard_normal((h, d, K)), dtype=torch.float32)
+    side = st.dst
+    args = (zs, zd, gr, sigma, r, a, side.perm, side.ids_grp[0],
+            side.cnt_grp[0], side.rel_off[0])
+    before = (sell_bwd_dst.launches, sell_bwd_dst.edge_ring_launches)
+    out = sell_bwd_dst(*args, negative_slope=0.2, emit_c1=False,
+                       edge_feat=side.edge_feat[0], w_e=w_e)
+    assert len(out) == 4 and float(out[3].abs().sum()) > 0
+    sell_bwd_dst(*args, negative_slope=0.2)
+    assert (sell_bwd_dst.launches, sell_bwd_dst.edge_ring_launches) == before
+    assert sell_bwd_dst.edge_ring_launches == 0
 
 
 def test_padding_rows_leave_batchnorm_statistics_unchanged():

@@ -1044,3 +1044,83 @@ def test_edge_feature_op_matches_torch_path(cuda, chunks):
     for name, a_, b_ in zip(("out", "dzs", "dzd", "da", "dw_e"), got, want):
         scale = float(b_.abs().max())
         assert float((a_ - b_).abs().max()) <= 1e-4 * scale + 1e-5, name
+
+
+def _small_degrees(n=400, seed=12):
+    """Rows of 0, 1, 2, 3, 5, 8, 13 and 40 in-edges in turn: K2's pairs
+    with and without a second edge, rows of one edge and rows of none."""
+    deg = np.resize(np.array([0, 1, 2, 3, 5, 8, 13, 40]), n)
+    rng = np.random.default_rng(seed)
+    return _csr_of(deg, rng.integers(0, n, size=int(deg.sum())))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunks", [1, 3])
+@pytest.mark.parametrize("h,d", [(6, 80), (3, 7)])
+def test_k2_edge_pairs_on_rows_of_few_edges(cuda, h, d, chunks):
+    """K2's edge-feature variant, whose rows go two edges at a time, on
+    rows of 0-3 edges (and longer): unchunked with packets, and on 3
+    chunks without them (c1 null). d_a and the summed dW_e partials lie
+    within 1e-4 of the row's largest value of the fp32 twin's; dzd and the
+    packets, as the other edge-feature tests hold them, within 10x the
+    twin's distance from float64: a row of one edge has a true dzd of 0
+    (its softmax has one term), and both sides round de = alpha * (dalpha -
+    r) from two equal numbers, so neither dzd has a scale of its own. A
+    second launch on the same inputs gives the same bits;
+    sell_bwd_dst.edge_ring_launches counts each edge-feature launch and no
+    plain one."""
+    row_ptr, col_idx, n = _small_degrees()
+    rng = np.random.default_rng(14)
+    k = 8
+    ef = rng.normal(size=(len(col_idx), k)).astype(np.float32)
+    st = tsa.prepare_sell_tiles(row_ptr, col_idx, n, num_chunks=chunks,
+                                edge_features=ef).to(cuda)
+    zs, zd, g = (torch.from_numpy(rng.normal(size=(n, h * d))
+                                  .astype(np.float32)).to(cuda)
+                 for _ in range(3))
+    a = torch.from_numpy(rng.normal(size=(h, d)).astype(np.float32)).to(cuda)
+    w_e = torch.from_numpy((0.3 * rng.normal(size=(h, d, k)))
+                           .astype(np.float32)).to(cuda)
+    out, sigma = tsa.sell_forward(zs, zd, a, n, negative_slope=SLOPE,
+                                  sell_tiles=st, w_e=w_e)
+    r = (g * out).view(n, h, d).sum(-1)
+    tables = (zs, zd, g, sigma, r, a)
+    emit = chunks == 1
+    rows_c = st.spc_dst * TILE_N
+    dwe = twin_dwe = 0
+    for c in range(chunks):
+        side = st.dst
+        lay = (side.perm[c * rows_c: (c + 1) * rows_c], side.ids_grp[c],
+               side.cnt_grp[c], side.rel_off[c])
+        ekw = dict(edge_feat=side.edge_feat[c], w_e=w_e)
+        before = (sell_bwd_dst.launches, sell_bwd_dst.edge_ring_launches)
+        got = [sell_bwd_dst(*tables, *lay, negative_slope=SLOPE,
+                            emit_c1=emit, **ekw) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert (sell_bwd_dst.launches - before[0],
+                sell_bwd_dst.edge_ring_launches - before[1]) == (2, 2)
+        twin = sell_bwd_dst_plain(*tables, *lay, negative_slope=SLOPE,
+                                  emit_c1=emit, **ekw)
+        twin64 = sell_bwd_dst_plain(*(t.double() for t in tables), *lay,
+                                    negative_slope=SLOPE, emit_c1=emit,
+                                    edge_feat=ekw["edge_feat"].double(),
+                                    w_e=w_e.double())
+        real = _real_slots(lay[2])
+        for i in (0, 1, 3):  # dzd, da, the dW_e partials
+            assert torch.equal(got[0][i], got[1][i])
+        if emit:
+            assert torch.equal(got[0][2][real], got[1][2][real])
+        assert _close_f64(got[0][0], twin[0], twin64[0])
+        assert _close_by_row(got[0][1], twin[1], rtol=1e-4, atol=1e-5)
+        if emit:
+            assert _close_f64(got[0][2][real], twin[2][real],
+                              twin64[2][real])
+        dwe = dwe + got[0][3].sum(0)
+        twin_dwe = twin_dwe + twin[3].sum(0)
+        before = (sell_bwd_dst.launches, sell_bwd_dst.edge_ring_launches)
+        sell_bwd_dst(*tables, *lay, negative_slope=SLOPE, emit_c1=emit)
+        torch.cuda.synchronize()
+        assert (sell_bwd_dst.launches - before[0],
+                sell_bwd_dst.edge_ring_launches - before[1]) == (1, 0)
+    assert float(twin_dwe.abs().max()) > 0
+    assert _close_by_row(dwe, twin_dwe, rtol=1e-4, atol=1e-5)

@@ -29,10 +29,23 @@ destinations ascending over 500,000 nodes, tile_e 256), and for K7 also
 arxiv-pl's unchunked layout (chip_smoke.py's powerlaw_graph: 169,343
 nodes, 1,166,243 edges, a source of 226,772 of them and 89 more of over
 1,024). K2 runs without packets, as the chunked backward launches it, K6
-with them, as the minibatch backward does. Needs the card and nvcc; the
-arguments pick kernels (default all):
+with them, as the minibatch backward does.
 
-    python tools/torch_kernel_variants.py [k1 k2 k4 k5 k6 k7 k8]
+`k2e` times K2's edge-feature variant on one chunk's worth of the
+ogbn-proteins cell's destination rows (6 heads of 80, 8 features a slot,
+in-degree ~597 split into virtual rows of at most 256 edges, so rows of odd
+and even degree, and rows of 1, 2 and 3 edges), without packets as the
+chunked backward launches it, beside a bare gather of one zs row per real
+slot; it prints ptxas's registers and spills of each variant's
+edge-feature instantiations at VEC 4, NV 5, and whether each variant's dzd,
+d_a partials and dW_e partials (and, launched with packets, its packets)
+equal the first variant's to the bit. `--against DIR` adds, as that first
+variant, K2 as built from another tree's sources (DIR/gatv2_tpu_torch/csrc,
+for instance an unpacked `git archive` of a parent commit). Needs the card
+and nvcc; the arguments pick kernels (default all but k2e):
+
+    python tools/torch_kernel_variants.py [k1 k2 k2e k4 k5 k6 k7 k8]
+        [--against DIR]
 """
 
 from __future__ import annotations
@@ -121,6 +134,12 @@ K2_VARIANTS = [
     ("ring 1, 6 blocks", {"kRing": "1", "kMinBlocks": "6"}),
     ("evict-first zs loads", {"kZsEvictFirst": "true"}),
 ]
+K2E_VARIANTS = [
+    ("as built", {}),
+    ("one edge a step", {"kEdgeStep": "1"}),
+    ("three edges a step", {"kEdgeStep": "3"}),
+    ("16 features held a slot", {"kNarrowEdgeDim": "16"}),
+]
 K4_VARIANTS = [
     ("as built", {}),
     ("ring 8, no register cut", {"kRing": "8", "kMinBlocks": "1"}),
@@ -186,12 +205,12 @@ K7_VARIANTS = [
 ]
 
 
-def variant_source(text: str, changes: dict) -> tuple[str, str | None]:
-    """(the kernel's source, the edge_tiles.cuh it includes or None for
-    csrc's) with `changes` made: a constant's new value, or under "code" /
-    "edge_tiles.cuh" a (pattern, replacement) that must match once in the
-    source / the header."""
-    header = None
+def variant_source(text: str, changes: dict) -> tuple[str, dict]:
+    """(the kernel's source, {header name: text} of the headers it includes
+    in place of csrc's) with `changes` made: a constant's new value, or
+    under "code" / "edge_tiles.cuh" a (pattern, replacement) that must
+    match once in the source / the header."""
+    headers = {}
     for const, value in changes.items():
         if const in ("code", "edge_tiles.cuh"):
             target = text if const == "code" else (
@@ -201,7 +220,7 @@ def variant_source(text: str, changes: dict) -> tuple[str, str | None]:
             if const == "code":
                 text = target
             else:
-                header = target
+                headers[const] = target
             continue
         if const == "once":
             text, n = re.subn(r"(ln\.load\([^;]*base), true\)",
@@ -212,24 +231,34 @@ def variant_source(text: str, changes: dict) -> tuple[str, str | None]:
                r"[^;]*;")
         text, n = re.subn(pat, rf"\g<1>{value};", text)
         assert n == 1, (const, n)
-    return text, header
+    return text, headers
 
 
-# ptxas's report on each variant's <VEC = 4, NV> instantiations (NV = 1 at
-# H*D = 16, 32 and 128, the products-full layers; NV = 2 at H*D = 256):
-# (name, NV) -> "<registers> regs, <bytes> B spilled"
-REGS: dict[tuple[str, int], str] = {}
+def tree_source(tree: pathlib.Path, file: str) -> tuple[str, dict]:
+    """(csrc/<file>.cu, every csrc/*.cuh) of another tree, as
+    variant_source returns them."""
+    csrc = tree / "gatv2_tpu_torch" / "csrc"
+    return ((csrc / f"{file}.cu").read_text(),
+            {h.name: h.read_text() for h in csrc.glob("*.cuh")})
 
 
-def compile_lib(name: str, text: str, header: str | None = None
+# ptxas's report on each variant's <VEC = 4, NV, ...> instantiations (NV = 1
+# at H*D = 16, 32 and 128, the products-full layers; NV = 2 at H*D = 256;
+# NV = 5 at 6 heads of 80): (name, NV, third template argument: 0 for a
+# kernel without one, EF's false / true as 0 / 1, K2's KE) -> "<registers>
+# regs, <bytes> B spilled" (spill stores, and loads where they differ)
+REGS: dict[tuple[str, int, int], str] = {}
+
+
+def compile_lib(name: str, text: str, headers: dict | None = None
                 ) -> ctypes.CDLL:
-    """Builds one source (with its own edge_tiles.cuh beside it, which the
-    quoted include finds first, if `header`)."""
+    """Builds one source (with `headers` beside it, which the quoted
+    includes find before csrc's)."""
     src = OUT / name / f"{name}.cu"
     src.parent.mkdir(exist_ok=True)
     src.write_text(text)
-    if header is not None:
-        (src.parent / "edge_tiles.cuh").write_text(header)
+    for header, body in (headers or {}).items():
+        (src.parent / header).write_text(body)
     so = OUT / f"{name}.so"
     proc = subprocess.run(
         [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-o",
@@ -238,13 +267,18 @@ def compile_lib(name: str, text: str, header: str | None = None
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr[-3000:]}")
     report = (proc.stdout + proc.stderr).split("Compiling entry function")
     for part in report:
-        inst = re.search(r"ILi4ELi(\d+)E", part.split("\n", 1)[0])
+        inst = re.search(r"ILi4ELi(\d+)E(?:L[ib](\d+)E)?",
+                         part.split("\n", 1)[0])
         if inst:
             regs = re.search(r"Used (\d+) registers", part)
-            spill = re.search(r"(\d+) bytes spill stores", part)
-            REGS[name, int(inst.group(1))] = (
-                f"{regs.group(1) if regs else '?'} regs, "
-                f"{spill.group(1) if spill else '?'} B spilled")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", part)
+            spilled = "?" if not spill else spill.group(1) if \
+                spill.group(1) == spill.group(2) else \
+                f"{spill.group(1)} / {spill.group(2)}"
+            REGS[name, int(inst.group(1)), int(inst.group(2) or 0)] = (
+                f"{regs.group(1) if regs else '?'} regs, {spilled} B "
+                f"spilled")
     return ctypes.CDLL(str(so))
 
 
@@ -358,8 +392,41 @@ def k8_layout(dev):
                 real_dst=side.other_grp[0][real].contiguous())
 
 
-ALL = ("k1", "k2", "k4", "k5", "k6", "k7", "k8")
+def proteins_layout(dev):
+    """One chunk's worth of the ogbn-proteins cell's destination rows:
+    7,363 nodes (132,534 / 18 chunks) of Poisson(597) in-degree, three of
+    them of 1, 2 and 3 edges, sources uniform over 132,534 nodes, 8
+    standard-normal features a slot, laid out by prepare_sell_tiles as the
+    cell's layout is (rows split into virtual rows of at most 256 edges)."""
+    from gatv2_tpu_torch.ops import sell_attention as tsa
+
+    rng = np.random.default_rng(2)
+    n_dst, n_src, k = 7_363, 132_534, 8
+    deg = rng.poisson(597, n_dst)
+    deg[:3] = (1, 2, 3)
+    row_ptr = np.zeros(n_dst + 1, np.int64)
+    np.cumsum(deg, out=row_ptr[1:])
+    e = int(row_ptr[-1])
+    st = tsa.prepare_sell_tiles(
+        row_ptr, rng.integers(0, n_src, size=e).astype(np.int32), n_dst,
+        num_src_nodes=n_src,
+        edge_features=rng.standard_normal((e, k), dtype=np.float32))
+    side = st.dst
+    real = side.ids_grp[0] < n_src
+    return dict(n_dst=n_dst, n_src=n_src, e=e, k=k, split=side.split,
+                perm=torch.as_tensor(side.perm[:st.spc_dst * 128],
+                                     device=dev),
+                ids=torch.as_tensor(side.ids_grp[0], device=dev),
+                cnt=torch.as_tensor(side.cnt_grp[0], device=dev),
+                col_off=torch.as_tensor(side.rel_off[0], device=dev),
+                ef=torch.as_tensor(side.edge_feat[0], device=dev),
+                real=torch.as_tensor(real, device=dev),
+                real_ids=torch.as_tensor(side.ids_grp[0][real], device=dev))
+
+
+ALL = ("k1", "k2", "k2e", "k4", "k5", "k6", "k7", "k8")
 SOURCES = {"k1": ("sell_fwd", K1_VARIANTS), "k2": ("sell_bwd_dst", K2_VARIANTS),
+           "k2e": ("sell_bwd_dst", K2E_VARIANTS),
            "k4": ("sell_bwd_src", K4_VARIANTS),
            "k5": ("pallas_fwd", K5_VARIANTS),
            "k6": ("pallas_bwd_dst", K6_VARIANTS),
@@ -367,11 +434,134 @@ SOURCES = {"k1": ("sell_fwd", K1_VARIANTS), "k2": ("sell_bwd_dst", K2_VARIANTS),
            "k8": ("pallas_bwd_src", K8_VARIANTS)}
 
 
+def k2_fn(lib):
+    """gatv2_sell_bwd_dst of a built K2, its argument types set."""
+    fn = lib.gatv2_sell_bwd_dst
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                   + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] + [ctypes.c_void_p] * 5)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def k2_variant(name, changes):
+    """K2 (k2_fn) built from csrc/sell_bwd_dst.cu with `changes` made
+    (variant_source)."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    return k2_fn(compile_lib(name, *variant_source(
+        (build.CSRC / "sell_bwd_dst.cu").read_text(), changes)))
+
+
+def k2_edge_launch(fn, tables, layout, edge_feat, w_e, slope, c1=None):
+    """(launch, dzd, d_a partials, dW_e partials) of a built K2 with edge
+    features on a layout's rows (perm, gather ids, cnt, column offsets),
+    sized as the wrapper sizes it: launch() runs it and returns its error;
+    each run adds into the dW_e partials, zeros before the first."""
+    zs, zd, g, sigma, r, a = tables
+    heads, d = a.shape
+    hd, k = heads * d, w_e.shape[-1]
+    rows = layout[0].numel()
+    blocks = min(-(-rows // k2.rows_per_block(heads, d, zs)), k2.MAX_BLOCKS)
+    we = w_e.reshape(-1, k).t().contiguous()
+    dzd = zs.new_empty((rows, hd))
+    da_part = zs.new_empty((blocks, hd))
+    dwe_part = zs.new_zeros((blocks, k, hd))
+    args = (zs.data_ptr(), zd.data_ptr(), g.data_ptr(), sigma.data_ptr(),
+            r.data_ptr(), a.data_ptr(), *(t.data_ptr() for t in layout),
+            rows, heads, d, slope, blocks, edge_feat.data_ptr(),
+            we.data_ptr(), k, dzd.data_ptr(), da_part.data_ptr(),
+            None if c1 is None else c1.data_ptr(), dwe_part.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        we.data_ptr()  # held with the launch
+        return fn(*args)
+
+    return launch, dzd, da_part, dwe_part
+
+
+def bit_reading(got, want):
+    """Each of got's (name, tensor) against want's: "equal" to the bit, or
+    the largest difference beside the largest |value|."""
+    out = []
+    for (what, x), (_, y) in zip(got, want):
+        if torch.equal(x, y):
+            out.append(f"{what} equal")
+        else:
+            out.append(f"{what} differ by {float((x - y).abs().max()):.3e} "
+                       f"(largest |value| {float(y.abs().max()):.3e})")
+    return out
+
+
+def k2e(libs, names, bare, card, dev):
+    """K2's edge-feature variants on proteins_layout: ms without packets,
+    ptxas's report, and each variant's outputs against the first's."""
+    lay = proteins_layout(dev)
+    heads, d, k = 6, 80, lay["k"]
+    hd = heads * d
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    tables = (randn(lay["n_src"] + 1, hd), randn(lay["n_dst"], hd),
+              randn(lay["n_dst"], hd), randn(lay["n_dst"], heads).abs() + 2,
+              randn(lay["n_dst"], heads), randn(heads, d) / d ** 0.5)
+    w_e = 0.3 * randn(heads, d, k)
+    layout = (lay["perm"], lay["ids"], lay["cnt"], lay["col_off"])
+    slots = lay["ids"].numel()
+    print(f"K2 with edge features, one chunk's worth of ogbn-proteins "
+          f"destination rows: {lay['perm'].numel()} virtual rows (split "
+          f"{lay['split']}), {lay['e']} real slots of {slots}, {heads} x {d} "
+          f"heads, k = {k} [{card}]")
+    sector_floats = -(-hd * 4 // 32) * 8
+    floor = 4 * lay["e"] * sector_floats / PEAK_BYTES_PER_S * 1e3
+    ms = event_ms(lambda: bare(lay["real_ids"], hd, tables[0]))
+    print(f"  bare gather of a zs row per real slot {ms:.4f} ms; zs rows per "
+          f"slot in 32-byte sectors at peak {floor:.4f} ms")
+    first = None
+    c1 = torch.empty(slots, hd, device=dev)
+    for i, name in enumerate(names):
+        fn = k2_fn(libs[f"k2e_{i}"])
+        outs = []
+        for packets in (None, c1):
+            launch, *res = k2_edge_launch(fn, tables, layout, lay["ef"], w_e,
+                                          0.2, c1=packets)
+            err = launch()
+            torch.cuda.synchronize()
+            assert err == 0, (name, err)
+            tag = "" if packets is None else "with packets: "
+            outs += [(f"{tag}dzd", res[0]), (f"{tag}d_a partials", res[1]),
+                     (f"{tag}dW_e partials", res[2].clone())]
+            if packets is None:
+                ms = event_ms(launch)
+            else:
+                outs.append(("packets", c1[lay["real"]].clone()))
+        reports = "; ".join(
+            f"{'EF' if t == 1 else f'KE {t}'}: {v}"
+            for (n, nv, t), v in sorted(REGS.items())
+            if n == f"k2e_{i}" and nv == 5 and t > 0)
+        print(f"  K2 {name}: {ms:.4f} ms without packets ({reports})")
+        if first is None:
+            first = outs
+            continue
+        print(f"    against {names[0]}: "
+              + ", ".join(bit_reading(outs, first)))
+        del outs
+    del tables, c1
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 1
-    wanted = argv or list(ALL)
+    against = None
+    if "--against" in argv:
+        i = argv.index("--against")
+        against = pathlib.Path(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
+    wanted = argv or [k for k in ALL if k != "k2e"]
     if set(wanted) - set(ALL):
         print(f"kernels are among {ALL}, got {wanted}", file=sys.stderr)
         return 2
@@ -381,11 +571,17 @@ def main(argv) -> int:
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     jobs = {"gather": (GATHER_SRC, None)}
+    k2e_names = [name for name, _ in K2E_VARIANTS]
+    if against is not None:
+        k2e_names.insert(0, f"as built from {against}")
     for kern in wanted:
         file, variants = SOURCES[kern]
         text = (build.CSRC / f"{file}.cu").read_text()
-        for i, (_, changes) in enumerate(variants):
-            jobs[f"{kern}_{i}"] = variant_source(text, changes)
+        sources = [variant_source(text, changes) for _, changes in variants]
+        if kern == "k2e" and against is not None:
+            sources.insert(0, tree_source(against, file))
+        for i, source in enumerate(sources):
+            jobs[f"{kern}_{i}"] = source
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         libs = dict(zip(jobs, ex.map(lambda kv: compile_lib(kv[0], *kv[1]),
                                      jobs.items())))
@@ -408,7 +604,7 @@ def main(argv) -> int:
         assert err == 0, err
 
     def regs(kern, i, hd):
-        return REGS.get((f"{kern}_{i}", max(1, hd // 128)), "")
+        return REGS.get((f"{kern}_{i}", max(1, hd // 128), 0), "")
 
     if "k1" in wanted or "k2" in wanted:
         lay = sell_layout(dev, ascending=False)
@@ -442,29 +638,30 @@ def main(argv) -> int:
                     K1_VARIANTS if "k1" in wanted else []):
                 fn = libs[f"k1_{i}"].gatv2_sell_fwd
                 fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
-                    ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
+                    ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+                    ctypes.c_int] + [ctypes.c_void_p] * 4
                 fn.restype = ctypes.c_int
                 args = (zs.data_ptr(), zd.data_ptr(), a.data_ptr(),
-                        *lay_args, 1, out.data_ptr(), m.data_ptr(),
-                        l_.data_ptr(), stream)
+                        *lay_args, 1, None, None, 0, out.data_ptr(),
+                        m.data_ptr(), l_.data_ptr(), stream)
                 ms = event_ms(lambda: fn(*args))
                 print(f"  H*D={hd}: K1 {name}: {ms:.4f} ms "
                       f"({regs('k1', i, hd)})")
             for i, (name, _) in enumerate(
                     K2_VARIANTS if "k2" in wanted else []):
-                fn = libs[f"k2_{i}"].gatv2_sell_bwd_dst
-                fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
-                    ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 4
-                fn.restype = ctypes.c_int
+                fn = k2_fn(libs[f"k2_{i}"])
                 args = (zs.data_ptr(), zd.data_ptr(), g.data_ptr(),
                         sig.data_ptr(), r.data_ptr(), a.data_ptr(),
-                        *lay_args, blocks, dzd.data_ptr(),
-                        da_part.data_ptr(), None, stream)
+                        *lay_args, blocks, None, None, 0, dzd.data_ptr(),
+                        da_part.data_ptr(), None, None, stream)
                 ms = event_ms(lambda: fn(*args))
                 print(f"  H*D={hd}: K2 without packets {name}: {ms:.4f} ms "
                       f"({regs('k2', i, hd)})")
             del zs, zd, g
             torch.cuda.empty_cache()
+
+    if "k2e" in wanted:
+        k2e(libs, k2e_names, bare, card, dev)
 
     if "k4" in wanted:
         lay = sell_layout(dev, ascending=True)
@@ -488,13 +685,15 @@ def main(argv) -> int:
             for i, (name, _) in enumerate(K4_VARIANTS):
                 fn = libs[f"k4_{i}"].gatv2_sell_bwd_src
                 fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
-                    ctypes.c_float] + [ctypes.c_void_p] * 2
+                    ctypes.c_float] + [ctypes.c_void_p] * 2 + [
+                    ctypes.c_int] + [ctypes.c_void_p] * 2
                 fn.restype = ctypes.c_int
                 args = (zs.data_ptr(), zd.data_ptr(), g.data_ptr(),
                         sig.data_ptr(), r.data_ptr(), a.data_ptr(),
                         lay["perm"].data_ptr(), lay["ids"].data_ptr(),
                         lay["cnt"].data_ptr(), lay["col_off"].data_ptr(),
-                        lay["rows"], heads, d, 0.01, out.data_ptr(), stream)
+                        lay["rows"], heads, d, 0.01, None, None, 0,
+                        out.data_ptr(), stream)
                 ms = event_ms(lambda: fn(*args))
                 print(f"  H*D={hd}: K4 {name}: {ms:.4f} ms")
             del zd, g, zs
