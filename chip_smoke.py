@@ -198,7 +198,7 @@ from gatv2_tpu_torch.data.splits import random_splits
 from gatv2_tpu_torch.data.synthetic import powerlaw_graph, random_graph
 from gatv2_tpu_torch.models.gatv2 import init_params, loss_fn, model_forward
 from gatv2_tpu_torch.models.params_io import save_params_txt
-from gatv2_tpu_torch.ops import build
+from gatv2_tpu_torch.ops import build, fused
 from gatv2_tpu_torch.ops import pallas_attention as tpa
 from gatv2_tpu_torch.ops.attention import edge_attention
 from gatv2_tpu_torch.ops import sell_attention as tsa
@@ -569,7 +569,7 @@ def zero_counters():
     # K2's launches with edge features, whose rows go in steps of edges
     sell_bwd_dst.edge_ring_launches = 0
     # head groups whose forward a remat recompute took from the first call
-    tsa.sell_attention.reused = tpa.edge_attention_pallas.reused = 0
+    fused.attention.reused = 0
 
 
 def read_counters():
@@ -2452,7 +2452,7 @@ def phase_products_full(dev, card):
     K1-K4 counters zeroed just before and read just after; then its epoch
     time, peak memory, a profiler table, and one epoch with remat=True
     from the same start: the same first loss, K1's launches an epoch's
-    without remat, sell_attention.reused one per layer and head group."""
+    without remat, fused.attention.reused one per layer and head group."""
     t0 = time.perf_counter()
     g = random_graph(**PRODUCTS_FULL)
     t1 = time.perf_counter()
@@ -2522,10 +2522,10 @@ def phase_products_full(dev, card):
     tr.run(1)
     torch.cuda.synchronize()
     remat_peak = torch.cuda.max_memory_allocated(dev)
-    k1, reused = read_counters()["sell_fwd"], tsa.sell_attention.reused
+    k1, reused = read_counters()["sell_fwd"], fused.attention.reused
     # the recompute takes the forward's result: K1 as often as without
     # remat, and one reuse per layer and head group
-    groups = sum(len(tsa._head_groups(h, d))
+    groups = sum(len(fused.head_groups(tsa.SELL, h, d))
                  for h, d in zip(PF_HEADS, PF_OUTDIMS))
     tr.model_config = config
     remat_loss = tr.metrics_sink.losses[0]
@@ -2534,7 +2534,7 @@ def phase_products_full(dev, card):
           f"{losses[0]!r}, relative difference {rel:.3e} (tolerance "
           f"{REMAT_RTOL:g}); peak memory {remat_peak / 2**30:.2f} GiB; "
           f"sell_fwd launches {k1} (an epoch without remat: "
-          f"{launches['sell_fwd'] / TRAIN_EPOCHS:g}), sell_attention.reused "
+          f"{launches['sell_fwd'] / TRAIN_EPOCHS:g}), fused.attention.reused "
           f"{reused} (layers x head groups: {groups}) [{card}]")
     if rel > REMAT_RTOL:
         fail("products-full: the remat epoch's loss differs from epoch 1's")
@@ -2898,10 +2898,10 @@ def phase_edge_features(dev, card):
         if impl == "sell":
             want_k1 = 2 * tr.edge_tiles.num_chunks * EDGE_EPOCHS
             if counts["sell_fwd"] != want_k1 or \
-                    tsa.sell_attention.reused != 2 * EDGE_EPOCHS:
+                    fused.attention.reused != 2 * EDGE_EPOCHS:
                 fail(f"edge features: K1 launched {counts['sell_fwd']} "
                      f"times (want {want_k1}), the recompute reused "
-                     f"{tsa.sell_attention.reused} head groups")
+                     f"{fused.attention.reused} head groups")
             if counts["sell_bwd_src"] == 0 or counts["sell_bwd_dst"] == 0:
                 fail(f"edge features: launches {counts}")
             # every K2 launch of the block takes the edge steps
@@ -3317,9 +3317,9 @@ def rank_transport(info):
 @contextlib.contextmanager
 def overlap_recorder(impl, local_tiles, timed=False):
     """Records on this rank, in host order, what the fused overlap layer
-    (ops/merge.py _MergeExchange) does: each exchange start and wait
+    (ops/fused.py _MergeExchange) does: each exchange start and wait
     (parallel/collectives.all_to_all_start and the wait of what it
-    returns) and each pass, the op module's forward_raw or backward on the
+    returns) and each pass, ops/fused.py forward_raw or backward on the
     local or the halo layout (told apart by a leaf of the layout), with
     how many times the pass launched its K1 / K5 or K2 / K6. With timed,
     also CUDA events around each local pass and the host ms of each wait,
@@ -3327,8 +3327,6 @@ def overlap_recorder(impl, local_tiles, timed=False):
     package has no hook for it."""
     from gatv2_tpu_torch.parallel import collectives as cc
 
-    mod = tsa if impl == "sell" else tpa
-    bwd_name = "sell_backward" if impl == "sell" else "pallas_backward"
     fwd_k, bwd_k = (("sell_fwd", "sell_bwd_dst") if impl == "sell"
                     else ("pallas_fwd", "pallas_bwd_dst"))
     leaf = (lambda t: t.ell_perm) if impl == "sell" else (lambda t: t.src)
@@ -3336,8 +3334,7 @@ def overlap_recorder(impl, local_tiles, timed=False):
     rec = dict(log=[], events={"fwd": [], "bwd": []},
                wait_ms={"fwd": 0.0, "bwd": 0.0})
     log = rec["log"]
-    start, fwd, bwd = (cc.all_to_all_start, mod._forward_raw,
-                       getattr(mod, bwd_name))
+    start, fwd, bwd = cc.all_to_all_start, fused.forward_raw, fused.backward
 
     class Pending:
         def __init__(self, pending, way):
@@ -3371,10 +3368,10 @@ def overlap_recorder(impl, local_tiles, timed=False):
         return out
 
     patches = {(cc, "all_to_all_start"): logged_start,
-               (mod, "_forward_raw"): lambda *a: run_pass(
-                   "fwd", fwd_k, fwd, a[3], *a),
-               (mod, bwd_name): lambda *a: run_pass(
-                   "bwd", bwd_k, bwd, a[6], *a)}
+               (fused, "forward_raw"): lambda *a: run_pass(
+                   "fwd", fwd_k, fwd, a[4], *a),
+               (fused, "backward"): lambda *a: run_pass(
+                   "bwd", bwd_k, bwd, a[7], *a)}
     saved = {key: getattr(*key) for key in patches}
     for (m, n), v in patches.items():
         setattr(m, n, v)

@@ -420,34 +420,18 @@ def _model_config(spec, precision, streams, remat):
 
 def runner_inputs(graph, mc, impl, device, *, tile_e=None,
                   chunk_budget=None) -> dict:
-    """The runner's inputs for `impl` on `device`: the layout (SellTiles
-    for impl='sell', EdgeTiles for 'pallas', chunked by chunk_budget or a
-    quarter of the card's free memory; None for 'torch'), features, src and
-    dst (torch only), labels, num_valid, and the graph's node count."""
-    layout = num_valid = src = dst = None
-    feats, labels = graph.features, graph.labels
-    if impl == "sell":
-        from gatv2_tpu_torch.ops.sell_attention import setup_full_graph_sell
+    """The runner's inputs for `impl` on `device`
+    (ops.attention.full_graph_inputs): the layout (SellTiles for
+    impl='sell', EdgeTiles for 'pallas', chunked by chunk_budget or a
+    quarter of the card's free memory; None for 'torch'), features, src
+    and dst (torch only), labels, num_valid, and the graph's node count."""
+    from gatv2_tpu_torch.ops.attention import full_graph_inputs
 
-        layout, feats, labels, num_valid = setup_full_graph_sell(
-            graph, mc.heads, mc.out_dims, device=device,
-            budget_bytes=chunk_budget)
-    elif impl == "pallas":
-        from gatv2_tpu_torch.ops.pallas_attention import setup_full_graph
-
-        layout, feats, labels, num_valid = setup_full_graph(
-            graph, mc.heads, mc.out_dims, device=device,
-            budget_bytes=chunk_budget, tile_e=tile_e)
-    elif impl == "torch":
-        src = torch.as_tensor(graph.src, device=device)
-        dst = torch.as_tensor(graph.dst, device=device)
-    else:
-        raise ValueError(f"impl must be 'torch', 'sell' or 'pallas', got "
-                         f"{impl!r}")
+    inputs = full_graph_inputs(graph, mc, impl, device=device,
+                               budget_bytes=chunk_budget, tile_e=tile_e)
     return dict(
-        edge_tiles=None if layout is None else layout.to(device),
-        features=torch.as_tensor(feats, device=device), src=src, dst=dst,
-        labels=torch.as_tensor(labels, device=device), num_valid=num_valid,
+        edge_tiles=inputs.layout, features=inputs.features, src=inputs.src,
+        dst=inputs.dst, labels=inputs.labels, num_valid=inputs.num_valid,
         num_nodes=graph.num_nodes)
 
 

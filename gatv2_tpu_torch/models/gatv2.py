@@ -131,23 +131,18 @@ class GATv2Layer(nn.Module):
                 num_real: int | None = None, update_stats: bool = True):
         """One GATv2 layer: [N, H*D] (hidden) or [N, D] (last layer).
         `kept`: the attention op's holder under remat (edge_attention).
-        edge_feat [E, k]: impl 'torch''s edge features ('sell' reads its
-        layout's); num_real: the real rows BatchNorm's statistics take
-        (all by default); update_stats: whether training moves the running
+        edge_feat [E, k]: the edge features of impl 'torch' (edge_attention);
+        num_real: the real rows BatchNorm's statistics take (all by
+        default); update_stats: whether training moves the running
         statistics (not in a remat recompute)."""
         num_nodes = x.shape[0]
         nh, hdim = self.a.shape
         zs, zd = self.project(x, config.precision)
-        if impl not in ("sell", "pallas"):  # those take the flat layout
-            zs = zs.view(num_nodes, nh, hdim)
-            zd = zd.view(num_nodes, nh, hdim)
         h = edge_attention(
             zs, zd, self.a, src, dst, num_nodes,
             negative_slope=config.negative_slope, impl=impl,
             edge_tiles=edge_tiles, streams=config.streams, kept=kept,
-            **({} if self.w_e is None else dict(
-                w_e=self.w_e, edge_feat=edge_feat if impl == "torch"
-                else None)),
+            edge_feat=edge_feat, w_e=self.w_e,
         )
         if self.w_res is not None:
             h = (h.reshape(num_nodes, nh * hdim)
@@ -171,15 +166,16 @@ class GATv2Layer(nn.Module):
         return nn.functional.leaky_relu(h.mean(dim=1), slope)
 
 
-def _recomputed_under_span(layer, impl):
+def _recomputed_under_span(layer):
     """layer, run under the span model.remat from its second call on:
     torch.utils.checkpoint calls it once in the forward and again, to
-    recompute its activations, in each backward. With a fused attention
-    op ('sell', 'pallas') both calls share one holder: the first keeps the
-    op's node-space result in it, the recompute hands it back to the op
-    instead of running the op's forward kernel again."""
+    recompute its activations, in each backward. Both calls share one
+    holder: with a fused attention op ('sell', 'pallas') the first keeps
+    the op's node-space result in it, the recompute hands it back to the
+    op instead of running the op's forward kernel again ('torch' ignores
+    it)."""
     calls = 0
-    kept = {} if impl in ("sell", "pallas") else None
+    kept = {}
 
     def run(*args, **kw):
         nonlocal calls
@@ -222,7 +218,7 @@ class GATv2(nn.Module):
         statistics) is kept from the forward, so K1 / K5 run once a step
         and K2-K4 / K6-K8 read the result they would without remat.
         edge_feat [E, k]: the edge features of impl 'torch' (src/dst's
-        edge order); 'sell' reads its layout's. BatchNorm's statistics
+        edge order; edge_attention). BatchNorm's statistics
         take the layout's real nodes (edge_tiles.num_nodes) or every
         row."""
         x = features
@@ -236,7 +232,7 @@ class GATv2(nn.Module):
                       impl=impl, edge_tiles=edge_tiles, **extra)
             if remat:
                 x = torch.utils.checkpoint.checkpoint(
-                    _recomputed_under_span(layer, impl), x, src, dst,
+                    _recomputed_under_span(layer), x, src, dst,
                     use_reentrant=False, **kw)
             else:
                 x = layer(x, src, dst, **kw)

@@ -12,27 +12,26 @@ mirror of the same edges (the CSC view) serves the backward's d_zs, with
 batch's layout has the same shapes (`fixed_edge_tiles`,
 `edge_tiles_from_native`).
 
-The op runs K5 (ops/pallas_fwd.py) once per chunk and head group in the
-forward. On an unchunked layout its backward runs K6 (ops/pallas_bwd_dst.py)
-over the destination rows, which writes one packet per edge, and K7
-(ops/pallas_segsum.py), which sums the packets per source row. On a chunked
-one it runs K6 once per destination chunk without packets, then K8
-(ops/pallas_bwd_src.py) once per source chunk, which rebuilds each edge's
-packet from the destination side's node-order tables: no edge-space buffer
-is held.
+The op is the edge-tile family (`EDGE_TILES`) of the fused op of
+ops/fused.py. It runs K5 (ops/pallas_fwd.py) once per chunk and head group
+in the forward. On an unchunked layout its backward runs K6
+(ops/pallas_bwd_dst.py) over the destination rows, which writes one packet
+per edge, and K7 (ops/pallas_segsum.py), which sums the packets per source
+row. On a chunked one it runs K6 once per destination chunk without
+packets, then K8 (ops/pallas_bwd_src.py) once per source chunk, which
+rebuilds each edge's packet from the destination side's node-order tables:
+no edge-space buffer is held.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
-from gatv2_tpu_torch.ops.merge import (
-    merged_attention,
-    merged_attention_exchange,
-)
+from gatv2_tpu_torch.ops import fused
 from gatv2_tpu_torch.ops.pallas_bwd_dst import pallas_bwd_dst
 from gatv2_tpu_torch.ops.pallas_bwd_src import pallas_bwd_src
 from gatv2_tpu_torch.ops.pallas_fwd import MAX_HD, STATS_L, TILE_N, pallas_fwd
@@ -403,80 +402,8 @@ def setup_full_graph(graph, heads, out_dims, *, device, labels=None,
 
 
 # ---------------------------------------------------------------------------
-# the op
+# the op: the edge-tile family of ops/fused.py
 # ---------------------------------------------------------------------------
-
-
-def _head_groups(num_heads: int, head_dim: int):
-    """(h0, h1) head ranges of one kernel launch each: at most STATS_L heads
-    and MAX_HD lanes (heads are independent, so groups change nothing)."""
-    group = min(STATS_L, max(1, MAX_HD // head_dim))
-    return [(h0, min(h0 + group, num_heads))
-            for h0 in range(0, num_heads, group)]
-
-
-def _prepare(zs, zd, a, num_nodes, edge_tiles):
-    """Validate the op's inputs; returns (layout on zs's device, flat fp32
-    zs [Ns, H*D], flat fp32 zd [Nd, H*D])."""
-    if edge_tiles is None:
-        raise ValueError(
-            "impl='pallas' requires edge_tiles (ops.pallas_attention."
-            "prepare_edge_tiles(row_ptr, col_idx, num_nodes))")
-    et = edge_tiles
-    if num_nodes not in (et.num_nodes, et.padded_num_nodes):
-        raise ValueError(
-            f"edge_tiles built for {et.num_nodes} (padded "
-            f"{et.padded_num_nodes}) dst nodes, got {num_nodes}")
-    if zs.shape[0] not in (et.src_num_nodes, et.padded_src_nodes):
-        raise ValueError(
-            f"zs has {zs.shape[0]} rows; edge_tiles src space is "
-            f"{et.src_num_nodes} (padded {et.padded_src_nodes})")
-    if zd.shape[0] not in (et.num_nodes, et.padded_num_nodes):
-        raise ValueError(
-            f"zd has {zd.shape[0]} rows; edge_tiles dst space is "
-            f"{et.num_nodes} (padded {et.padded_num_nodes})")
-    num_heads, head_dim = a.shape
-    if head_dim > MAX_HD:
-        raise ValueError(
-            f"head dim {head_dim} exceeds the pallas kernels' {MAX_HD} lanes")
-    zs2 = zs.reshape(zs.shape[0], num_heads * head_dim).float()
-    zd2 = zd.reshape(zd.shape[0], num_heads * head_dim).float()
-    return et.to(zs.device), zs2, zd2
-
-
-def _forward_group(zs_g, zd_g, a_g, et, negative_slope):
-    """One head group: contiguous flat zs/zd [*, h*D] -> node-space rows
-    (out [n_pad, h*D], m [n_pad, h], l [n_pad, h]), one K5 launch per
-    chunk."""
-    side = et.dst_side
-    rows_c = et.tiles_per_chunk * TILE_N
-    parts = [
-        pallas_fwd(zs_g, zd_g[g * rows_c:], a_g, side.ids_grp[g],
-                   side.other_grp[g], side.rel_offsets[g], et.tile_e,
-                   negative_slope=negative_slope)
-        for g in range(et.num_chunks)
-    ]
-    return tuple(torch.cat(x) if len(x) > 1 else x[0] for x in zip(*parts))
-
-
-def _cat(xs, dim):
-    return torch.cat(xs, dim) if len(xs) > 1 else xs[0]
-
-
-def pallas_forward(zs2, zd2, a, et, num_nodes, negative_slope):
-    """Flat fp32 zs/zd -> (out [num_nodes, H*D], m [n_pad, H], l [n_pad,
-    H]), one K5 launch per chunk and head group."""
-    num_heads, head_dim = a.shape
-    outs, ms, ls = [], [], []
-    for h0, h1 in _head_groups(num_heads, head_dim):
-        lanes = slice(h0 * head_dim, h1 * head_dim)
-        o, m, l = _forward_group(
-            zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(),
-            a[h0:h1].float().contiguous(), et, negative_slope)
-        outs.append(o[:num_nodes])
-        ms.append(m)
-        ls.append(l)
-    return _cat(outs, 1), _cat(ms, 1), _cat(ls, 1)
 
 
 def sigma_r_table(sigma: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -528,71 +455,67 @@ def _bwd_group(zs_g, zd_g, g_g, sr, a_g, et, negative_slope):
     return torch.cat(dzs_parts), torch.cat(dzd_parts), da
 
 
-def pallas_backward(zs2, zd2, a, out2, sigma, g2, et, negative_slope):
-    """The op's backward on the layout `et` (on g2's device): flat fp32 zs2
-    [Ns, H*D], zd2 [Nd, H*D], out2 and the upstream gradient g2 [n, H*D],
-    sigma = m + log(l + 1e-8) of the forward's m and l [n_pad, H] ->
-    (dzs [Ns, H*D], dzd [Nd, H*D], da [H, D]).
+class _EdgeTileFamily(fused.Family):
+    """The edge-tile kernels: K5 forward per chunk, K6 and K7 backward, or
+    K6 and K8 per chunk on a chunked layout; at most STATS_L = 16 heads and
+    MAX_HD lanes a launch; the stats are the forward's m and l [n_pad, H].
+    The kernels compute in fp32 at every --precision tier and stream fp32
+    (the JAX package's tiers change only its one-hot MXU products, which
+    these kernels do not have); the layout carries no edge features."""
 
-    Per head group: r = <g, out> per node and head (the softmax Jacobian's
-    segment term), then the backward kernels (_bwd_group: K6 and K7, or K6
-    and K8 per chunk)."""
-    num_heads, head_dim = a.shape
-    n = g2.shape[0]
-    dzs, dzd, da = [], [], []
-    for h0, h1 in _head_groups(num_heads, head_dim):
-        lanes = slice(h0 * head_dim, h1 * head_dim)
-        g_g = g2[:, lanes].contiguous()
-        r = (g_g * out2[:, lanes]).view(n, h1 - h0, head_dim).sum(-1)
-        dzs_rows, dzd_rows, da_g = _bwd_group(
-            zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(), g_g,
-            sigma_r_table(sigma[:, h0:h1], r), a[h0:h1].float().contiguous(),
-            et, negative_slope)
-        dzd.append(dzd_rows[: zd2.shape[0]])
-        dzs.append(dzs_rows[: zs2.shape[0]])
-        da.append(da_g)
-    return _cat(dzs, 1), _cat(dzd, 1), _cat(da, 0)
+    impl = "pallas"
+    layout_arg = "edge_tiles"
+    layout_hint = ("ops.pallas_attention.prepare_edge_tiles(row_ptr, "
+                   "col_idx, num_nodes)")
+    layout_type = "EdgeTiles"
+    max_hd = MAX_HD
+    edge_features = False
+
+    def heads_per_launch(self, head_dim):
+        return min(STATS_L, max(1, MAX_HD // head_dim))
+
+    def setup_full_graph(self, graph, heads, out_dims, *, device, labels,
+                         budget_bytes, tile_e, edge_features):
+        return setup_full_graph(graph, heads, out_dims, device=device,
+                                labels=labels, budget_bytes=budget_bytes,
+                                tile_e=tile_e)
+
+    def sigma(self, m, l):
+        return m + torch.log(l + SOFTMAX_EPS)
+
+    def forward(self, zs, zd, a, et, num_nodes, negative_slope, w_e):
+        """One K5 launch per chunk -> (out [num_nodes, h*D], m [n_pad, h],
+        l [n_pad, h])."""
+        side = et.dst_side
+        rows_c = et.tiles_per_chunk * TILE_N
+        parts = [
+            pallas_fwd(zs, zd[g * rows_c:], a, side.ids_grp[g],
+                       side.other_grp[g], side.rel_offsets[g], et.tile_e,
+                       negative_slope=negative_slope)
+            for g in range(et.num_chunks)
+        ]
+        out, m, l = (torch.cat(x) if len(x) > 1 else x[0]
+                     for x in zip(*parts))
+        return out[:num_nodes], m, l
+
+    def forward_raw(self, zs, zd, a, et, negative_slope):
+        """K5 with normalize=False on an unchunked layout."""
+        side = et.dst_side
+        return pallas_fwd(zs, zd, a, side.ids_grp[0], side.other_grp[0],
+                          side.rel_offsets[0], et.tile_e,
+                          negative_slope=negative_slope, normalize=False)
+
+    def backward(self, zs, zd, g, sigma, r, a, et, negative_slope, w_e):
+        dzs_rows, dzd_rows, da = _bwd_group(
+            zs, zd, g, sigma_r_table(sigma, r), a, et, negative_slope)
+        return dzs_rows[: zs.shape[0]], dzd_rows[: zd.shape[0]], da, None
 
 
-class _PallasAttention(torch.autograd.Function):
-    """Forward through K5; backward through K6 and K7 (K6 and K8 on a
-    chunked layout). The saved tensors are the fp32 flat zs/zd, a, the
-    output and the real head lanes of the softmax stats m and l, as the JAX
-    custom VJP saves them.
+EDGE_TILES = _EdgeTileFamily()
 
-    `kept` (a dict, or None) carries the node-space result from a
-    checkpointed layer's first call to its recompute: an empty holder is
-    filled with (out2, m, l); a filled one is emptied and its result saved
-    in place of K5's, which does not launch."""
-
-    @staticmethod
-    def forward(ctx, zs, zd, a, num_nodes, negative_slope, edge_tiles, kept):
-        et, zs2, zd2 = _prepare(zs, zd, a, num_nodes, edge_tiles)
-        if kept:
-            out2, m, l = kept.pop("result")
-            edge_attention_pallas.reused += len(_head_groups(*a.shape))
-        else:
-            out2, m, l = pallas_forward(zs2, zd2, a, et, num_nodes,
-                                        negative_slope)
-            if kept is not None:
-                kept["result"] = out2.detach(), m, l
-        ctx.save_for_backward(zs2, zd2, a, out2, m, l)
-        ctx.et, ctx.slope = et, negative_slope
-        ctx.shapes = (zs.shape, zd.shape, zs.dtype, zd.dtype)
-        return out2 if zs.dim() == 2 else out2.reshape(num_nodes, *a.shape)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        zs2, zd2, a, out2, m, l = ctx.saved_tensors
-        zs_shape, zd_shape, zs_dtype, zd_dtype = ctx.shapes
-        g2 = grad_out.reshape(out2.shape).float().contiguous()
-        dzs, dzd, da = pallas_backward(zs2, zd2, a, out2,
-                                       m + torch.log(l + SOFTMAX_EPS), g2,
-                                       ctx.et, ctx.slope)
-        return (dzs.reshape(zs_shape).to(zs_dtype),
-                dzd.reshape(zd_shape).to(zd_dtype), da.to(a.dtype),
-                None, None, None, None)
-
+# (zs2, zd2, a, et, num_nodes, negative_slope) -> (out [num_nodes, H*D],
+# m [n_pad, H], l [n_pad, H]): fused.forward on the edge-tile kernels
+pallas_forward = functools.partial(fused.forward, EDGE_TILES)
 
 def edge_attention_pallas(
     zs: torch.Tensor,  # [N, H, D] or flat [N, H*D]
@@ -605,45 +528,12 @@ def edge_attention_pallas(
     kept: dict | None = None,
 ) -> torch.Tensor:
     """Drop-in replacement for the 'torch' edge attention on the edge-tile
-    layout (see the module docstring). Returns out in the shape of zs,
-    num_nodes rows. `kept`: a checkpointed layer's holder
-    (models/gatv2.py), whose recompute reuses the first call's result
-    instead of running K5 again.
-
-    Heads run in groups of at most STATS_L = 16 heads and 512 lanes per
-    launch; heads are independent, so groups change nothing. The kernels
-    compute in fp32 at every --precision tier: the JAX package's tiers
-    change only its one-hot MXU products, which these kernels do not have
-    (the dense projections outside the op follow the tier). Differentiable
+    layout (see the module docstring): fused.attention on the edge-tile
+    kernels. Returns out in the shape of zs, num_nodes rows; differentiable
     in zs, zd and a on any layout, chunked or not."""
-    return _PallasAttention.apply(zs, zd, a, num_nodes, negative_slope,
-                                  edge_tiles, kept)
-
-
-# head groups whose forward a recompute took from `kept` instead of K5
-edge_attention_pallas.reused = 0
-
-
-# ---------------------------------------------------------------------------
-# multi-pass merged attention (halo/compute overlap of the sharded layer)
-# ---------------------------------------------------------------------------
-
-
-def _forward_raw(zs2, zd2, a, et, negative_slope):
-    """One pass of the merge on an unchunked layout: K5 with
-    normalize=False per head group -> node-order (u [n_pad, H*D],
-    m [n_pad, H], l [n_pad, H])."""
-    num_heads, head_dim = a.shape
-    side = et.dst_side
-    parts = []
-    for h0, h1 in _head_groups(num_heads, head_dim):
-        lanes = slice(h0 * head_dim, h1 * head_dim)
-        parts.append(pallas_fwd(
-            zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(),
-            a[h0:h1].float().contiguous(), side.ids_grp[0],
-            side.other_grp[0], side.rel_offsets[0], et.tile_e,
-            negative_slope=negative_slope, normalize=False))
-    return tuple(_cat(list(x), 1) for x in zip(*parts))
+    return fused.attention(EDGE_TILES, zs, zd, a, num_nodes,
+                           negative_slope=negative_slope, layout=edge_tiles,
+                           kept=kept)
 
 
 def edge_attention_pallas_merge(
@@ -657,55 +547,9 @@ def edge_attention_pallas_merge(
 ) -> torch.Tensor:
     """Edge-tile attention over K edge subsets whose per-destination
     softmax is MERGED across subsets (port of
-    gatv2_tpu/ops/pallas_attention.py edge_attention_pallas_merge): the
-    overlapped sharded layer's local-source edges in one pass, its
-    halo-source edges in another.
-
-    Each pass runs K5 unnormalised (u_k = sum exp(e - m_k) zs, with m_k
-    and l_k, in node order); the passes merge with the online-softmax
-    rescale. The backward is exact; see ops/merge.py. Differentiable in every zs part, zd and a; returns
-    num_nodes rows in the shape family of the zs parts."""
-    ets = tuple(edge_tiles_parts)
-    zs_parts = tuple(zs_parts)
-    _check_merge_parts(ets, [z.shape[0] for z in zs_parts])
-    return merged_attention(
-        zs_parts, zd, a, num_nodes, negative_slope=negative_slope,
-        layouts=ets, forward_raw=_forward_raw, backward=pallas_backward,
-        name="edge_attention_pallas_merge")
-
-
-def _check_merge_parts(ets, rows):
-    """One EdgeTiles per zs part, each part `rows[k]` rows of its tiles'
-    (padded) src space."""
-    if len(ets) != len(rows) or not ets:
-        raise ValueError("need one EdgeTiles per zs part")
-    for n, et in zip(rows, ets):
-        if n not in (et.src_num_nodes, et.padded_src_nodes):
-            raise ValueError(
-                f"zs part has {n} rows; its tiles' src space is "
-                f"{et.src_num_nodes} (padded {et.padded_src_nodes})")
-
-
-def edge_attention_pallas_merge_exchange(
-    zs_loc: torch.Tensor,  # [N_loc, H*D] / [N_loc, H, D] local projections
-    send: torch.Tensor,  # [S, M, ...] the rows this rank sends each peer
-    zd: torch.Tensor,  # [N_dst, H, D] / [N_dst, H*D] dst projections
-    a: torch.Tensor,  # [H, D]
-    num_nodes: int,  # real dst-node count
-    *,
-    group,  # the S ranks of the exchange
-    negative_slope: float,
-    edge_tiles_parts,  # (local, halo) EdgeTiles; halo src space S*M rows
-) -> torch.Tensor:
-    """edge_attention_pallas_merge of the overlapped sharded layer with
-    the boundary halo exchange inside (ops/merge.py): K5 of the local pass
-    runs while the all_to_all of `send` is in flight, the halo pass's K5
-    after its wait; in the backward the reverse exchange of the halo rows'
-    gradient runs under the local pass's K6 + K7. Bit-equal to
-    edge_attention_pallas_merge((zs_loc, all_to_all(send)), ...)."""
-    ets = tuple(edge_tiles_parts)
-    _check_merge_parts(ets, [zs_loc.shape[0], send.shape[0] * send.shape[1]])
-    return merged_attention_exchange(
-        zs_loc, send, zd, a, num_nodes, group=group,
-        negative_slope=negative_slope, layouts=ets, forward_raw=_forward_raw,
-        backward=pallas_backward, name="edge_attention_pallas_merge_exchange")
+    gatv2_tpu/ops/pallas_attention.py edge_attention_pallas_merge;
+    ops/fused.py merged_attention): each pass runs K5 unnormalised; the
+    backward runs K6 and K7 per pass."""
+    return fused.merged_attention(EDGE_TILES, zs_parts, zd, a, num_nodes,
+                                  negative_slope=negative_slope,
+                                  layouts=edge_tiles_parts)

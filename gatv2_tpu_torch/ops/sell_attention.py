@@ -21,7 +21,8 @@ Padding semantics the op and its kernel keep:
     a row with edges unchanged;
   - rows with no edges output exactly 0, with m = -1e30 (finite).
 
-The forward runs K1 (ops/sell_fwd.py) once per chunk of slices and head
+The op is the SELL family (`SELL`) of the fused op of ops/fused.py. Its
+forward runs K1 (ops/sell_fwd.py) once per chunk of slices and head
 group. On an unchunked layout the backward runs K2 (ops/sell_bwd_dst.py)
 over the dst rows, which writes one packet per edge, and K3
 (ops/sell_segsum.py), which sums the packets per src row. On a chunked one
@@ -37,10 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from gatv2_tpu_torch.ops.merge import (
-    merged_attention,
-    merged_attention_exchange,
-)
+from gatv2_tpu_torch.ops import fused
 from gatv2_tpu_torch.ops.segment import SOFTMAX_EPS, segment_max, segment_sum
 from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst
 from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src
@@ -154,6 +152,11 @@ class SellTiles:
             if self.node_pad_dst < 0
             else self.node_pad_dst
         )
+
+    @property
+    def src_num_nodes(self) -> int:
+        """Real src-node count (EdgeTiles' name for it)."""
+        return self.num_src_nodes
 
     @property
     def padded_src_nodes(self) -> int:
@@ -734,7 +737,7 @@ def sell_tiles_from_native(
 
 
 # ---------------------------------------------------------------------------
-# the op
+# the op: the SELL family of ops/fused.py
 # ---------------------------------------------------------------------------
 
 
@@ -761,135 +764,6 @@ def _edge_kw(side, g, w_e):
     if w_e is None:
         return {}
     return dict(edge_feat=side.edge_feat[g], w_e=w_e)
-
-
-def _forward_heads(zs, zd, a, st, num_nodes, negative_slope, w_e=None):
-    """One head group: flat fp32 zs/zd [*, H*D] -> node-space
-    (out [num_nodes, H*D], sigma [num_nodes, H])."""
-    side = st.dst
-    rows_c = st.spc_dst * TILE_N
-    outs, ms, ls = [], [], []
-    for g in range(st.num_chunks):
-        o, m, l = sell_fwd(
-            zs, zd, a, side.perm[g * rows_c : (g + 1) * rows_c],
-            side.ids_grp[g], side.cnt_grp[g], side.rel_off[g],
-            negative_slope=negative_slope, normalize=not side.split,
-            **_edge_kw(side, g, w_e),
-        )
-        outs.append(o)
-        ms.append(m)
-        ls.append(l)
-    with span("attn.join"):
-        out_p, m_p, l_p = (torch.cat(x) if len(x) > 1 else x[0]
-                           for x in (outs, ms, ls))
-        if side.split:
-            out, sigma = _merge_rows_dst(
-                out_p, m_p, l_p, side, st.padded_num_nodes, a.shape[1]
-            )
-            return out[:num_nodes], sigma[:num_nodes]
-        inv = side.inv[:num_nodes].long()
-        return out_p[inv], m_p[inv] + torch.log(l_p[inv] + SOFTMAX_EPS)
-
-
-def _prepare(zs, zd, a, num_nodes, sell_tiles, streams, w_e=None):
-    """Validate the op's inputs; returns (layout on zs's device, flat fp32
-    zs [Ns, H*D], flat fp32 zd [Nd, H*D]), rounded once to bfloat16 with
-    streams='bf16'."""
-    if sell_tiles is None:
-        raise ValueError(
-            "impl='sell' requires sell_tiles "
-            "(ops.sell_attention.prepare_sell_tiles(row_ptr, col_idx, n))"
-        )
-    st = sell_tiles
-    if w_e is not None and (st.edge_dim == 0
-                            or w_e.shape != (*a.shape, st.edge_dim)):
-        raise ValueError(
-            f"w_e {tuple(w_e.shape)} needs a layout built with edge features "
-            f"of its width (prepare_sell_tiles(edge_features=...)); this one "
-            f"carries {st.edge_dim}")
-    if num_nodes not in (st.num_nodes, st.padded_num_nodes):
-        raise ValueError(
-            f"sell_tiles built for {st.num_nodes} "
-            f"(padded {st.padded_num_nodes}) dst nodes, got {num_nodes}"
-        )
-    if zs.shape[0] not in (st.num_src_nodes, st.padded_src_nodes):
-        raise ValueError(
-            f"zs has {zs.shape[0]} rows; sell_tiles src space is "
-            f"{st.num_src_nodes} (padded {st.padded_src_nodes})"
-        )
-    if zd.shape[0] not in (st.num_nodes, st.padded_num_nodes):
-        raise ValueError(
-            f"zd has {zd.shape[0]} rows; sell_tiles dst space is "
-            f"{st.num_nodes} (padded {st.padded_num_nodes})"
-        )
-    if streams not in ("f32", "bf16"):
-        raise ValueError(f"streams must be 'f32' or 'bf16', got {streams!r}")
-    num_heads, head_dim = a.shape
-    if head_dim > MAX_HD:
-        raise ValueError(
-            f"head dim {head_dim} exceeds the SELL kernel's {MAX_HD} lanes"
-        )
-    zs2 = zs.reshape(zs.shape[0], num_heads * head_dim).float()
-    zd2 = zd.reshape(zd.shape[0], num_heads * head_dim).float()
-    if streams == "bf16":
-        zs2 = zs2.to(torch.bfloat16).float()
-        zd2 = zd2.to(torch.bfloat16).float()
-    return st.to(zs.device), zs2, zd2
-
-
-def _head_groups(num_heads, head_dim):
-    """(h0, h1) head ranges of one kernel launch each: heads_per_launch(D)
-    heads at a time (heads are independent, so groups change nothing)."""
-    group = heads_per_launch(head_dim)
-    return [(h0, min(h0 + group, num_heads))
-            for h0 in range(0, num_heads, group)]
-
-
-def _forward_flat(zs2, zd2, a, st, num_nodes, negative_slope, w_e=None):
-    """Flat fp32 zs/zd -> node-space (out [num_nodes, H*D], sigma
-    [num_nodes, H]), one K1 launch per chunk and head group."""
-    num_heads, head_dim = a.shape
-    outs, sigmas = [], []
-    for h0, h1 in _head_groups(num_heads, head_dim):
-        lanes = slice(h0 * head_dim, h1 * head_dim)
-        o, s = _forward_heads(
-            zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(),
-            a[h0:h1].float().contiguous(), st, num_nodes, negative_slope,
-            None if w_e is None else w_e[h0:h1].float().contiguous(),
-        )
-        outs.append(o)
-        sigmas.append(s)
-    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
-    sigma = torch.cat(sigmas, dim=1) if len(sigmas) > 1 else sigmas[0]
-    return out, sigma
-
-
-def sell_forward(
-    zs: torch.Tensor,  # [N, H, D] or flat [N, H*D]
-    zd: torch.Tensor,  # same shape family as zs
-    a: torch.Tensor,  # [H, D]
-    num_nodes: int,
-    *,
-    negative_slope: float,
-    sell_tiles: SellTiles,
-    streams: str = "f32",
-    w_e: torch.Tensor | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """SELL attention forward. Returns (out, sigma): out in the shape of
-    zs restricted to num_nodes rows, sigma = m + log(l + 1e-8) per node and
-    head [num_nodes, H] (the statistic the backward reuses).
-
-    Heads run in groups of heads_per_launch(D) per K1 launch (at most 32
-    heads and 512 lanes); heads are independent, so groups change nothing.
-    streams='bf16': zs and zd are rounded once to bfloat16 and carried as
-    fp32, so the result equals the exact path on rounded projections.
-    w_e [H, D, k]: the scores read the layout's per-slot edge features."""
-    st, zs2, zd2 = _prepare(zs, zd, a, num_nodes, sell_tiles, streams, w_e)
-    out, sigma = _forward_flat(zs2, zd2, a, st, num_nodes, negative_slope,
-                               w_e)
-    if zs.dim() != 2:
-        out = out.reshape(num_nodes, *a.shape)
-    return out, sigma
 
 
 def _rows_to_nodes_sum(x_rows, side, node_pad, n_rows):
@@ -963,94 +837,135 @@ def _bwd_heads(zs_g, zd_g, g_g, sigma_g, r, a_g, st, negative_slope,
         return torch.cat(dzs_parts), torch.cat(dzd_parts), da, dwe
 
 
-def sell_backward(zs2, zd2, a, out2, sigma, g2, st, negative_slope,
-                  w_e=None):
-    """The op's backward on the layout `st` (on g2's device): flat fp32 zs2
-    [Ns, H*D], zd2 [Nd, H*D] (the forward's rounded values), out2 and the
-    upstream gradient g2 [n, H*D], sigma [n, H], n the op's num_nodes ->
-    (dzs [Ns, H*D], dzd [Nd, H*D], da [H, D]), and dW_e [H, D, k] fourth
-    with w_e [H, D, k] (the layout's edge features then enter the scores).
+class _Sell(fused.Family):
+    """The SELL kernels: K1 forward per chunk (split rows merged back per
+    node), K2 and K3 backward, or K2 and K4 per chunk on a chunked layout;
+    heads_per_launch(D) heads a launch; the stats are sigma [num_nodes,
+    H]; streams='bf16' rounds the projections once to bfloat16; w_e reads
+    the layout's per-slot edge features."""
 
-    Per head group: r = <g, out> per node and head (the softmax Jacobian's
-    segment term), the backward kernels (_bwd_heads: K2 and K3, or K2 and
-    K4 per chunk), then rows -> nodes on both sides."""
-    num_heads, head_dim = a.shape
-    # K2 and K4 read g, sigma and r in zd's node space
-    nd = zd2.shape[0]
-    g2, out2, sigma = (_fit_rows(x, nd) for x in (g2, out2, sigma))
-    dzs, dzd, da, dwe = [], [], [], []
-    for h0, h1 in _head_groups(num_heads, head_dim):
-        lanes = slice(h0 * head_dim, h1 * head_dim)
-        g_g = g2[:, lanes].contiguous()
-        r = (g_g * out2[:, lanes]).view(nd, h1 - h0, head_dim).sum(-1)
-        dzs_rows, dzd_rows, da_g, dwe_g = _bwd_heads(
-            zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(), g_g,
-            sigma[:, h0:h1].contiguous(), r, a[h0:h1].float().contiguous(),
-            st, negative_slope,
-            None if w_e is None else w_e[h0:h1].float().contiguous(),
-        )
-        dwe.append(dwe_g)
+    impl = "sell"
+    layout_arg = "sell_tiles"
+    layout_hint = "ops.sell_attention.prepare_sell_tiles(row_ptr, col_idx, n)"
+    layout_type = "SellTiles"
+    max_hd = MAX_HD
+    edge_features = True
+
+    def heads_per_launch(self, head_dim):
+        return heads_per_launch(head_dim)
+
+    def setup_full_graph(self, graph, heads, out_dims, *, device, labels,
+                         budget_bytes, tile_e, edge_features):
+        return setup_full_graph_sell(
+            graph, heads, out_dims, device=device, labels=labels,
+            budget_bytes=budget_bytes, edge_features=edge_features)
+
+    def check(self, st, a, w_e):
+        if w_e is not None and (st.edge_dim == 0
+                                or w_e.shape != (*a.shape, st.edge_dim)):
+            raise ValueError(
+                f"w_e {tuple(w_e.shape)} needs a layout built with edge "
+                f"features of its width (prepare_sell_tiles(edge_features="
+                f"...)); this one carries {st.edge_dim}")
+
+    def check_merge(self, st):
+        if st.dst.split or st.srcs.split:
+            raise ValueError(
+                "merge path needs UNSPLIT layouts (build its tiles with "
+                "split_cap=None; prepare_overlap_sell_tiles does)")
+
+    def stream_dtype(self, streams):
+        if streams not in ("f32", "bf16"):
+            raise ValueError(
+                f"streams must be 'f32' or 'bf16', got {streams!r}")
+        return torch.bfloat16 if streams == "bf16" else torch.float32
+
+    def sigma(self, sigma):
+        return sigma
+
+    def backward_rows(self, x, nd):
+        # K2 and K4 read g, sigma and r in zd's node space
+        return _fit_rows(x, nd)
+
+    def forward(self, zs, zd, a, st, num_nodes, negative_slope, w_e):
+        """One K1 launch per chunk -> node-space (out [num_nodes, h*D],
+        sigma [num_nodes, h])."""
+        side = st.dst
+        rows_c = st.spc_dst * TILE_N
+        outs, ms, ls = [], [], []
+        for g in range(st.num_chunks):
+            o, m, l = sell_fwd(
+                zs, zd, a, side.perm[g * rows_c: (g + 1) * rows_c],
+                side.ids_grp[g], side.cnt_grp[g], side.rel_off[g],
+                negative_slope=negative_slope, normalize=not side.split,
+                **_edge_kw(side, g, w_e),
+            )
+            outs.append(o)
+            ms.append(m)
+            ls.append(l)
         with span("attn.join"):
-            dzd.append(_rows_to_nodes_sum(
-                dzd_rows, st.dst, st.padded_num_nodes, zd2.shape[0]))
-            dzs.append(_rows_to_nodes_sum(
-                dzs_rows, st.srcs, st.padded_src_nodes, zs2.shape[0]))
-        da.append(da_g)
-    out = (torch.cat(dzs, 1) if len(dzs) > 1 else dzs[0],
-           torch.cat(dzd, 1) if len(dzd) > 1 else dzd[0],
-           torch.cat(da, 0) if len(da) > 1 else da[0])
-    if w_e is None:
-        return out
-    return out + (torch.cat(dwe, 0) if len(dwe) > 1 else dwe[0],)
+            out_p, m_p, l_p = (torch.cat(x) if len(x) > 1 else x[0]
+                               for x in (outs, ms, ls))
+            if side.split:
+                out, sigma = _merge_rows_dst(
+                    out_p, m_p, l_p, side, st.padded_num_nodes, a.shape[1]
+                )
+                return out[:num_nodes], sigma[:num_nodes]
+            inv = side.inv[:num_nodes].long()
+            return out_p[inv], m_p[inv] + torch.log(l_p[inv] + SOFTMAX_EPS)
+
+    def forward_raw(self, zs, zd, a, st, negative_slope):
+        """K1 with normalize=False on an unsplit, unchunked layout, rows
+        restored to node order."""
+        inv = st.dst.inv.long()
+        u, m, l = sell_fwd(
+            zs, zd, a, st.dst.perm, st.dst.gather_ids, st.dst.cnt,
+            st.dst.col_off, negative_slope=negative_slope, normalize=False)
+        return u[inv], m[inv], l[inv]
+
+    def backward(self, zs, zd, g, sigma, r, a, st, negative_slope, w_e):
+        """The backward kernels (_bwd_heads), then rows -> nodes on both
+        sides."""
+        dzs_rows, dzd_rows, da, dwe = _bwd_heads(
+            zs, zd, g, sigma.contiguous(), r, a, st, negative_slope, w_e)
+        with span("attn.join"):
+            dzd = _rows_to_nodes_sum(dzd_rows, st.dst, st.padded_num_nodes,
+                                     zd.shape[0])
+            dzs = _rows_to_nodes_sum(dzs_rows, st.srcs, st.padded_src_nodes,
+                                     zs.shape[0])
+        return dzs, dzd, da, dwe
 
 
-class _SellAttention(torch.autograd.Function):
-    """Forward through K1; backward through K2 and K3 (K2 and K4 on a
-    chunked layout). The saved tensors are the forward's (rounded) zs/zd in
-    the stream dtype, a, the output and sigma, as the JAX custom VJP saves
-    them; the gradient passes straight through the bf16 rounding to the
-    unrounded input.
+SELL = _Sell()
 
-    `kept` (a dict, or None) carries the node-space result from a
-    checkpointed layer's first call to its recompute: an empty holder is
-    filled with (out2, sigma); a filled one is emptied and its result
-    saved in place of K1's, which does not launch."""
 
-    @staticmethod
-    def forward(ctx, zs, zd, a, num_nodes, negative_slope, sell_tiles,
-                streams, kept, w_e):
-        st, zs2, zd2 = _prepare(zs, zd, a, num_nodes, sell_tiles, streams,
-                                w_e)
-        if kept:
-            out2, sigma = kept.pop("result")
-            sell_attention.reused += len(_head_groups(*a.shape))
-        else:
-            out2, sigma = _forward_flat(zs2, zd2, a, st, num_nodes,
-                                        negative_slope, w_e)
-            if kept is not None:
-                kept["result"] = out2.detach(), sigma
-        sdt = torch.bfloat16 if streams == "bf16" else torch.float32
-        ctx.save_for_backward(zs2.to(sdt), zd2.to(sdt), a, out2, sigma,
-                              *(() if w_e is None else (w_e,)))
-        ctx.st, ctx.slope = st, negative_slope
-        ctx.shapes = (zs.shape, zd.shape, zs.dtype, zd.dtype)
-        return out2 if zs.dim() == 2 else out2.reshape(num_nodes, *a.shape)
+def sell_forward(
+    zs: torch.Tensor,  # [N, H, D] or flat [N, H*D]
+    zd: torch.Tensor,  # same shape family as zs
+    a: torch.Tensor,  # [H, D]
+    num_nodes: int,
+    *,
+    negative_slope: float,
+    sell_tiles: SellTiles,
+    streams: str = "f32",
+    w_e: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """SELL attention forward. Returns (out, sigma): out in the shape of
+    zs restricted to num_nodes rows, sigma = m + log(l + 1e-8) per node and
+    head [num_nodes, H] (the statistic the backward reuses).
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        zs2, zd2, a, out2, sigma, *w_e = ctx.saved_tensors
-        w_e = w_e[0] if w_e else None
-        zs_shape, zd_shape, zs_dtype, zd_dtype = ctx.shapes
-        g2 = grad_out.reshape(out2.shape).float().contiguous()
-        grads = sell_backward(
-            zs2.float(), zd2.float(), a, out2, sigma, g2, ctx.st, ctx.slope,
-            w_e,
-        )
-        dzs, dzd, da = grads[:3]
-        dwe = None if w_e is None else grads[3].to(w_e.dtype)
-        return (dzs.reshape(zs_shape).to(zs_dtype),
-                dzd.reshape(zd_shape).to(zd_dtype), da.to(a.dtype),
-                None, None, None, None, None, dwe)
+    Heads run in groups of heads_per_launch(D) per K1 launch (at most 32
+    heads and 512 lanes); heads are independent, so groups change nothing.
+    streams='bf16': zs and zd are rounded once to bfloat16 and carried as
+    fp32, so the result equals the exact path on rounded projections.
+    w_e [H, D, k]: the scores read the layout's per-slot edge features."""
+    st, zs2, zd2, _ = fused.prepare(SELL, zs, zd, a, num_nodes, sell_tiles,
+                                    streams, w_e)
+    out, sigma = fused.forward(SELL, zs2, zd2, a, st, num_nodes,
+                               negative_slope, w_e)
+    if zs.dim() != 2:
+        out = out.reshape(num_nodes, *a.shape)
+    return out, sigma
 
 
 def sell_attention(
@@ -1066,38 +981,14 @@ def sell_attention(
     w_e: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Drop-in replacement for the 'torch' edge attention on the SELL
-    layout (see the module docstring). Returns out in the shape of zs;
-    differentiable in zs, zd and a on any layout, chunked or not, and in
-    w_e [H, D, k], which makes each score read the layout's per-slot edge
-    features (SellTiles built with edge_features). `kept`: a checkpointed
-    layer's holder (models/gatv2.py), whose recompute reuses the first
-    call's result instead of running K1 again."""
-    return _SellAttention.apply(
-        zs, zd, a, num_nodes, negative_slope, sell_tiles, streams, kept, w_e
-    )
-
-
-# head groups whose forward a recompute took from `kept` instead of K1
-sell_attention.reused = 0
-
-
-def _forward_raw(zs2, zd2, a, st, negative_slope):
-    """One pass of the merge on an unsplit, unchunked layout: K1 with
-    normalize=False per head group, rows restored to node order ->
-    (u [n_pad, H*D], m [n_pad, H], l [n_pad, H])."""
-    num_heads, head_dim = a.shape
-    inv = st.dst.inv.long()
-    parts = []
-    for h0, h1 in _head_groups(num_heads, head_dim):
-        lanes = slice(h0 * head_dim, h1 * head_dim)
-        u, m, l = sell_fwd(
-            zs2[:, lanes].contiguous(), zd2[:, lanes].contiguous(),
-            a[h0:h1].float().contiguous(), st.dst.perm, st.dst.gather_ids,
-            st.dst.cnt, st.dst.col_off, negative_slope=negative_slope,
-            normalize=False)
-        parts.append((u[inv], m[inv], l[inv]))
-    return tuple(torch.cat(x, dim=1) if len(x) > 1 else x[0]
-                 for x in zip(*parts))
+    layout (see the module docstring): fused.attention on the SELL
+    kernels. Returns out in the shape of zs; differentiable in zs, zd and
+    a on any layout, chunked or not, and in w_e [H, D, k], which makes each
+    score read the layout's per-slot edge features (SellTiles built with
+    edge_features)."""
+    return fused.attention(SELL, zs, zd, a, num_nodes,
+                           negative_slope=negative_slope, layout=sell_tiles,
+                           streams=streams, kept=kept, w_e=w_e)
 
 
 def sell_attention_merge(
@@ -1111,61 +1002,9 @@ def sell_attention_merge(
 ) -> torch.Tensor:
     """SELL attention over K edge subsets whose per-destination softmax is
     MERGED across subsets (port of gatv2_tpu/ops/sell_attention.py
-    sell_attention_merge): the overlapped sharded layer's local-source
-    edges in one pass, its halo-source edges in another, so only the halo
-    pass waits on the exchange.
-
-    Each pass runs K1 unnormalised (u_k = sum exp(e - m_k) zs, with m_k
-    and l_k), restored to node order (each pass has its own degree-sorted
-    rows); the passes merge with the online-softmax rescale. The backward
-    is exact; see ops/merge.py. Differentiable in every zs
-    part, zd and a; returns num_nodes rows in the shape family of the zs
-    parts."""
-    sts = tuple(sell_tiles_parts)
-    zs_parts = tuple(zs_parts)
-    _check_merge_parts(sts, [z.shape[0] for z in zs_parts])
-    return merged_attention(
-        zs_parts, zd, a, num_nodes, negative_slope=negative_slope,
-        layouts=sts, forward_raw=_forward_raw, backward=sell_backward,
-        name="sell_attention_merge")
-
-
-def _check_merge_parts(sts, rows):
-    """One unsplit SellTiles per zs part, each part `rows[k]` rows of its
-    tiles' (padded) src space."""
-    if len(sts) != len(rows) or not sts:
-        raise ValueError("need one SellTiles per zs part")
-    if any(st.dst.split or st.srcs.split for st in sts):
-        raise ValueError(
-            "merge path needs UNSPLIT layouts (build its tiles with "
-            "split_cap=None; prepare_overlap_sell_tiles does)")
-    for n, st in zip(rows, sts):
-        if n not in (st.num_src_nodes, st.padded_src_nodes):
-            raise ValueError(
-                f"zs part has {n} rows; its tiles' src space "
-                f"is {st.num_src_nodes} (padded {st.padded_src_nodes})")
-
-
-def sell_attention_merge_exchange(
-    zs_loc: torch.Tensor,  # [N_loc, H*D] / [N_loc, H, D] local projections
-    send: torch.Tensor,  # [S, M, ...] the rows this rank sends each peer
-    zd: torch.Tensor,  # [N_dst, H, D] / [N_dst, H*D] dst projections
-    a: torch.Tensor,  # [H, D]
-    num_nodes: int,  # real dst-node count
-    *,
-    group,  # the S ranks of the exchange
-    negative_slope: float,
-    sell_tiles_parts,  # (local, halo) SellTiles; halo src space S*M rows
-) -> torch.Tensor:
-    """sell_attention_merge of the overlapped sharded layer with the
-    boundary halo exchange inside (ops/merge.py): K1 of the local pass
-    runs while the all_to_all of `send` is in flight, the halo pass's K1
-    after its wait; in the backward the reverse exchange of the halo rows'
-    gradient runs under the local pass's K2 + K3. Bit-equal to
-    sell_attention_merge((zs_loc, all_to_all(send)), ...)."""
-    sts = tuple(sell_tiles_parts)
-    _check_merge_parts(sts, [zs_loc.shape[0], send.shape[0] * send.shape[1]])
-    return merged_attention_exchange(
-        zs_loc, send, zd, a, num_nodes, group=group,
-        negative_slope=negative_slope, layouts=sts, forward_raw=_forward_raw,
-        backward=sell_backward, name="sell_attention_merge_exchange")
+    sell_attention_merge; ops/fused.py merged_attention): each pass runs
+    K1 unnormalised, restored to node order (each pass has its own
+    degree-sorted rows); the backward runs K2 and K3 per pass."""
+    return fused.merged_attention(SELL, zs_parts, zd, a, num_nodes,
+                                  negative_slope=negative_slope,
+                                  layouts=sell_tiles_parts)

@@ -29,14 +29,14 @@ Routes per layer (_sharded_layer), as in the JAX package:
     passes (local sources, halo sources) whose softmax stats merge;
   - 'sell' / 'pallas': the fused kernels (K1-K4 / K5-K8) on per-shard
     bipartite layouts, one pass;
-  - 'sell' / 'pallas' with overlap tiles: sell_attention_merge_exchange /
-    edge_attention_pallas_merge_exchange on the (local, halo) layout pair,
-    K1 / K5 with normalize=False per pass.
+  - 'sell' / 'pallas' with overlap tiles: the family's
+    merged_attention_exchange (ops/fused.py) on the (local, halo) layout
+    pair, K1 / K5 with normalize=False per pass.
 
 Overlap (--overlap): the boundary all_to_all is started asynchronously
 (collectives.all_to_all_start) and the local pass, which reads no
 exchanged row, runs before its wait. On the fused routes the exchange
-lives inside the op (ops/merge.py): forward, start -> local pass -> wait
+lives inside the op (ops/fused.py): forward, start -> local pass -> wait
 -> halo pass; backward, halo pass -> start of the reverse exchange of the
 halo rows' gradient -> local pass -> wait. On the 'torch' route the
 forward computes the local edges' scores and their max between start and
@@ -61,18 +61,14 @@ from torch import nn
 from gatv2_tpu_torch.config import ModelConfig, TrainConfig
 from gatv2_tpu_torch.device import resolve_device
 from gatv2_tpu_torch.models.gatv2 import GATv2, dense, init_params_for_variant
-from gatv2_tpu_torch.ops.attention import edge_attention
-from gatv2_tpu_torch.ops.pallas_attention import (
-    edge_attention_pallas_merge_exchange,
-)
+from gatv2_tpu_torch.ops.attention import edge_attention, family
+from gatv2_tpu_torch.ops.fused import merged_attention_exchange
 from gatv2_tpu_torch.ops.segment import (
     EXP_CLAMP,
     SOFTMAX_EPS,
     segment_max,
-    segment_softmax,
     segment_sum,
 )
-from gatv2_tpu_torch.ops.sell_attention import sell_attention_merge_exchange
 from gatv2_tpu_torch.parallel import collectives as cc
 from gatv2_tpu_torch.parallel.mesh import Mesh, make_mesh
 from gatv2_tpu_torch.parallel.partition import (
@@ -269,16 +265,10 @@ def _sharded_layer(layer, x_loc: torch.Tensor, lay: ShardLayout, *,
         # not read the exchanged rows runs while they are in flight, then
         # a HALO pass that does; their per-destination softmax stats merge
         # in the op (the JAX package's passes)
-        send = _halo_send(zs_loc, lay.send_ids)
-        kw = dict(group=mesh.graph, negative_slope=slope)
-        if impl == "sell":
-            h = sell_attention_merge_exchange(
-                zs_loc, send, zd_loc, a, n_loc,
-                sell_tiles_parts=lay.overlap_tiles, **kw)
-        else:
-            h = edge_attention_pallas_merge_exchange(
-                zs_loc, send, zd_loc, a, n_loc,
-                edge_tiles_parts=lay.overlap_tiles, **kw)
+        h = merged_attention_exchange(
+            family(impl), zs_loc, _halo_send(zs_loc, lay.send_ids), zd_loc,
+            a, n_loc, group=mesh.graph, negative_slope=slope,
+            layouts=lay.overlap_tiles)
         return _combine_heads(h.view(n_loc, nh, hdim), n_loc, **combine)
 
     if lay.overlap is not None and lay.send_ids is not None:
@@ -294,19 +284,10 @@ def _sharded_layer(layer, x_loc: torch.Tensor, lay: ShardLayout, *,
         zs_space = torch.cat(
             [zs_loc, _halo_all_to_all(zs_loc, lay.send_ids, mesh.graph)])
 
-    if impl in ("sell", "pallas"):
-        h = edge_attention(zs_space, zd_loc, a, None, None, n_loc,
-                           negative_slope=slope, impl=impl,
-                           edge_tiles=lay.edge_tiles, streams=config.streams)
-        h = h.view(n_loc, nh, hdim)
-    else:
-        src, dst = lay.src.long(), lay.dst.long()
-        zs_e = zs_space.view(-1, nh, hdim)[src]
-        s = nn.functional.leaky_relu(zs_e + zd_loc.view(n_loc, nh, hdim)[dst],
-                                     slope)
-        alpha = segment_softmax(torch.einsum("ehd,hd->eh", s, a), dst, n_loc)
-        h = segment_sum(alpha[:, :, None] * zs_e, dst, n_loc)
-    return _combine_heads(h, n_loc, **combine)
+    h = edge_attention(zs_space, zd_loc, a, lay.src, lay.dst, n_loc,
+                       negative_slope=slope, impl=impl,
+                       edge_tiles=lay.edge_tiles, streams=config.streams)
+    return _combine_heads(h.view(n_loc, nh, hdim), n_loc, **combine)
 
 
 def _combine_heads(h, n_loc, *, is_last, slope, variant, head_sharded,

@@ -27,9 +27,8 @@ from gatv2_tpu_torch.data.io import load_dataset
 from gatv2_tpu_torch.device import resolve_device
 from gatv2_tpu_torch.models.gatv2 import GATv2, model_forward
 from gatv2_tpu_torch.models.params_io import load_params_txt
-from gatv2_tpu_torch.ops.pallas_attention import setup_full_graph
+from gatv2_tpu_torch.ops.attention import full_graph_inputs
 from gatv2_tpu_torch.ops.pallas_fwd import pallas_fwd
-from gatv2_tpu_torch.ops.sell_attention import setup_full_graph_sell
 from gatv2_tpu_torch.ops.sell_fwd import sell_fwd
 from gatv2_tpu_torch.train import checkpoint as ckpt
 
@@ -48,7 +47,6 @@ def main(argv: list[str] | None = None) -> int:
         model_config, num_classes=graph.num_classes, in_dim=graph.feature_dim,
         edge_dim=graph.edge_dim if args.edge_features else 0,
     )
-    edge_features = graph.edge_features if args.edge_features else None
 
     if args.load_weights:
         params = load_params_txt(args.load_weights, model_config)
@@ -74,23 +72,8 @@ def main(argv: list[str] | None = None) -> int:
         raise SystemExit("one of --load-weights / --checkpoint-dir is required")
 
     num_nodes = graph.num_nodes
-    edge_tiles, src, dst = None, None, None
-    feats = graph.features
-    setup = {"sell": setup_full_graph_sell, "pallas": setup_full_graph}
-    edge_kw = {}
-    if edge_features is not None:
-        if train_config.impl == "sell":
-            edge_kw = dict(edge_features=edge_features)
-        elif train_config.impl != "torch":
-            raise SystemExit(
-                f"Error: --edge-features runs on --impl torch or sell, not "
-                f"{train_config.impl}.")
-    if train_config.impl in setup:
-        edge_tiles, feats, _, _ = setup[train_config.impl](
-            graph, model_config.heads, model_config.out_dims, device=device,
-            **edge_kw)
-    else:
-        src, dst = graph.src, graph.dst
+    inputs = full_graph_inputs(graph, model_config, train_config.impl,
+                               device=device)
 
     kernel = {"sell": ("K1", sell_fwd), "pallas": ("K5", pallas_fwd)}.get(
         train_config.impl)
@@ -99,9 +82,9 @@ def main(argv: list[str] | None = None) -> int:
     # statistics
     with torch.inference_mode():
         logits = model_forward(
-            params, feats, src, dst, model_config, impl=train_config.impl,
-            edge_tiles=edge_tiles, device=device,
-            edge_feat=edge_features if train_config.impl == "torch" else None,
+            params, inputs.features, inputs.src, inputs.dst, model_config,
+            impl=train_config.impl, edge_tiles=inputs.layout, device=device,
+            edge_feat=inputs.edge_feat,
         )[:num_nodes]
         if model_config.loss == "bce":
             preds = (logits > 0).cpu().numpy().astype(np.int64)

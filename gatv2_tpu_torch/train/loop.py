@@ -29,6 +29,7 @@ from gatv2_tpu_torch.config import ModelConfig, TrainConfig
 from gatv2_tpu_torch.data.graph import Graph
 from gatv2_tpu_torch.device import resolve_device
 from gatv2_tpu_torch.models.gatv2 import GATv2, init_params_for_variant, loss_fn
+from gatv2_tpu_torch.ops.attention import full_graph_inputs
 from gatv2_tpu_torch.train import optim
 from gatv2_tpu_torch.utils.metrics import span
 
@@ -94,21 +95,6 @@ def make_multi_epoch_runner(
     return run
 
 
-def edge_features_for(graph: Graph, model_config: ModelConfig):
-    """The graph's edge features [E, k] when the model reads them
-    (model_config.edge_dim > 0), else None; ValueError when the model
-    wants features the graph lacks or of another width."""
-    if model_config.edge_dim == 0:
-        return None
-    ef = graph.edge_features
-    if ef is None or ef.shape[1] != model_config.edge_dim:
-        raise ValueError(
-            f"edge_dim={model_config.edge_dim} needs the graph's edge "
-            f"features of that width; it has "
-            f"{'none' if ef is None else ef.shape[1]}")
-    return ef
-
-
 class Trainer:
     """Full-graph trainer with the reference's observable behaviour.
 
@@ -150,44 +136,14 @@ class Trainer:
         if splits is not None:
             labels = splits.masked_labels(labels, "train")
             self.num_valid = int(splits.train.sum())
-        feats, self.src, self.dst, self.edge_tiles = graph.features, None, None, None
-        if train_config.impl == "pallas":
-            model_config.check_full_graph_only("--impl pallas")
-        edge_features = edge_features_for(graph, model_config)
-        self.edge_feat = None
-        if train_config.impl == "sell":
-            from gatv2_tpu_torch.ops.sell_attention import setup_full_graph_sell
-
-            st, feats, labels, pad_valid = setup_full_graph_sell(
-                graph, model_config.heads, model_config.out_dims, device=dev,
-                labels=labels, edge_features=edge_features,
-            )
-            with span("setup.layout"), span("layout.to_device"):
-                self.edge_tiles = st.to(dev)
-            if pad_valid is not None and self.num_valid is None:
-                self.num_valid = pad_valid
-        elif train_config.impl == "pallas":
-            from gatv2_tpu_torch.ops.pallas_attention import setup_full_graph
-
-            et, feats, labels, pad_valid = setup_full_graph(
-                graph, model_config.heads, model_config.out_dims, device=dev,
-                labels=labels,
-            )
-            self.edge_tiles = et.to(dev)
-            if pad_valid is not None and self.num_valid is None:
-                self.num_valid = pad_valid
-        elif train_config.impl == "torch":
-            self.src = torch.as_tensor(graph.src, device=dev)
-            self.dst = torch.as_tensor(graph.dst, device=dev)
-            if edge_features is not None:
-                self.edge_feat = torch.as_tensor(edge_features, device=dev)
-        else:
-            raise ValueError(
-                f"Trainer: impl must be 'torch', 'sell' or 'pallas', got "
-                f"{train_config.impl!r}"
-            )
-        self.features = torch.as_tensor(feats, device=dev)
-        self.labels = torch.as_tensor(labels, device=dev)
+        inputs = full_graph_inputs(graph, model_config, train_config.impl,
+                                   device=dev, labels=labels)
+        self.edge_tiles, self.src, self.dst = (inputs.layout, inputs.src,
+                                               inputs.dst)
+        self.features, self.labels = inputs.features, inputs.labels
+        self.edge_feat = inputs.edge_feat
+        if self.num_valid is None:
+            self.num_valid = inputs.num_valid
         if splits is not None:
             n_all = self.features.shape[0]
 
@@ -209,12 +165,6 @@ class Trainer:
     @params.setter
     def params(self, params: GATv2) -> None:
         self._params = params.to(self.device)
-
-    def _forward_kw(self):
-        kw = dict(impl=self.train_config.impl, edge_tiles=self.edge_tiles)
-        if self.edge_feat is not None:
-            kw["edge_feat"] = self.edge_feat
-        return kw
 
     def step(self) -> tuple[float, float]:
         """One epoch (train_epoch at Adam step self.epoch), then its
@@ -260,7 +210,9 @@ class Trainer:
         if self.splits is None:
             raise ValueError("Trainer built without splits")
         logits = self._params(self.features, self.src, self.dst,
-                              self.model_config, **self._forward_kw())
+                              self.model_config, impl=self.train_config.impl,
+                              edge_tiles=self.edge_tiles,
+                              edge_feat=self.edge_feat)
         if self.model_config.loss == "bce":
             hit = ((logits > 0) == (self._eval_labels > 0)).float().mean(1)
         else:

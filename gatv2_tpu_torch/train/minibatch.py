@@ -40,6 +40,7 @@ from gatv2_tpu_torch.models.gatv2 import (
     loss_and_accuracy,
     loss_fn,
 )
+from gatv2_tpu_torch.ops.attention import full_graph_inputs
 from gatv2_tpu_torch.train import optim
 from gatv2_tpu_torch.utils.metrics import span
 
@@ -222,10 +223,10 @@ class MinibatchTrainer:
     def evaluate_exact(self) -> dict[str, float]:
         """Split accuracies from ONE exact full-graph forward: every node
         aggregates its full in-neighbourhood, the reference's evaluation
-        semantics. Deterministic, unlike the sampled evaluate(). impl
-        'pallas' runs through setup_full_graph's layout and 'sell' through
-        setup_full_graph_sell's (chunked when the device's budget asks for
-        it: the forward runs K5 or K1 per chunk)."""
+        semantics. Deterministic, unlike the sampled evaluate(). The
+        layout is the impl's full-graph one (ops.attention.full_graph_inputs:
+        chunked when the device's budget asks for it, the forward then runs
+        K5 or K1 per chunk)."""
         if self.splits is None:
             raise ValueError("MinibatchTrainer built without splits")
         if self._exact_eval is None:
@@ -240,39 +241,20 @@ class MinibatchTrainer:
         }
 
     def _setup_exact_eval(self):
-        graph, mc, dev = self.graph, self.model_config, self.device
-        impl = self.train_config.impl
-        feats, src, dst, et = graph.features, None, None, None
-        if impl == "pallas":
-            from gatv2_tpu_torch.ops.pallas_attention import setup_full_graph
-
-            et, feats, _, _ = setup_full_graph(graph, mc.heads, mc.out_dims,
-                                               device=dev)
-            et = et.to(dev)
-        elif impl == "sell":
-            from gatv2_tpu_torch.ops.sell_attention import (
-                setup_full_graph_sell,
-            )
-
-            et, feats, _, _ = setup_full_graph_sell(
-                graph, mc.heads, mc.out_dims, device=dev)
-            et = et.to(dev)
-        else:
-            src = torch.as_tensor(graph.src, device=dev)
-            dst = torch.as_tensor(graph.dst, device=dev)
-        n_all = feats.shape[0]
-        full = np.full(n_all, -1, np.int32)
-        full[: graph.num_nodes] = graph.labels
+        inputs = full_graph_inputs(self.graph, self.model_config,
+                                   self.train_config.impl,
+                                   device=self.device)
+        n_all = inputs.features.shape[0]
 
         def padmask(m):
             out = np.zeros(n_all, bool)
             out[: m.shape[0]] = m
-            return torch.as_tensor(out, device=dev)
+            return torch.as_tensor(out, device=self.device)
 
         masks = tuple(padmask(m) for m in (
             self.splits.train, self.splits.val, self.splits.test))
-        return (torch.as_tensor(feats, device=dev), src, dst, et,
-                torch.as_tensor(full, device=dev), masks)
+        return (inputs.features, inputs.src, inputs.dst, inputs.layout,
+                inputs.labels, masks)
 
     def run(self, epochs: int | None = None) -> dict:
         epochs = epochs if epochs is not None else self.train_config.epochs

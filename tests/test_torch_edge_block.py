@@ -37,6 +37,7 @@ from gatv2_tpu_torch.data.graph import Graph
 from gatv2_tpu_torch.data.synthetic import random_graph
 from gatv2_tpu_torch.models import gatv2 as model
 from gatv2_tpu_torch.models import params_io
+from gatv2_tpu_torch.ops import fused
 from gatv2_tpu_torch.ops import sell_attention as tsa
 from gatv2_tpu_torch.reference import gatv2_edge as ref
 from gatv2_tpu_torch.train import checkpoint as ckpt
@@ -285,12 +286,12 @@ def test_remat_keeps_the_result_and_moves_the_statistics_once():
     for remat in (False, True):
         mc = _config(remat=remat)
         params = _params(mc, seed=3)
-        reused = tsa.sell_attention.reused
+        reused = fused.attention.reused
         loss, _ = model.loss_fn(params, feats, None, None, labels, mc,
                                 impl="sell", edge_tiles=st, num_valid=nv)
         grads = torch.autograd.grad(loss, optim.param_leaves(params))
         out[remat] = (grads, list(params.buffers()),
-                      tsa.sell_attention.reused - reused)
+                      fused.attention.reused - reused)
     assert out[False][2] == 0 and out[True][2] == len(HEADS)
     for a, b in zip([*out[True][0], *out[True][1]],
                     [*out[False][0], *out[False][1]]):

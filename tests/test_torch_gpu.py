@@ -26,6 +26,7 @@ from gatv2_tpu_torch.config import ModelConfig, TrainConfig
 from gatv2_tpu_torch.data.sampling import NeighborSampler
 from gatv2_tpu_torch.data.synthetic import powerlaw_graph, random_graph
 from gatv2_tpu_torch.models.gatv2 import init_params, model_forward
+from gatv2_tpu_torch.ops import fused
 from gatv2_tpu_torch.ops import pallas_attention as tpa
 from gatv2_tpu_torch.ops import sell_attention as tsa
 from gatv2_tpu_torch.ops.pallas_bwd_dst import (
@@ -329,7 +330,7 @@ def test_remat_launches_k1_once_on_a_chunked_layout(cuda):
 
     def counts():
         return [sell_fwd.launches, sell_bwd_dst.launches,
-                sell_bwd_src.launches, tsa.sell_attention.reused]
+                sell_bwd_src.launches, fused.attention.reused]
 
     launched, grads = [], []
     for remat in (False, True):

@@ -34,9 +34,8 @@ from gatv2_tpu_torch import config as tconfig
 from gatv2_tpu_torch.data import synthetic as tsyn
 from gatv2_tpu_torch.data.splits import random_splits
 from gatv2_tpu_torch.models.params_io import params_from_numpy
-from gatv2_tpu_torch.ops import pallas_attention as tpa
+from gatv2_tpu_torch.ops import fused
 from gatv2_tpu_torch.ops import segment as tseg
-from gatv2_tpu_torch.ops import sell_attention as tsa
 from gatv2_tpu_torch.parallel import collectives as cc
 from gatv2_tpu_torch.parallel import partition as tpart
 from gatv2_tpu_torch.parallel import sharded as tsh
@@ -127,14 +126,14 @@ def rank_loss_and_grads(info, params_np, ranks, head_shards, impl, route,
     return loss, acc, full
 
 
-def _sync_merge(op, tiles_kw):
+def _sync_merge(family, zs_loc, send, zd, a, n, *, group, negative_slope,
+                layouts):
     """The fused overlap op with the exchange finished before either pass:
     a synchronous all_to_all, then the plain merge of both parts."""
-    def merge(zs_loc, send, zd, a, n, *, group, negative_slope, **kw):
-        halo = cc.all_to_all(send, group).reshape(-1, *zs_loc.shape[1:])
-        return op((zs_loc, halo), zd, a, n, negative_slope=negative_slope,
-                  **{tiles_kw: kw[tiles_kw]})
-    return merge
+    halo = cc.all_to_all(send, group).reshape(-1, *zs_loc.shape[1:])
+    return fused.merged_attention(family, (zs_loc, halo), zd, a, n,
+                                  negative_slope=negative_slope,
+                                  layouts=layouts)
 
 
 def _sync_overlap_torch(zs_loc, zd_loc, a, lay, group, slope):
@@ -220,31 +219,24 @@ def rank_overlap_order(info, params_np, impl):
         patches.append((tsh, "segment_max", logged_max))
         sync = [(tsh, "_overlap_attention_torch", _sync_overlap_torch)]
     else:
-        mod = tsa if impl == "sell" else tpa
-        bwd_name = "sell_backward" if impl == "sell" else "pallas_backward"
-        fwd, bwd = mod._forward_raw, getattr(mod, bwd_name)
+        fwd, bwd = fused.forward_raw, fused.backward
         leaf = (lambda t: t.ell_perm) if impl == "sell" else (lambda t: t.src)
         local_leaf = leaf(layout.overlap_tiles[0])
         which = lambda lay: "local" if leaf(lay) is local_leaf else "halo"
 
-        def logged_fwd(zs2, zd2, a, lay, slope):
-            out = fwd(zs2, zd2, a, lay, slope)
+        def logged_fwd(family, zs2, zd2, a, lay, slope):
+            out = fwd(family, zs2, zd2, a, lay, slope)
             log.append("fwd " + which(lay))
             return out
 
         def logged_bwd(*args):
             out = bwd(*args)
-            log.append("bwd " + which(args[6]))
+            log.append("bwd " + which(args[7]))
             return out
 
-        patches += [(mod, "_forward_raw", logged_fwd),
-                    (mod, bwd_name, logged_bwd)]
-        exch, op, kw = (
-            ("sell_attention_merge_exchange", tsa.sell_attention_merge,
-             "sell_tiles_parts") if impl == "sell" else
-            ("edge_attention_pallas_merge_exchange",
-             tpa.edge_attention_pallas_merge, "edge_tiles_parts"))
-        sync = [(tsh, exch, _sync_merge(op, kw))]
+        patches += [(fused, "forward_raw", logged_fwd),
+                    (fused, "backward", logged_bwd)]
+        sync = [(tsh, "merged_attention_exchange", _sync_merge)]
     with _patched(*patches):
         got = _mesh_loss_and_grads(config, mesh, pg, layout, params_np,
                                    impl)[:3]
@@ -467,9 +459,9 @@ def test_halo_exchange_matches_all_gather(pool, impl):
     for variant in ("edge", "node") for impl in ("torch", "sell", "pallas")])
 def test_overlap_routes_match_single_pass(pool, impl, variant):
     """The two-pass local/halo layer of each impl (the 'torch' stats
-    merge, sell_attention_merge_exchange,
-    edge_attention_pallas_merge_exchange) against the impl's single-pass
-    halo layer, and against the JAX single device, in both variants."""
+    merge, the family's fused.merged_attention_exchange) against the
+    impl's single-pass halo layer, and against the JAX single device, in
+    both variants."""
     g, config, params, params_np = _jax_setup(9, variant)
     single = pool.run(rank_loss_and_grads, params_np, 4, 1, impl, "halo",
                       False, variant)[0]

@@ -641,13 +641,14 @@ def test_remat_runs_the_attention_forward_once(case, monkeypatch):
     counts one per layer and head group); with torch twice the count.
     Layer 0's 17 heads make two K5 head groups."""
     from gatv2_tpu_torch.ops import attention as tattn
+    from gatv2_tpu_torch.ops import fused
     from gatv2_tpu_torch.ops import pallas_attention as tpa
 
     cfg, inputs, impl = _remat_case(case, heads=(17, 1), out_dims=(2, 3))
-    module, name, op = {
-        "torch": (tattn, "_edge_attention_torch", None),
-        "sell": (tsa, "sell_fwd", tsa.sell_attention),
-        "pallas": (tpa, "pallas_fwd", tpa.edge_attention_pallas),
+    module, name = {
+        "torch": (tattn, "_edge_attention_torch"),
+        "sell": (tsa, "sell_fwd"),
+        "pallas": (tpa, "pallas_fwd"),
     }[impl]
     kernel, calls = getattr(module, name), [0]
 
@@ -660,17 +661,17 @@ def test_remat_runs_the_attention_forward_once(case, monkeypatch):
     counts, reused, grads = [], [], []
     for remat in (False, True):
         calls[0] = 0
-        before = op.reused if op else 0
+        before = fused.attention.reused
         grads.append(_remat_grads(model, cfg, inputs, impl, remat))
         counts.append(calls[0])
-        reused.append((op.reused if op else 0) - before)
+        reused.append(fused.attention.reused - before)
     for p, q in zip(*grads):
         assert torch.equal(p, q)
     assert counts[0] > 0
     if impl == "torch":
         assert counts[1] == 2 * counts[0] and reused == [0, 0]
         return
-    groups = sum(len((tsa if impl == "sell" else tpa)._head_groups(h, d))
+    groups = sum(len(fused.head_groups(tattn.family(impl), h, d))
                  for h, d in zip(cfg.heads, cfg.out_dims))
     assert groups == (2 if impl == "sell" else 3)
     assert counts[1] == counts[0]
