@@ -90,16 +90,18 @@ Phases (any failure exits non-zero):
      isolated nodes, chunks without an edge, no edges, bf16 streams)
      against the twins and float64; then the edge-conditioned block
      (phase_edge_features): the edge-feature variants of K1, K2 and K4 on
-     one chunk of a layout at ogbn-proteins' in-degree (~600 edges a row,
-     6 x 80 heads, 8-dim edge features) against their twins and float64,
-     out / m / l, dzd / da / the summed dW_e partials and dzs, and K2's
-     time beside the same source built to take one edge a step, whose
+     a layout at ogbn-proteins' in-degree (~600 edges a row, 6 x 80 heads,
+     8-dim edge features, 3 chunks) against their twins and float64, out
+     / m / l, dzd / da / the summed dW_e partials, K2's compact packets
+     (alpha, de, signs) on every chunk and dzs of K4 reading them, and
+     K2's time beside the same source built to take one edge a step, whose
      dzd, d_a partials and dW_e partials it must equal to the bit; then 2
      layers of that block (residual, BatchNorm, multi-label loss) on a
      forced 3-chunk layout with remat, sell (K1, K2, K4 with the edge
      term) against the torch path's losses, K1 launched once per layer,
      chunk and epoch, every K2 launch in edge steps
-     (sell_bwd_dst.edge_ring_launches);
+     (sell_bwd_dst.edge_ring_launches), every K4 launch on compact packets
+     (sell_bwd_src.packet_launches);
  13. its times: device step, host sample + tile, the pipeline ratio of
      tools/bench_minibatch.py, each kernel beside its bound (K5 and K6:
      and per-edge gather floor), its twin and, for K7, index_add_; a profiler table; peak memory; and the minibatch
@@ -224,7 +226,12 @@ from gatv2_tpu_torch.ops.sell_attention import (
     sell_forward,
     setup_full_graph_sell,
 )
-from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst, sell_bwd_dst_plain
+from gatv2_tpu_torch.ops.sell_bwd_dst import (
+    compact_buffer,
+    sell_bwd_dst,
+    sell_bwd_dst_plain,
+    unpack_compact,
+)
 from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src, sell_bwd_src_plain
 from gatv2_tpu_torch.ops.sell_fwd import sell_fwd, sell_fwd_plain
 from gatv2_tpu_torch.ops.sell_segsum import sell_segsum, sell_segsum_plain
@@ -568,6 +575,8 @@ def zero_counters():
     sell_fwd.raw_launches = pallas_fwd.raw_launches = 0
     # K2's launches with edge features, whose rows go in steps of edges
     sell_bwd_dst.edge_ring_launches = 0
+    # K4's launches that read K2's compact packets
+    sell_bwd_src.packet_launches = 0
     # head groups whose forward a remat recompute took from the first call
     fused.attention.reused = 0
 
@@ -2753,13 +2762,34 @@ K2_EDGE_BEFORE_MS = 3.017
 K2_EDGE_BEFORE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 
 
+def slot_pre64(zs, zd, w_e, ef, lay):
+    """[Ec, H*D] float64 pre-activations zs[src] + zd[dst] + W_e f of a dst
+    chunk's slots (perm, gather ids, cnt, column offsets); padding slots
+    read clamped ids and are not meant to be looked at."""
+    perm, ids, _, col_off = lay
+    slot = torch.arange(ids.numel(), device=ids.device)
+    col, lane = slot // TILE_N, slot % TILE_N
+    row = torch.searchsorted(col_off[1:].long(), col, right=True) * TILE_N \
+        + lane
+    dst = perm.long()[row.clamp(max=perm.numel() - 1)].clamp(
+        max=zd.shape[0] - 1)
+    src = ids.long().clamp(max=zs.shape[0] - 1)
+    k = w_e.shape[-1]
+    return (zs.double()[src] + zd.double()[dst]
+            + ef.double() @ w_e.double().reshape(-1, k).T)
+
+
 def edge_kernels_at_proteins_degree(dev, card):
-    """K1, K2 and K4 in their edge-feature variants, each launched once on
-    chunk 0 of its side of a 3-chunk layout at the ogbn-proteins cell's
-    row shape (EDGE_KERNEL_GRAPH), against the twins on the same inputs
-    (EDGE_KERNEL_RTOL of the row's largest value) and, for the sums that
-    cancel (dzd, da, dW_e, dzs), against float64 (compare_f64). dW_e is the
-    sum of K2's per-block partials, as the op takes it."""
+    """K1, K2 and K4 in their edge-feature variants at the ogbn-proteins
+    cell's row shape (EDGE_KERNEL_GRAPH, 3 chunks), against the twins on
+    the same inputs (EDGE_KERNEL_RTOL of the row's largest value) and, for
+    the sums that cancel (dzd, da, dW_e, dzs) and the compact packets'
+    alpha and de, against float64 (compare_f64): K1 on dst chunk 0; K2 on
+    every dst chunk, writing the compact packets (its outputs compared on
+    chunk 0, dW_e the sum of its per-block partials, as the op takes it;
+    the packets on every real slot, whose sign bits must equal the float64
+    pre-activation's wherever that lies further than 1e-5 from 0); K4's
+    compact variant on src chunk 0, reading them."""
     cfg = EDGE_KERNEL_GRAPH
     h, d, k = cfg["heads"], cfg["head_dim"], cfg["edge_dim"]
     g = random_graph(cfg["num_nodes"], cfg["num_edges"], 8, 2, seed=37)
@@ -2781,14 +2811,14 @@ def edge_kernels_at_proteins_degree(dev, card):
     r = (gr * out).view(n, h, d).sum(-1)
     tables = (zs, zd, gr, sigma, r, a)
 
-    def chunk0(side, spc):
-        return (chunk_rows(side, spc, 0), side.ids_grp[0], side.cnt_grp[0],
-                side.rel_off[0])
+    def chunk(side, spc, c):
+        return (chunk_rows(side, spc, c), side.ids_grp[c], side.cnt_grp[c],
+                side.rel_off[c])
 
     def f64(ts):
         return [t.double() for t in ts]
 
-    dst, src = chunk0(st.dst, st.spc_dst), chunk0(st.srcs, st.spc_src)
+    dst, src = chunk(st.dst, st.spc_dst, 0), chunk(st.srcs, st.spc_src, 0)
     kw = dict(negative_slope=SLOPE, w_e=w_e, edge_feat=st.dst.edge_feat[0])
     kw64 = dict(kw, w_e=w_e.double(), edge_feat=kw["edge_feat"].double())
     norm = not st.dst.split
@@ -2802,9 +2832,27 @@ def edge_kernels_at_proteins_degree(dev, card):
     torch.cuda.synchronize()
     for name, x, y in zip(("K1 out", "K1 m", "K1 l"), got, twin):
         compare(name, x, y, EDGE_KERNEL_RTOL, EDGE_KERNEL_ATOL)
-    got = sell_bwd_dst(*tables, *dst, emit_c1=False, **kw)
-    twin = sell_bwd_dst_plain(*tables, *dst, emit_c1=False, **kw)
-    twin64 = sell_bwd_dst_plain(*f64(tables), *dst, emit_c1=False, **kw64)
+    ec_d = st.dst.ids_grp.shape[1]
+    compact = [compact_buffer(st.num_chunks * ec_d, h, d, dtype=dt,
+                              device=dev)
+               for dt in (torch.float32, torch.float32, torch.float64)]
+    rows_real, pre = [], []
+    for c in range(st.num_chunks):
+        lay = chunk(st.dst, st.spc_dst, c)
+        kwc = dict(kw, edge_feat=st.dst.edge_feat[c])
+        kwc64 = dict(kw64, edge_feat=kwc["edge_feat"].double())
+        pk = [x[c * ec_d: (c + 1) * ec_d] for x in compact]
+        outs = (sell_bwd_dst(*tables, *lay, emit_c1=False, compact=pk[0],
+                             **kwc),
+                sell_bwd_dst_plain(*tables, *lay, emit_c1=False,
+                                   compact=pk[1], **kwc),
+                sell_bwd_dst_plain(*f64(tables), *lay, emit_c1=False,
+                                   compact=pk[2], **kwc64))
+        if c == 0:
+            got, twin, twin64 = outs
+        real_c = real_slots(lay[2])
+        rows_real.append(torch.nonzero(real_c).squeeze(1) + c * ec_d)
+        pre.append(slot_pre64(zs, zd, w_e, kwc["edge_feat"], lay)[real_c])
     torch.cuda.synchronize()
     dwe = [x[3].sum(0) for x in (got, twin, twin64)]
     if not float(dwe[2].abs().max()) > 0:
@@ -2815,14 +2863,37 @@ def edge_kernels_at_proteins_degree(dev, card):
             ("K2 dW_e (summed partials)", *dwe)):
         compare(name, x, y, EDGE_KERNEL_RTOL, EDGE_KERNEL_ATOL)
         compare_f64(name, x, y, y64)
-    kw = dict(kw, edge_feat=st.srcs.edge_feat[0])
-    kw64 = dict(kw64, edge_feat=kw["edge_feat"].double())
-    got = sell_bwd_src(*tables, *src, **kw)
-    twin = sell_bwd_src_plain(*tables, *src, **kw)
-    twin64 = sell_bwd_src_plain(*f64(tables), *src, **kw64)
+    rows_real, pre = torch.cat(rows_real), torch.cat(pre)
+    packets = [unpack_compact(x[rows_real], h, d) for x in compact]
+    for i, name in enumerate(("K2 packet alpha", "K2 packet de")):
+        compare(name, packets[0][i], packets[1][i], EDGE_KERNEL_RTOL,
+                EDGE_KERNEL_ATOL)
+        compare_f64(name, *(x[i] for x in packets))
+    sure = pre.abs() > 1e-5
+    flips = [int((x[2][sure] != (pre > 0)[sure]).sum()) for x in packets]
+    print(f"  K2 packet signs: {int(sure.sum())} of {sure.numel()} further "
+          f"than 1e-5 from 0, of which unlike the float64 pre-activation: "
+          f"kernel {flips[0]}, fp32 twin {flips[1]}, float64 twin "
+          f"{flips[2]}")
+    if any(flips):
+        fail("edge-feature kernels: K2's compact packets carry wrong signs")
+    before = sell_bwd_src.packet_launches
+    got, twin, twin64 = (
+        fn(*ts, *src, negative_slope=SLOPE, compact=pk,
+           ell_perm=st.ell_perm[0])
+        for fn, ts, pk in ((sell_bwd_src, tables, compact[0]),
+                           (sell_bwd_src_plain, tables, compact[1]),
+                           (sell_bwd_src_plain, f64(tables), compact[2])))
     torch.cuda.synchronize()
+    if sell_bwd_src.packet_launches != before + 1:
+        fail("edge-feature kernels: K4 did not count its compact launch")
     compare("K4 dzs", got, twin, EDGE_KERNEL_RTOL, EDGE_KERNEL_ATOL)
     compare_f64("K4 dzs", got, twin, twin64)
+    ms = cuda_ms(lambda: sell_bwd_src(*tables, *src, negative_slope=SLOPE,
+                                      compact=compact[0],
+                                      ell_perm=st.ell_perm[0]))
+    print(f"  K4 on src chunk 0 from the compact packets: {ms:.3f} ms")
+    del compact, packets, pre
     # K2 as the chunked backward launches it (no packets), timed beside the
     # same source built to take one edge a step, the arithmetic and order of
     # the kernel before its edges went in steps: the two must agree to the
@@ -2894,6 +2965,7 @@ def phase_edge_features(dev, card):
         torch.cuda.synchronize()
         counts = read_counters()
         ring = sell_bwd_dst.edge_ring_launches
+        packed = sell_bwd_src.packet_launches
         losses[impl] = got
         if impl == "sell":
             want_k1 = 2 * tr.edge_tiles.num_chunks * EDGE_EPOCHS
@@ -2904,17 +2976,21 @@ def phase_edge_features(dev, card):
                      f"{fused.attention.reused} head groups")
             if counts["sell_bwd_src"] == 0 or counts["sell_bwd_dst"] == 0:
                 fail(f"edge features: launches {counts}")
-            # every K2 launch of the block takes the edge steps
+            # every K2 launch of the block takes the edge steps, and every
+            # K4 launch reads K2's compact packets
             if ring != counts["sell_bwd_dst"]:
                 fail(f"edge features: {ring} of {counts['sell_bwd_dst']} K2 "
                      f"launches took the edge steps")
+            if packed != counts["sell_bwd_src"]:
+                fail(f"edge features: {packed} of {counts['sell_bwd_src']} "
+                     f"K4 launches read compact packets")
         tr.epoch += 1
         ms[impl] = cuda_ms(tr.step, reps=2, warmup=1)
         print(f"edge features {impl} ({g.num_nodes} nodes, {g.num_edges} "
               f"edges, 2 layers of 6 x 80, k = 8, remat): launches "
               f"{ {k: v for k, v in counts.items() if v} } (K2 in edge steps "
-              f"{ring}); losses {got}; epoch "
-              f"{ms[impl]:.3f} ms [{card}]")
+              f"{ring}, K4 on compact packets {packed}); losses {got}; "
+              f"epoch {ms[impl]:.3f} ms [{card}]")
         del tr
         torch.cuda.empty_cache()
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses["sell"],

@@ -65,9 +65,23 @@ inline Geometry geometry(int heads, int head_dim, bool aligned) {
   return g;
 }
 
-// The widest per-edge feature vector the edge-feature variants of K1, K2
-// and K4 take (ops/sell_fwd.py MAX_EDGE_DIM).
+// The widest per-edge feature vector the edge-feature variants of K1 and
+// K2 take (ops/sell_fwd.py MAX_EDGE_DIM).
 constexpr int kMaxEdgeDim = 16;
+
+// 32-bit words of one slot's compact packet, which K2 (sell_bwd_dst.cu)
+// writes and K4 (sell_bwd_src.cu) reads: alpha and de per head, then a
+// sign word per lane of a head, rounded up to an even count.
+inline int compact_words(int heads, int lph) {
+  return 2 * heads + ((heads * lph + 1) & ~1);
+}
+
+// Whether a launch's geometry is the one compact packets are laid out in:
+// 16-byte vectors whenever D % 4 == 0, whatever the tables' alignment, so
+// that K2 and K4 agree on the lanes.
+inline bool compact_geometry(const Geometry& g, int head_dim) {
+  return g.vec == (head_dim % 4 == 0 ? 4 : 1);
+}
 
 // Loads an edge's k features (k <= KF, at most kMaxEdgeDim) into
 // registers; every lane of a group reads the same slot, so the loads are
@@ -134,8 +148,8 @@ struct Lane {
   // ring at once: the edge term of the score's pre-activation, from W_e
   // [k][H*D] in shared memory and each edge's k <= KF features f[i]. Each
   // W_e vector is read once for the R edges. Each feature sums its k
-  // products in order, then adds them to x, in K1, K2 and K4 alike, so all
-  // three rebuild the same value.
+  // products in order, then adds them to x, in K1 and K2 alike, so both
+  // build the same value.
   template <int R, int KF>
   __device__ __forceinline__ void add_edge(float (&x)[R][NV * VEC],
                                            const float* __restrict__ sw,

@@ -17,11 +17,12 @@
 // sums per source row into d_zs. On a chunked layout (the TPU kernel's
 // emit_c1=False, one launch per chunk of slices) c1 is null and no packet
 // is written: K4 (sell_bwd_src.cu) recomputes each edge's packet from the
-// source side instead. dzd and d_a are the same numbers either way. Padding
-// slots are left unwritten in c1 (K3 skips them by the same count); in the
-// masked TPU algebra a padding slot of a row with edges adds exp(-80) * r
-// ~ 1e-35 * r, below fp32 resolution, and a row without edges gets exactly
-// 0, which is written directly.
+// source side instead, or, with edge features, reads the compact packet
+// this kernel writes (below). dzd and d_a are the same numbers either way.
+// Padding slots are left unwritten in c1 (K3 skips them by the same
+// count); in the masked TPU algebra a padding slot of a row with edges adds
+// exp(-80) * r ~ 1e-35 * r, below fp32 resolution, and a row without edges
+// gets exactly 0, which is written directly.
 //
 // What bounds it on this card: memory. Each real edge reads one zs row
 // (and, with packets, writes one c1 row) of H*D fp32, against about 15
@@ -91,6 +92,27 @@
 // registers, and a ring of two steps (the next step's loads in flight)
 // 17.33 ms with 484 bytes spilled. In the cell's traced epochs K2 went
 // from 300 to 223 ms a layer.
+//
+// On a chunked layout the edge-feature variant also writes each real
+// slot's compact packet (`compact`: one buffer for the whole layer, which
+// K4 reads through ell_perm), what K4 would otherwise rebuild from the zd
+// row, the features, W_e, sigma and r. A slot's packet is
+// compact_words(H, LPH) words of 32 bits: alpha and de of head h at words
+// 2h and 2h + 1, then one word of the pre-activation's sign bits for each
+// lane of a head (lane gl of the group, gl < H * LPH) at word 2H + gl, bit
+// i set iff the lane's feature i (component i % VEC of its vector i / VEC)
+// has zs + zd + W_e f > 0; the count is rounded up to an even number, so
+// that each (alpha, de) pair is 8-byte aligned. At 6 heads of 80 that is
+// 36 words, 144 bytes a slot. The lanes are those of 16-byte vectors
+// whenever D % 4 == 0 (a launch with packets whose tables are not aligned
+// is refused), so K2 and K4 agree on them. An edge's bits are packed from
+// its pre-activation before that turns into ds in place, and its packet is
+// stored once ds is done: nothing is held across the step. Measured on the
+// chunk above (tools/torch_kernel_variants.py k2e): 13.07 ms with packets
+// against 12.42 for the kernel before them, without; the store before the
+// ds loop took 13.77, the bits packed inside that loop 13.67 (and spilled
+// at 16 features held). In the cell K2 went from 222 to 235 ms a layer and
+// K4 from 168 to 49.
 
 #include <cuda_runtime.h>
 
@@ -176,7 +198,9 @@ __device__ __forceinline__ void load_step(
 // wrapper's one sum over the blocks fixes every rounding. A row's edges go
 // kEdgeStep at a time (the last step short of edges when the count is not a
 // multiple), each taken in edge order: dzd, d_a and each table entry take
-// the same roundings as one edge at a time. Without edge features (KE = 0)
+// the same roundings as one edge at a time. With `compact` (a chunked
+// layout's backward) each real slot's compact packet is written there,
+// at the slot's index times pk_words words. Without edge features (KE = 0)
 // the kernel is the one measured above.
 template <int VEC, int NV, int KE>
 __global__ void __launch_bounds__(kBlock, kMinBlocks<NV * VEC>)
@@ -192,7 +216,8 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const float* __restrict__ ef,
                     const float* __restrict__ we, int k_ef,
                     float* __restrict__ dzd, float* __restrict__ da_part,
-                    float* __restrict__ c1, float* __restrict__ dwe_part) {
+                    float* __restrict__ c1, float* __restrict__ dwe_part,
+                    unsigned* __restrict__ compact, int pk_words) {
   constexpr bool EF = KE > 0;
   constexpr int F = NV * VEC;
   constexpr int R = kRing<F>;
@@ -283,6 +308,11 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
             const float alpha =
                 expf(fminf(fmaxf(sc - sig, kExpClamp), 0.f));
             const float de = alpha * (da_h - r_h);
+            // the compact packet's sign bits, feature f at bit f, taken
+            // before the pre-activation turns into ds
+            unsigned sign = 0u;
+#pragma unroll
+            for (int f = 0; f < F; ++f) sign |= (x[f] > 0.f ? 1u : 0u) << f;
 #pragma unroll
             for (int f = 0; f < F; ++f) {
               const bool pos = x[f] > 0.f;
@@ -290,6 +320,15 @@ sell_bwd_dst_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
               dacc[f] = __fadd_rn(dacc[f], ds);
               da_acc[f] = fmaf(de, pos ? x[f] : slope * x[f], da_acc[f]);
               x[f] = ds;
+            }
+            if (compact != nullptr && own_head) {  // this edge's packet
+              unsigned* p =
+                  compact +
+                  ((size_t)(c0 + G * q + e) * kTileN + r) * pk_words;
+              if ((gl & (lph - 1)) == 0)
+                *reinterpret_cast<float2*>(p + 2 * h) =
+                    make_float2(alpha, de);
+              p[2 * heads + gl] = sign;
             }
             if (emit) {
               float pk[F];  // this edge's packet c1
@@ -407,29 +446,36 @@ extern "C" {
 // ef / we / k / dwe_part: the edge-feature variant (ef [slots, k] in
 // gather_ids' order, we = W_e as [k][H*D], dwe_part [blocks, k, H*D] that
 // each block adds its dW_e partial into); null / 0 for the plain kernel.
+// compact: with edge features, where the launch's compact packets go
+// (compact_words(H, LPH) words a slot, the launch's slot 0 first); null
+// for none.
 int gatv2_sell_bwd_dst(const float* zs, const float* zd, const float* g,
                        const float* sigma, const float* r, const float* a,
                        const int* perm, const int* gather_ids, const int* cnt,
                        const int* col_off, int rows, int heads, int head_dim,
                        float slope, int blocks, const float* ef,
                        const float* we, int k, float* dzd, float* da_part,
-                       float* c1, float* dwe_part, cudaStream_t stream) {
+                       float* c1, float* dwe_part, unsigned* compact,
+                       cudaStream_t stream) {
   const int hd = heads * head_dim;
   if (rows <= 0 || blocks <= 0 || heads <= 0 || heads > kMaxHeads ||
       head_dim <= 0 || hd > kMaxHd || k < 0 || k > kMaxEdgeDim ||
-      (k > 0) != (ef != nullptr) || (k > 0) != (dwe_part != nullptr))
+      (k > 0) != (ef != nullptr) || (k > 0) != (dwe_part != nullptr) ||
+      (compact != nullptr && k == 0))
     return (int)cudaErrorInvalidValue;
   const Geometry geo = geometry(
       heads, head_dim,
       aligned16(zs) && aligned16(zd) && aligned16(g) && aligned16(a) &&
           aligned16(dzd) && (c1 == nullptr || aligned16(c1)));
+  if (compact != nullptr && !compact_geometry(geo, head_dim))
+    return (int)cudaErrorInvalidValue;
   if (k == 0)
     return dispatch(geo, [&](auto vec, auto nv) {
       sell_bwd_dst_kernel<decltype(vec)::value, decltype(nv)::value, 0>
           <<<blocks, kBlock, 0, stream>>>(
               zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, rows,
               heads, head_dim, geo.lg, geo.lph, geo.qph, slope, nullptr,
-              nullptr, 0, dzd, da_part, c1, nullptr);
+              nullptr, 0, dzd, da_part, c1, nullptr, nullptr, 0);
       return (int)cudaGetLastError();
     });
   // W_e and one dW_e table per lane group
@@ -444,7 +490,7 @@ int gatv2_sell_bwd_dst(const float* zs, const float* zd, const float* g,
     kernel<<<blocks, kBlock, smem, stream>>>(
         zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, rows, heads,
         head_dim, geo.lg, geo.lph, geo.qph, slope, ef, we, k, dzd, da_part,
-        c1, dwe_part);
+        c1, dwe_part, compact, compact_words(heads, geo.lph));
     return (int)cudaGetLastError();
   };
   return dispatch_edge(geo, [&](auto vec, auto nv) {

@@ -1,5 +1,6 @@
 // K4 — the SELL-128 GATv2 attention backward, phase 2b (source rows of a
-// chunked layout): d_zs by per-edge recompute, for NVIDIA Hopper (sm_90a).
+// chunked layout): d_zs by per-edge recompute, or with edge features from
+// K2's compact packets, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the TPU kernel gatv2_tpu/ops/sell_attention.py:_sell_bwd_src_kernel
 // (launched by _sell_bwd_src). It computes the same function: for every
@@ -60,10 +61,18 @@
 // of that shape (tools/torch_kernel_variants.py): the kernel is within
 // 1.10-1.14x of what the memory system delivers for its access pattern.
 //
-// The edge-feature variant (EF, below) rebuilds each score with W_e f as
-// K1 does, over a ring of two slots that share each W_e read from shared
-// memory: 205 -> 169 ms a layer on ogbn-proteins (79.1 M edges, H*D = 480,
-// one block of 251 registers an SM).
+// With edge features the rebuild would also read each edge's features and
+// W_e from shared memory: the variant that did (a ring of two slots
+// sharing each W_e read, as K1) took 169 ms a layer on ogbn-proteins
+// (79.1 M edges, H*D = 480) at one block of 251 registers an SM. So there
+// K2 writes each edge's compact packet (alpha and de per head, the
+// pre-activation's sign bits; sell_bwd_dst.cu) and the compact variant
+// (PK, below) reads it instead:
+//     dzs[j] += alpha * g[dst] + de * a_h * (sign ? 1 : slope)
+// from one g row and one packet an edge, found through ell_perm (the
+// slot's packet index), with no zs, zd, sigma, r, features or W_e. alpha
+// and de are K2's own numbers, which the rebuild gave to the bit (the same
+// sums in the same order), and each row's sum keeps the column order.
 
 #include <cuda_runtime.h>
 
@@ -92,17 +101,27 @@ template <int F>
 constexpr int kRing = F <= 4 ? 4 : F <= 8 ? 2 : 1;
 template <int F>
 constexpr int kMinBlocks = F <= 8 ? 3 : F <= 16 ? 2 : 1;
-// The edge-feature variant's ring: two slots, so that each W_e vector read
-// from shared memory serves both (as in K1).
-constexpr int kRingEdge = 2;
+// The compact variant's ring and register budget: a slot holds one g row,
+// its packet's alpha, de and sign word, and the next slot's ids. On one
+// chunk's worth of the ogbn-proteins cell's source rows
+// (tools/torch_kernel_variants.py k4e; NVIDIA H100 80GB HBM3, 700.00 W)
+// ring 2 at 2 blocks took 2.69 ms (128 registers) against 9.40 for the
+// rebuild and 2.51 for a bare gather of one g row a slot; ring 4 at 1 block
+// 2.75; ring 1 at 3 blocks, ring 3 at 2 and ring 2 at 3 spilled (2.72,
+// 3.17, 5.02 ms). In the cell K4 went from 168 to 49 ms a layer. Lanes of
+// more than 24 floats keep the ring at one block an SM, where 2 spilled.
+constexpr int kRingCompact = 2;
+template <int F>
+constexpr int kMinBlocksCompact = F <= 24 ? 2 : 1;
 
-// EF: the edge-feature variant. Each slot's k features (ef, the source
-// side's table in the slot order of gather_ids) enter the rebuilt score as
-// W_e f, W_e laid out [k][H*D] (we) and read once per block into shared
-// memory, exactly as K1 and K2 build it. Without EF the kernel is the one
+// PK: the compact variant, which reads each real slot's compact packet
+// (compact, pk_words words a slot, sell_bwd_dst.cu) at the index ell_perm
+// gives the slot (ell_perm in the slot order of gather_ids), and reads
+// neither zs, zd, sigma, r nor perm. Without PK the kernel is the one
 // measured above.
-template <int VEC, int NV, bool EF>
-__global__ void __launch_bounds__(kBlock, kMinBlocks<NV * VEC>)
+template <int VEC, int NV, bool PK>
+__global__ void __launch_bounds__(kBlock, PK ? kMinBlocksCompact<NV * VEC>
+                                             : kMinBlocks<NV * VEC>)
 sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const float* __restrict__ g,
                     const float* __restrict__ sigma,
@@ -112,13 +131,11 @@ sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
                     const int* __restrict__ cnt,
                     const int* __restrict__ col_off, int rows, int heads,
                     int head_dim, int lg, int lph, int qph, float slope,
-                    const float* __restrict__ ef,
-                    const float* __restrict__ we, int k_ef,
+                    const unsigned* __restrict__ compact,
+                    const int* __restrict__ ell_perm, int pk_words,
                     float* __restrict__ dzs) {
   constexpr int F = NV * VEC;
-  constexpr int R = EF ? kRingEdge : kRing<F>;
-  extern __shared__ __align__(16) float s_we[];  // EF: W_e [k][H*D]
-  if constexpr (EF) load_edge_weights(s_we, we, k_ef * heads * head_dim);
+  constexpr int R = PK ? kRingCompact : kRing<F>;
   const int lane = threadIdx.x & 31;
   const int rows_per_warp = 32 / lg;
   const int row = ((blockIdx.x * kBlock + threadIdx.x) >> 5) * rows_per_warp +
@@ -140,19 +157,59 @@ sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
   float acc[F];
 #pragma unroll
   for (int f = 0; f < F; ++f) acc[f] = 0.f;
-  if (deg > 0) {
+  if constexpr (PK) {
+    if (deg > 0) {
+      float av[F];
+      ln.load(av, a);
+      const int* ids = gather_ids + (size_t)c0 * kTileN + r;  // column k
+      const int* pks = ell_perm + (size_t)c0 * kTileN + r;
+      int id[R], pi[R];  // the next R slots' dst ids and packet indices
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        id[i] = i < deg ? __ldg(ids + i * kTileN) : 0;
+        pi[i] = i < deg ? __ldg(pks + i * kTileN) : 0;
+      }
+      for (int k0 = 0; k0 < deg; k0 += R) {
+        float gv[R][F], al[R], de[R];
+        unsigned sg[R];
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const bool real = k0 + i < deg;
+          if (real) ln.load(gv[i], g + (size_t)id[i] * hd, true);
+          const unsigned* p = compact + (size_t)pi[i] * pk_words;
+          const float2 t =
+              real && own_head ? __ldg(reinterpret_cast<const float2*>(p) + h)
+                               : make_float2(0.f, 0.f);
+          al[i] = t.x;
+          de[i] = t.y;
+          sg[i] = real && own_head ? __ldg(p + 2 * heads + gl) : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const int k = k0 + R + i;
+          id[i] = k < deg ? __ldg(ids + (size_t)k * kTileN) : 0;
+          pi[i] = k < deg ? __ldg(pks + (size_t)k * kTileN) : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          if (k0 + i >= deg) break;  // group-uniform
+#pragma unroll
+          for (int f = 0; f < F; ++f)
+            acc[f] += al[i] * gv[i][f] +
+                      de[i] * av[f] * ((sg[i] >> f) & 1u ? 1.f : slope);
+        }
+      }
+    }
+  } else if (deg > 0) {
     float z[F], av[F];  // the row's resident zs, and a
     ln.load(z, zs + (size_t)perm[row] * hd);
     ln.load(av, a);
     const int* ids = gather_ids + (size_t)c0 * kTileN + r;  // column k: k*128
-    // EF: the slot's features, column k at efs + k*128*k_ef
-    const float* efs = EF ? ef + ((size_t)c0 * kTileN + r) * k_ef : nullptr;
     int id[R];
 #pragma unroll
     for (int i = 0; i < R; ++i) id[i] = i < deg ? __ldg(ids + i * kTileN) : 0;
     for (int k0 = 0; k0 < deg; k0 += R) {
       float zdv[R][F], gv[R][F], sg[R], rv[R];
-      float fe[R][kMaxEdgeDim];
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         const bool real = k0 + i < deg;
@@ -160,9 +217,6 @@ sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
         if (real) {
           ln.load(zdv[i], zd + base, true);  // read once: evict-first
           ln.load(gv[i], g + base, true);
-          if constexpr (EF)
-            load_edge_feats(fe[i], efs + (size_t)(k0 + i) * kTileN * k_ef,
-                            k_ef);
         }
         sg[i] = real && own_head ? __ldg(sigma + (size_t)id[i] * heads + h)
                                  : 0.f;
@@ -174,35 +228,9 @@ sell_bwd_src_kernel(const float* __restrict__ zs, const float* __restrict__ zd,
         const int k = k0 + R + i;
         id[i] = k < deg ? __ldg(ids + (size_t)k * kTileN) : 0;
       }
-      float pre[R][F];  // EF: the ring's pre-activations
-      if constexpr (EF) {
-#pragma unroll
-        for (int i = 0; i < R; ++i)
-#pragma unroll
-          for (int f = 0; f < F; ++f) pre[i][f] = z[f] + zdv[i][f];
-        ln.add_edge(pre, s_we, fe, k_ef, hd);  // slots past deg unread
-      }
 #pragma unroll
       for (int i = 0; i < R; ++i) {
         if (k0 + i >= deg) break;  // group-uniform
-        if constexpr (EF) {
-          float sc = 0.f, dal = 0.f;
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-            sc += av[f] * (pre[i][f] > 0.f ? pre[i][f] : slope * pre[i][f]);
-            dal += gv[i][f] * z[f];
-          }
-          sc = head_sum(sc, lph, mask);
-          dal = head_sum(dal, lph, mask);
-          const float alpha =
-              expf(fminf(fmaxf(sc - sg[i], kExpClamp), 0.f));
-          const float de = alpha * (dal - rv[i]);
-#pragma unroll
-          for (int f = 0; f < F; ++f)
-            acc[f] += alpha * gv[i][f] +
-                      de * av[f] * (pre[i][f] > 0.f ? 1.f : slope);
-          continue;
-        }
         float sc = 0.f, dal = 0.f;
 #pragma unroll
         for (int f = 0; f < F; ++f) {
@@ -231,25 +259,27 @@ extern "C" {
 
 // Launches K4 on `stream` for `rows` virtual source rows of one chunk (a
 // multiple of 128). Returns the cudaError_t of the launch (0 on success).
-// ef / we / k: the edge-feature variant (ef [slots, k] in gather_ids'
-// order, we = W_e as [k][H*D]); null / 0 for the plain kernel.
+// compact / ell_perm: the compact variant (compact: K2's packets of the
+// layer, compact_words(H, LPH) words a slot; ell_perm [slots] in
+// gather_ids' order: each slot's packet index), which reads neither zs,
+// zd, sigma, r nor perm; null for the plain kernel.
 int gatv2_sell_bwd_src(const float* zs, const float* zd, const float* g,
                        const float* sigma, const float* r, const float* a,
                        const int* perm, const int* gather_ids, const int* cnt,
                        const int* col_off, int rows, int heads, int head_dim,
-                       float slope, const float* ef, const float* we, int k,
-                       float* dzs, cudaStream_t stream) {
+                       float slope, const unsigned* compact,
+                       const int* ell_perm, float* dzs, cudaStream_t stream) {
   const int hd = heads * head_dim;
   if (rows <= 0 || heads <= 0 || heads > kMaxHeads || head_dim <= 0 ||
-      hd > kMaxHd || k < 0 || k > kMaxEdgeDim || (k > 0) != (ef != nullptr))
+      hd > kMaxHd || (compact != nullptr) != (ell_perm != nullptr))
     return (int)cudaErrorInvalidValue;
-  const Geometry geo = geometry(
-      heads, head_dim,
-      aligned16(zs) && aligned16(zd) && aligned16(g) && aligned16(a) &&
-          aligned16(dzs));
+  const Geometry geo =
+      geometry(heads, head_dim,
+               aligned16(g) && aligned16(a) && aligned16(dzs) &&
+                   (compact != nullptr || (aligned16(zs) && aligned16(zd))));
   const int rows_per_block = kBlock / 32 * (32 / geo.lg);
   const int blocks = (rows + rows_per_block - 1) / rows_per_block;
-  if (k == 0)
+  if (compact == nullptr)
     return dispatch(geo, [&](auto vec, auto nv) {
       sell_bwd_src_kernel<decltype(vec)::value, decltype(nv)::value, false>
           <<<blocks, kBlock, 0, stream>>>(
@@ -258,12 +288,13 @@ int gatv2_sell_bwd_src(const float* zs, const float* zd, const float* g,
               nullptr, 0, dzs);
       return (int)cudaGetLastError();
     });
-  const size_t smem = sizeof(float) * (size_t)k * hd;
+  if (!compact_geometry(geo, head_dim)) return (int)cudaErrorInvalidValue;
   return dispatch_edge(geo, [&](auto vec, auto nv) {
     sell_bwd_src_kernel<decltype(vec)::value, decltype(nv)::value, true>
-        <<<blocks, kBlock, smem, stream>>>(
+        <<<blocks, kBlock, 0, stream>>>(
             zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, rows,
-            heads, head_dim, geo.lg, geo.lph, geo.qph, slope, ef, we, k, dzs);
+            heads, head_dim, geo.lg, geo.lph, geo.qph, slope, compact,
+            ell_perm, compact_words(heads, geo.lph), dzs);
     return (int)cudaGetLastError();
   });
 }

@@ -28,7 +28,11 @@ over the dst rows, which writes one packet per edge, and K3
 (ops/sell_segsum.py), which sums the packets per src row. On a chunked one
 it runs K2 once per dst chunk without packets, then K4 (ops/sell_bwd_src.py)
 once per src chunk, which rebuilds each edge's packet from the dst side's
-node-order tables: no edge-space buffer is held.
+node-order tables: no edge-space buffer is held. With edge features K2
+writes each edge's compact packet instead (alpha and de per head, the
+pre-activation's signs: 144 bytes at 6 heads of 80), one buffer for the
+head group's chunks, and K4 reads it through the layout's ell_perm in
+place of the rebuild.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 
 from gatv2_tpu_torch.ops import fused
 from gatv2_tpu_torch.ops.segment import SOFTMAX_EPS, segment_max, segment_sum
-from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst
+from gatv2_tpu_torch.ops.sell_bwd_dst import compact_buffer, sell_bwd_dst
 from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src
 from gatv2_tpu_torch.ops.sell_fwd import (
     MAX_HD,
@@ -99,8 +103,9 @@ class _SellSide:
 
 @dataclasses.dataclass(frozen=True)
 class _EdgeSellSide(_SellSide):
-    """A side that carries each slot's edge features (prepare_sell_tiles
-    with edge_features); a layout without them has plain _SellSides.
+    """A dst side that carries each slot's edge features
+    (prepare_sell_tiles with edge_features); a layout without them, and
+    every src side, has plain _SellSides.
 
     edge_feat   [G, Ec, k] fp32 — each slot's edge features, in the slot
                 order of ids_grp, zeros in padding slots.
@@ -118,7 +123,10 @@ class SellTiles:
     srcs      — out-degree-sorted slices over source nodes (streams dst
                 ids): the backward's d_zs.
     ell_perm  [e2_ell] — src-ELL slot -> dst-ELL slot of the same edge;
-                padding -> e_ell (dummy when num_chunks > 1).
+                padding -> e_ell. Chunked with edge features, [G, Ec_src]:
+                src chunk c's slot -> c_d * Ec_dst + the edge's slot in its
+                dst chunk c_d, the row of K2's compact packets (padding ->
+                G * Ec_dst); a dummy [1] on other chunked layouts.
     """
 
     dst: _SellSide
@@ -391,22 +399,42 @@ def _with_edge_features(side: _SellSide, slot: np.ndarray,
                         feats: np.ndarray) -> _EdgeSellSide:
     """`side` with its per-slot edge features [G, Ec, k] in the slot order
     of its ids_grp: feats [E, k] in this side's edge order (the order
-    `slot` gives each edge's ELL slot in), zeros in padding slots. Chunk k
-    holds the flat layout's columns from the sum of the earlier chunks'
-    widths (rel_off[:, -1]) on."""
+    `slot` gives each edge's ELL slot in), zeros in padding slots."""
     g, ec = side.ids_grp.shape
     out = np.zeros((g, ec, feats.shape[1]), np.float32)
     if g == 1:
         out[0, slot] = feats
     else:
-        bounds = np.zeros(g + 1, np.int64)
-        np.cumsum(side.rel_off[:, -1].astype(np.int64) * TILE_N,
-                  out=bounds[1:])
-        chunk = np.searchsorted(bounds, slot, side="right") - 1
-        out[chunk, slot - bounds[chunk]] = feats
+        out[_chunk_of(side, slot)] = feats
     return _EdgeSellSide(**{f.name: getattr(side, f.name)
                             for f in dataclasses.fields(side)},
                          edge_feat=out)
+
+
+def _chunk_of(side: _SellSide, slot: np.ndarray):
+    """(chunk, slot within the chunk) of flat ELL slots of a chunked side:
+    chunk c holds the flat layout's columns from the sum of the earlier
+    chunks' widths (rel_off[:, -1]) on."""
+    bounds = np.zeros(side.ids_grp.shape[0] + 1, np.int64)
+    np.cumsum(side.rel_off[:, -1].astype(np.int64) * TILE_N, out=bounds[1:])
+    chunk = np.searchsorted(bounds, slot, side="right") - 1
+    return chunk, slot - bounds[chunk]
+
+
+def _compact_ell_perm(dst, srcs, slot_d, slot_s, order) -> np.ndarray:
+    """A chunked layout's ell_perm [G, Ec_src] (SellTiles): for each src
+    slot, the row of the same edge's compact packet, c_d * Ec_dst + its
+    slot in dst chunk c_d; padding -> G * Ec_dst. slot_d / slot_s: each
+    edge's flat ELL slot in CSR / CSC order, order the CSC permutation."""
+    g, ec_d = dst.ids_grp.shape
+    if g * ec_d >= 2 ** 31:
+        raise ValueError(
+            f"{g} x {ec_d} dst slots exceed the int32 packet index")
+    out = np.full(srcs.ids_grp.shape, g * ec_d, np.int32)
+    chunk_d, within_d = _chunk_of(dst, slot_d[order])
+    chunk_s, within_s = _chunk_of(srcs, slot_s)
+    out[chunk_s, within_s] = chunk_d * ec_d + within_d
+    return out
 
 
 def suggest_num_chunks_sell(
@@ -482,9 +510,10 @@ def prepare_sell_tiles(
     sides' total column and row-slice counts, so that layouts built for
     different edge sets have identical shapes (ValueError if one needs
     more); num_edges is then -1 and pad_overhead 0.0, the same for every
-    layout of the tuple. edge_features [E, k] (CSR edge order): each side
-    carries them per slot (_EdgeSellSide.edge_feat), built under the span
-    layout.edge_features; without them nothing more is built or held."""
+    layout of the tuple. edge_features [E, k] (CSR edge order): the dst
+    side carries them per slot (_EdgeSellSide.edge_feat) and a chunked
+    layout its ell_perm, built under the span layout.edge_features;
+    without them nothing more is built or held."""
     row_ptr = np.asarray(row_ptr, np.int64)
     col_idx = np.asarray(col_idx, np.int32)
     ns = num_nodes if num_src_nodes is None else num_src_nodes
@@ -542,6 +571,13 @@ def prepare_sell_tiles(
             sptr, dst_by_src, ns, node_pad_d, num_chunks,
             fixed=fx_s, split_cap=split_cap, force_split=force_split[1],
         )
+    g = max(1, num_chunks)
+    if g > 1:
+        ell_perm = np.zeros(1, np.int32)  # K3 unused when chunked
+    else:
+        ell_perm = np.full(e2_ell, e_ell, np.int32)
+        if num_edges:
+            ell_perm[slot_s] = slot_d[order]
     if edge_features is not None:
         with span("layout.edge_features"):
             ef = np.asarray(edge_features, np.float32)
@@ -550,14 +586,9 @@ def prepare_sell_tiles(
                     f"edge_features {ef.shape} must be [num_edges="
                     f"{num_edges}, k]")
             dst_side = _with_edge_features(dst_side, slot_d, ef)
-            src_side = _with_edge_features(src_side, slot_s, ef[order])
-    g = max(1, num_chunks)
-    if g > 1:
-        ell_perm = np.zeros(1, np.int32)  # packet path unused when chunked
-    else:
-        ell_perm = np.full(e2_ell, e_ell, np.int32)
-        if num_edges:
-            ell_perm[slot_s] = slot_d[order]
+            if g > 1:
+                ell_perm = _compact_ell_perm(dst_side, src_side, slot_d,
+                                             slot_s, order)
 
     return SellTiles(
         dst=dst_side,
@@ -800,7 +831,9 @@ def _bwd_heads(zs_g, zd_g, g_g, sigma_g, r, a_g, st, negative_slope,
     K3 over the src rows. Chunked: K2 once per dst chunk without packets
     (d_a summed over the chunks in order, dW_e's block partials added in
     launch order), then K4 once per src chunk, which rebuilds each edge's
-    packet from the dst side's node-order tables."""
+    packet from the dst side's node-order tables; with w_e, K2 writes each
+    edge's compact packet into one buffer for the group's chunks and K4
+    reads it through st.ell_perm instead."""
     kw = dict(negative_slope=negative_slope)
     tables = (zs_g, zd_g, g_g, sigma_g, r, a_g)
     if st.num_chunks == 1:
@@ -818,20 +851,28 @@ def _bwd_heads(zs_g, zd_g, g_g, sigma_g, r, a_g, st, negative_slope,
             yield g, (side.perm[g * rows_c: (g + 1) * rows_c],
                       side.ids_grp[g], side.cnt_grp[g], side.rel_off[g])
 
+    compact = None
+    if w_e is not None:
+        ec_d = st.dst.ids_grp.shape[1]
+        compact = compact_buffer(st.num_chunks * ec_d, *a_g.shape,
+                                 dtype=zs_g.dtype, device=zs_g.device)
     dzd_parts, da, dwe_part = [], None, None
     for g, lay in chunks(st.dst, st.spc_dst):
         ekw = _edge_kw(st.dst, g, w_e)
         if w_e is not None:
-            ekw["dwe_part"] = dwe_part
+            ekw.update(dwe_part=dwe_part,
+                       compact=compact[g * ec_d: (g + 1) * ec_d])
         out = sell_bwd_dst(*tables, *lay, emit_c1=False, **ekw, **kw)
         dzd_c, da_c = out[:2]
         if w_e is not None:
             dwe_part = out[3]
         dzd_parts.append(dzd_c)
         da = da_c if da is None else da + da_c
-    dzs_parts = [sell_bwd_src(*tables, *lay, **_edge_kw(st.srcs, g, w_e),
-                              **kw)
-                 for g, lay in chunks(st.srcs, st.spc_src)]
+    dzs_parts = [
+        sell_bwd_src(*tables, *lay, **kw, **({} if compact is None else dict(
+            compact=compact, ell_perm=st.ell_perm[g])))
+        for g, lay in chunks(st.srcs, st.spc_src)]
+    del compact
     dwe = None if w_e is None else _edge_grad(dwe_part, *a_g.shape)
     with span("attn.join"):
         return torch.cat(dzs_parts), torch.cat(dzd_parts), da, dwe

@@ -29,7 +29,12 @@ be compared element for element:
   sum over the real slots of ds (x) f, transposed. The kernel adds each
   block's partial into row P = block of `dwe_part` (zeros when None), so
   launches over the chunks of one layout accumulate in launch order; the
-  twin adds its whole sum into row 0.
+  twin adds its whole sum into row 0. With edge features, `compact`
+  [Ec, words] (compact_buffer) receives each real slot's compact packet,
+  the alpha and de of each head and the sign bits of the pre-activation
+  zs + zd + W_e f, which K4 (ops/sell_bwd_src.py) reads on a chunked
+  layout (csrc/sell_bwd_dst.cu says how they are laid out; unpack_compact
+  reads them back); padding slots' rows are left as they were.
 
 Node-order tables are read through perm only on rows that have an edge, and
 zs only on real slots, so the ids of padding rows and slots (the padded
@@ -59,15 +64,13 @@ BLOCK = 256  # threads per block (csrc/sell_bwd_dst.cu kBlock)
 MAX_BLOCKS = 4096
 
 
-def rows_per_block(num_heads: int, head_dim: int, *tables) -> int:
-    """The rows one kernel block takes at a time: BLOCK threads over lane
-    groups of csrc/lane_groups.cuh's geometry() (vectors of 4 floats when
-    D is a multiple of 4 and every row table is 16-byte aligned, else 1; a
-    power of two of lanes per head, at most 32 lanes a row). The wrapper
-    sizes the grid by it; the kernel's grid-stride loop covers the rows
-    whatever the block count."""
-    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in tables)
-    qph = head_dim // 4 if head_dim % 4 == 0 and aligned else head_dim
+def _geometry(num_heads: int, head_dim: int, aligned: bool):
+    """csrc/lane_groups.cuh's geometry(): (floats a vector, vectors a head,
+    lanes a head, lanes a row). Vectors of 4 floats when D is a multiple
+    of 4 and every row table is 16-byte aligned, else 1; a power of two of
+    lanes per head, at most 32 lanes a row."""
+    vec = 4 if head_dim % 4 == 0 and aligned else 1
+    qph = head_dim // vec
     cap = 1
     while cap * 2 * num_heads <= 32:
         cap *= 2
@@ -77,7 +80,66 @@ def rows_per_block(num_heads: int, head_dim: int, *tables) -> int:
     lanes = 1
     while lanes < num_heads * lph:
         lanes *= 2
-    return BLOCK // lanes
+    return vec, qph, lph, lanes
+
+
+def rows_per_block(num_heads: int, head_dim: int, *tables) -> int:
+    """The rows one kernel block takes at a time: BLOCK threads over lane
+    groups of _geometry. The wrapper sizes the grid by it; the kernel's
+    grid-stride loop covers the rows whatever the block count."""
+    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in tables)
+    return BLOCK // _geometry(num_heads, head_dim, aligned)[3]
+
+
+def compact_layout(num_heads: int, head_dim: int):
+    """(32-bit words a slot, the word [H*D] and the bit [H*D] that hold
+    each feature's sign) of the compact packets (csrc/sell_bwd_dst.cu):
+    alpha and de of head h at words 2h and 2h + 1, then a sign word for
+    each lane of a head, feature (h, q * vec + v) at lane h * lph + q %
+    lph, bit vec * (q // lph) + v, in the geometry of aligned tables."""
+    vec, _, lph, _ = _geometry(num_heads, head_dim, True)
+    words = 2 * num_heads + ((num_heads * lph + 1) & ~1)
+    f = torch.arange(num_heads * head_dim)
+    h, q, v = f // head_dim, f % head_dim // vec, f % vec
+    return words, 2 * num_heads + h * lph + q % lph, vec * (q // lph) + v
+
+
+def compact_buffer(slots: int, num_heads: int, head_dim: int, *,
+                   dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """An uninitialised buffer of `slots` compact packets: int32 words
+    holding fp32 bits for fp32 tables (the kernels' layout), float64
+    values for float64 tables (the twins' float64 chain)."""
+    words = compact_layout(num_heads, head_dim)[0]
+    kind = torch.float64 if dtype == torch.float64 else torch.int32
+    return torch.empty((slots, words), dtype=kind, device=device)
+
+
+def _pack_compact(buf, idx, alpha, de, pos):
+    """Writes rows idx of a compact buffer: alpha, de [n, H] and the
+    pre-activation's signs pos [n, H*D]."""
+    num_heads = alpha.shape[1]
+    words, word, bit = compact_layout(num_heads, pos.shape[1] // num_heads)
+    word, bit = word.to(pos.device), bit.to(pos.device)
+    signs = torch.zeros((pos.shape[0], words - 2 * num_heads),
+                        dtype=torch.int64, device=pos.device)
+    signs.index_add_(1, word - 2 * num_heads, pos.long() << bit)
+    pairs = torch.stack([alpha, de], 2).reshape(-1, 2 * num_heads)
+    if buf.dtype == torch.int32:
+        pairs = pairs.float().contiguous().view(torch.int32)
+        signs = torch.where(signs >= 2 ** 31, signs - 2 ** 32, signs)
+    buf[idx] = torch.cat([pairs.to(buf.dtype), signs.to(buf.dtype)], 1)
+
+
+def unpack_compact(rows, num_heads: int, head_dim: int):
+    """(alpha [n, H], de [n, H], signs [n, H*D] bool) of compact packet
+    rows [n, words] (compact_buffer's int32 or float64)."""
+    _, word, bit = compact_layout(num_heads, head_dim)
+    pairs = rows[:, :2 * num_heads]
+    if rows.dtype == torch.int32:
+        pairs = pairs.contiguous().view(torch.float32)
+    signs = rows[:, word.to(rows.device)].long() & 0xFFFFFFFF
+    pos = (signs >> bit.to(rows.device)) & 1 == 1
+    return pairs[:, 0::2], pairs[:, 1::2], pos
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -85,7 +147,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 def sell_bwd_dst_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
                        col_off, *, negative_slope: float, emit_c1: bool = True,
-                       edge_feat=None, w_e=None, dwe_part=None):
+                       edge_feat=None, w_e=None, dwe_part=None, compact=None):
     """K2's plain PyTorch twin: the masked column-by-column algebra of the
     TPU kernel, every slice at once. Padding slots keep their masked terms
     (alpha = exp(-80) on rows with edges). Runs on any device."""
@@ -128,7 +190,11 @@ def sell_bwd_dst_plain(zs, zd, g, sigma, r, a, perm, gather_ids, cnt,
         sc = sc + torch.where(valid, 0.0, NEG_INF)[:, None]
         alpha = torch.exp(torch.clamp(sc - sig_p[rr], EXP_CLAMP, 0.0))
         dalpha = (gg * z).view(-1, num_heads, head_dim).sum(-1)
-        de = (alpha * (dalpha - r_p[rr])).repeat_interleave(head_dim, 1)
+        de_h = alpha * (dalpha - r_p[rr])
+        if compact is not None:
+            _pack_compact(compact, slot[valid], alpha[valid], de_h[valid],
+                          (s > 0)[valid])
+        de = de_h.repeat_interleave(head_dim, 1)
         ds = de * a_flat * torch.where(s > 0, 1.0, negative_slope)
         dzd[rr] = dzd[rr] + ds
         da = da + (de * s_act).sum(0)
@@ -193,20 +259,45 @@ def _check(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
         )
 
 
+def check_compact(compact, a, kernel, *tables):
+    """ValueError unless `compact` is a contiguous int32 buffer of compact
+    packets of a's heads on a's device (compact_buffer) and, where the
+    packets' lanes take 16-byte vectors (D % 4 == 0), every row table is
+    16-byte aligned, as the kernels lay the packets out."""
+    num_heads, head_dim = a.shape
+    words = compact_layout(num_heads, head_dim)[0]
+    if compact.device != a.device or compact.dtype != torch.int32 \
+            or not compact.is_contiguous() or compact.dim() != 2 \
+            or compact.shape[1] != words or compact.data_ptr() % 8:
+        raise ValueError(
+            f"{kernel}: compact must be a contiguous, 8-byte aligned int32 "
+            f"[slots, {words}] on {a.device}, got {compact.dtype} "
+            f"{tuple(compact.shape)}")
+    if head_dim % 4 == 0 and any(t.data_ptr() % 16 for t in tables):
+        raise ValueError(
+            f"{kernel}: compact packets need 16-byte aligned row tables")
+
+
 def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
                  negative_slope: float, emit_c1: bool = True, edge_feat=None,
-                 w_e=None, dwe_part=None):
+                 w_e=None, dwe_part=None, compact=None):
     """K2. On CUDA tensors it launches csrc/sell_bwd_dst.cu (building it at
     the first call) or raises; on CPU tensors it runs sell_bwd_dst_plain.
     Returns (dzd, da, c1), and with edge_feat and w_e (the kernel's
     edge-feature variant) (dzd, da, c1, dwe_part), as described in the
-    module docstring."""
+    module docstring; with `compact` (edge features only) it also writes
+    the launch's compact packets there."""
     check_edge(edge_feat, w_e, a, gather_ids, "sell_bwd_dst")
+    if compact is not None and (
+            edge_feat is None or compact.shape[0] != gather_ids.numel()):
+        raise ValueError(
+            "sell_bwd_dst: compact packets need edge features and one row "
+            f"a slot ({gather_ids.numel()}), got {tuple(compact.shape)}")
     if zs.device.type == "cpu":
         return sell_bwd_dst_plain(
             zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off,
             negative_slope=negative_slope, emit_c1=emit_c1,
-            edge_feat=edge_feat, w_e=w_e, dwe_part=dwe_part,
+            edge_feat=edge_feat, w_e=w_e, dwe_part=dwe_part, compact=compact,
         )
     if zs.device.type != "cuda":
         raise ValueError(f"sell_bwd_dst: unsupported device {zs.device}")
@@ -228,8 +319,10 @@ def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
     lib = load_library("sell_bwd_dst")
     fn = lib.gatv2_sell_bwd_dst
     fn.argtypes = ([_P] * 10 + [_I] * 3 + [ctypes.c_float, _I] + [_P] * 2
-                   + [_I] + [_P] * 5)
+                   + [_I] + [_P] * 6)
     fn.restype = _I
+    if compact is not None:
+        check_compact(compact, a, "sell_bwd_dst", zs, zd, g, a, dzd)
     per_block = rows_per_block(num_heads, head_dim, zs, zd, g, a, dzd, c1)
     blocks = min(-(-rows // per_block), MAX_BLOCKS)
     da_part = zs.new_empty((blocks, hd))
@@ -250,7 +343,8 @@ def sell_bwd_dst(zs, zd, g, sigma, r, a, perm, gather_ids, cnt, col_off, *,
             float(negative_slope), blocks, ef,
             None if wt is None else wt.data_ptr(), k, dzd.data_ptr(),
             da_part.data_ptr(), c1.data_ptr() if emit_c1 else None,
-            None if ef is None else dwe_part.data_ptr(), stream,
+            None if ef is None else dwe_part.data_ptr(),
+            None if compact is None else compact.data_ptr(), stream,
         )
     if err != 0:
         lib.gatv2_cuda_error_string.restype = ctypes.c_char_p

@@ -248,6 +248,214 @@ def test_k2_edge_ring_counter_stays_zero_on_the_cpu():
     assert sell_bwd_dst.edge_ring_launches == 0
 
 
+TILE = 128
+
+
+def _slot_edges(side, spc, c, n_opp):
+    """(flat slot [m], row [m], this side's node [m], opposite node [m]) of
+    the real slots of chunk c of a SELL side, slots in column order."""
+    cnt, col_off = side.cnt_grp[c].astype(np.int64), side.rel_off[c]
+    ids = side.ids_grp[c]
+    real = np.arange(TILE)[None, :] < cnt[:, None]
+    slot = np.nonzero(real.reshape(-1))[0]
+    col, lane = slot // TILE, slot % TILE
+    row = (np.searchsorted(col_off[1:], col, side="right") * TILE + lane)
+    node = side.perm[c * spc * TILE + row]
+    assert (ids[slot] < n_opp).all()
+    return slot, row, node, ids[slot]
+
+
+# (chunks, split cap, in-degrees of the first nodes): chunk boundaries,
+# split rows and rows of 0-3 edges beside padding slots
+COMPACT_CASES = [(2, 256, ()), (3, 256, (1, 2, 3, 0, 1, 3, 5)),
+                 (3, 8, ()), (3, 8, (1, 2, 3, 0, 1, 3, 5))]
+
+
+@pytest.mark.parametrize("chunks,cap,few", COMPACT_CASES)
+def test_compact_packets_hold_the_recompute(chunks, cap, few):
+    """K2's twin on every dst chunk of a chunked layout writes each real
+    slot's compact packet (alpha and de per head, the pre-activation's
+    signs); K4's twin on every src chunk reads them through ell_perm. Both
+    against the recompute K4 did before (each edge's score rebuilt from
+    zs, zd, W_e f, sigma and r), in fp32 and in float64: the packets' alpha
+    and de to fp32 rounding, every sign equal wherever the float64
+    pre-activation lies further than 1e-5 from 0, and each src row's dzs
+    within 1e-5 of its largest value of the fp32 recompute and 1e-5 of the
+    float64 one."""
+    from gatv2_tpu_torch.ops import sell_bwd_dst as k2
+    from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src
+
+    g = _graph(seed=21, few=few)
+    st = tsa.prepare_sell_tiles(g.row_ptr, g.col_idx, N, num_chunks=chunks,
+                                split_cap=cap, edge_features=g.edge_features)
+    assert st.num_chunks == chunks and st.dst.split == (cap == 8)
+    rng = np.random.default_rng(4)
+    h, d = 2, 12
+    hd = h * d
+
+    def rand(*shape, scale=1.0):
+        return torch.tensor(scale * rng.standard_normal(shape),
+                            dtype=torch.float32)
+
+    zs, zd, gr = rand(N, hd), rand(N, hd), rand(N, hd)
+    a, w_e = rand(h, d), rand(h, d, K, scale=0.3)
+    stt = st.to("cpu")
+    out, sigma = tsa.sell_forward(zs, zd, a, N, negative_slope=0.2,
+                                  sell_tiles=stt, w_e=w_e)
+    r = (gr * out).view(N, h, d).sum(-1)
+    tables = (zs, zd, gr, sigma, r, a)
+    ec_d = st.dst.ids_grp.shape[1]
+    compact = k2.compact_buffer(chunks * ec_d, h, d)
+    rows_c = st.spc_dst * TILE
+    for c in range(chunks):
+        side = stt.dst
+        k2.sell_bwd_dst(*tables, side.perm[c * rows_c: (c + 1) * rows_c],
+                        side.ids_grp[c], side.cnt_grp[c], side.rel_off[c],
+                        negative_slope=0.2, emit_c1=False,
+                        edge_feat=side.edge_feat[c], w_e=w_e,
+                        compact=compact[c * ec_d: (c + 1) * ec_d])
+
+    def recompute(dt):
+        """Per dst slot: (packet row, src, alpha, de, pre-activation), by
+        the edge list in dtype dt."""
+        cols = []
+        for c in range(chunks):
+            slot, _, dst, src = _slot_edges(st.dst, st.spc_dst, c, N)
+            f = torch.tensor(st.dst.edge_feat[c][slot]).to(dt)
+            s = (zs.to(dt)[src] + zd.to(dt)[dst]
+                 + f @ w_e.to(dt).reshape(-1, K).T)
+            s_act = torch.where(s > 0, s, 0.2 * s)
+            sc = (s_act.view(-1, h, d) * a.to(dt)).sum(-1)
+            alpha = torch.exp(torch.clamp(sc - sigma.to(dt)[dst], -80.0,
+                                          0.0))
+            dal = (gr.to(dt)[dst] * zs.to(dt)[src]).view(-1, h, d).sum(-1)
+            de = alpha * (dal - r.to(dt)[dst])
+            cols.append((torch.tensor(slot + c * ec_d), torch.tensor(src),
+                         torch.tensor(dst), alpha, de, s))
+        return [torch.cat(x) for x in zip(*cols)]
+
+    rows, src, dst, alpha, de, pre = recompute(torch.float32)
+    *_, alpha64, de64, pre64 = recompute(torch.float64)
+    got_a, got_de, got_pos = k2.unpack_compact(compact[rows], h, d)
+    assert float((got_a.double() - alpha64).abs().max()) <= 1e-5
+    assert float((alpha.double() - alpha64).abs().max()) <= 1e-5
+    scale = float(de64.abs().max())
+    assert float((got_de.double() - de64).abs().max()) <= 1e-5 * scale
+    sure = pre64.abs() > 1e-5
+    assert bool(sure.float().mean() > 0.99)
+    assert torch.equal(got_pos[sure], (pre64 > 0)[sure])
+    # dzs: K4's twin on the packets against the recompute's edge sums
+    rows_s = st.spc_src * TILE
+    ep = stt.ell_perm
+    for dt, al, de_, s in ((torch.float32, alpha, de, pre),
+                           (torch.float64, alpha64, de64, pre64)):
+        c1 = (al.repeat_interleave(d, 1) * gr.to(dt)[dst]
+              + de_.repeat_interleave(d, 1) * a.to(dt).reshape(hd)
+              * torch.where(s > 0, 1.0, 0.2))
+        want = torch.zeros(N, hd, dtype=dt).index_add_(0, src, c1)
+        got = torch.zeros(N, hd, dtype=torch.float64)
+        for c in range(chunks):
+            side = stt.srcs
+            dzs = sell_bwd_src(
+                *tables, side.perm[c * rows_s: (c + 1) * rows_s],
+                side.ids_grp[c], side.cnt_grp[c], side.rel_off[c],
+                negative_slope=0.2, compact=compact, ell_perm=ep[c])
+            perm = side.perm[c * rows_s: (c + 1) * rows_s].long()
+            keep = perm < N
+            got.index_add_(0, perm[keep], dzs[keep].double())
+        err = (got - want.double()).abs()
+        row_scale = want.double().abs().amax(1, keepdim=True)
+        assert bool((err <= 1e-5 * row_scale + 1e-6).all()), dt
+
+
+@pytest.mark.parametrize("cap", [256, 8])
+def test_chunked_ell_perm_follows_the_csc_order(cap):
+    """On a chunked layout with edge features, ell_perm [G, Ec_src] takes
+    each src slot to the row of the same edge's compact packet, chunk *
+    Ec_dst + its dst slot: the dst slot holds the src row's node and sits
+    in a row of the src slot's destination, and each source's slots, in
+    column order over its virtual rows, list its edges in the CSC order
+    (CSR order among the edges of one source), with their features.
+    Padding slots point one past the packets; no src side carries edge
+    features any more."""
+    g = _graph(seed=23, few=(1, 2, 3, 0, 5))
+    chunks = 3
+    st = tsa.prepare_sell_tiles(g.row_ptr, g.col_idx, N, num_chunks=chunks,
+                                split_cap=cap, edge_features=g.edge_features)
+    g_d, ec_d = st.dst.ids_grp.shape
+    assert st.ell_perm.shape == st.srcs.ids_grp.shape
+    assert not isinstance(st.srcs, tsa._EdgeSellSide)
+    dst_of_row = {c: st.dst.perm[c * st.spc_dst * TILE:
+                                 (c + 1) * st.spc_dst * TILE]
+                  for c in range(chunks)}
+    seen = {}
+    for c in range(chunks):
+        slot, row, src, dst = _slot_edges(st.srcs, st.spc_src, c, N)
+        p = st.ell_perm[c][slot].astype(np.int64)
+        cd, sd = p // ec_d, p % ec_d
+        assert (cd < g_d).all()
+        assert (st.dst.ids_grp[cd, sd] == src).all()
+        col = sd // TILE
+        drow = np.array([np.searchsorted(st.dst.rel_off[x][1:], y,
+                                         side="right")
+                         for x, y in zip(cd, col)]) * TILE + sd % TILE
+        assert (np.array([dst_of_row[x][y] for x, y in zip(cd, drow)])
+                == dst).all()
+        pad = np.ones(st.ell_perm.shape[1], bool)
+        pad[slot] = False
+        assert (st.ell_perm[c][pad] == g_d * ec_d).all()
+        feats = st.dst.edge_feat[cd, sd]
+        for s_, r_, k_, d_, f_ in zip(src, row, slot // TILE, dst, feats):
+            seen.setdefault((int(s_), c, int(r_)), []).append(
+                (int(k_), int(d_), tuple(f_.tolist())))
+    # each (virtual) row of a source, in column order, holds a run of its
+    # edges in CSC order starting at a multiple of the split cap
+    runs = {}
+    for (s_, _, _), slots in seen.items():
+        runs.setdefault(s_, []).append([x[1:] for x in sorted(slots)])
+    csr_dst = np.repeat(np.arange(N), np.diff(g.row_ptr))
+    for s_ in range(N):
+        mine = np.nonzero(g.col_idx == s_)[0]  # CSC order: CSR order
+        want = [(int(csr_dst[i]), tuple(g.edge_features[i].tolist()))
+                for i in mine]
+        starts = []
+        for run in runs.get(s_, []):
+            j = want.index(run[0])
+            assert j % cap == 0 and want[j: j + len(run)] == run
+            starts.append(j)
+        assert sorted(starts) == list(range(0, len(want), cap))
+
+
+def test_k4_packet_counter_stays_zero_on_the_cpu():
+    """On CPU tensors K4's wrapper runs its twin: neither its launch count
+    nor sell_bwd_src.packet_launches (the kernel's launches that read
+    compact packets) moves, with compact packets or without."""
+    from gatv2_tpu_torch.ops import sell_bwd_dst as k2
+    from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src
+
+    g = _graph()
+    st = tsa.prepare_sell_tiles(g.row_ptr, g.col_idx, N, num_chunks=2,
+                                edge_features=g.edge_features).to("cpu")
+    rng = np.random.default_rng(1)
+    h, d = 2, 4
+    zs, zd, gr = (torch.tensor(rng.standard_normal((N, h * d)),
+                               dtype=torch.float32) for _ in range(3))
+    sigma, r = (torch.tensor(rng.standard_normal((N, h)), dtype=torch.float32)
+                for _ in range(2))
+    a = torch.tensor(rng.standard_normal((h, d)), dtype=torch.float32)
+    compact = k2.compact_buffer(2 * st.dst.ids_grp.shape[1], h, d)
+    compact.zero_()
+    side, rows_s = st.srcs, st.spc_src * TILE
+    args = (zs, zd, gr, sigma, r, a, side.perm[:rows_s], side.ids_grp[0],
+            side.cnt_grp[0], side.rel_off[0])
+    before = (sell_bwd_src.launches, sell_bwd_src.packet_launches)
+    sell_bwd_src(*args, negative_slope=0.2, compact=compact,
+                 ell_perm=st.ell_perm[0])
+    sell_bwd_src(*args, negative_slope=0.2)
+    assert (sell_bwd_src.launches, sell_bwd_src.packet_launches) == before
+    assert sell_bwd_src.packet_launches == 0
+
+
 def test_padding_rows_leave_batchnorm_statistics_unchanged():
     """On the SELL node grid, rows past the real nodes (here filled with
     large values) move neither BatchNorm's statistics nor any gradient:

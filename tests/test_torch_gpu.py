@@ -39,7 +39,12 @@ from gatv2_tpu_torch.ops.pallas_bwd_src import (
 )
 from gatv2_tpu_torch.ops.pallas_fwd import pallas_fwd, pallas_fwd_plain
 from gatv2_tpu_torch.ops.pallas_segsum import pallas_segsum, pallas_segsum_plain
-from gatv2_tpu_torch.ops.sell_bwd_dst import sell_bwd_dst, sell_bwd_dst_plain
+from gatv2_tpu_torch.ops.sell_bwd_dst import (
+    compact_buffer,
+    sell_bwd_dst,
+    sell_bwd_dst_plain,
+    unpack_compact,
+)
 from gatv2_tpu_torch.ops.sell_bwd_src import sell_bwd_src, sell_bwd_src_plain
 from gatv2_tpu_torch.ops.sell_fwd import TILE_N, sell_fwd, sell_fwd_plain
 from gatv2_tpu_torch.ops.sell_segsum import sell_segsum, sell_segsum_plain
@@ -916,6 +921,37 @@ def test_merge_ops_on_the_card_match_the_cpu(cuda, kind):
                                    atol=1e-5, err_msg=name)
 
 
+def _slot_pre64(zs, zd, w_e, ef, lay):
+    """[Ec, H*D] float64 pre-activations zs[src] + zd[dst] + W_e f of a
+    dst chunk's slots (perm, gather ids, cnt, column offsets; padding slots
+    read clamped ids and are not meant to be looked at)."""
+    perm, ids, _, col_off = lay
+    slot = torch.arange(ids.numel(), device=ids.device)
+    col, lane = slot // TILE_N, slot % TILE_N
+    row = torch.searchsorted(col_off[1:].long(), col, right=True) * TILE_N \
+        + lane
+    dst = perm.long()[row.clamp(max=perm.numel() - 1)].clamp(
+        max=zd.shape[0] - 1)
+    src = ids.long().clamp(max=zs.shape[0] - 1)
+    k = w_e.shape[-1]
+    return (zs.double()[src] + zd.double()[dst]
+            + ef.double() @ w_e.double().reshape(-1, k).T)
+
+
+def _compact_close(got, twin, twin64, pre64, heads, head_dim):
+    """Compact packet rows of the kernel, the fp32 twin and the float64
+    twin (the same real slots): alpha and de within _close_f64, and every
+    sign bit equal to the float64 pre-activation's wherever that lies
+    further than 1e-5 from 0 (fp32 rounding of its sum decides the rest)."""
+    a, de, pos = unpack_compact(got, heads, head_dim)
+    a32, de32, _ = unpack_compact(twin, heads, head_dim)
+    a64, de64, pos64 = unpack_compact(twin64, heads, head_dim)
+    sure = pre64.abs() > 1e-5
+    return (_close_f64(a, a32, a64) and _close_f64(de, de32, de64)
+            and all(bool(torch.equal(x[sure], (pre64 > 0)[sure]))
+                    for x in (pos, pos64)))
+
+
 EDGE_CASES = [
     # the edge-feature variants of K1, K2 and K4: the ogbn-proteins width
     # (6 heads of 80, 5 vectors a lane), a narrow width, 4-byte loads (a
@@ -931,9 +967,11 @@ EDGE_CASES = [
 @pytest.mark.parametrize("case,h,d", EDGE_CASES)
 def test_edge_feature_kernels_match_twins(cuda, case, h, d, chunks):
     """With 8-dim edge features, on one and on 3 chunks: K1 per dst chunk,
-    K2 per dst chunk (with packets unchunked, and its dW_e partials added
-    over the chunks) and K4 per src chunk against their twins, each held
-    against float64."""
+    K2 per dst chunk (with packets unchunked, with compact packets
+    chunked, and its dW_e partials added over the chunks) and K4's compact
+    variant per src chunk on K2's compact packets, against their twins,
+    each held against float64; the packets' alpha, de and signs against
+    the twins' (_compact_close)."""
     row_ptr, col_idx, n = _layout(case)
     rng = np.random.default_rng(9)
     e, k = len(col_idx), 8
@@ -959,6 +997,9 @@ def test_edge_feature_kernels_match_twins(cuda, case, h, d, chunks):
     def f64(ts):
         return [t.double() for t in ts]
 
+    ec_d = st.dst.ids_grp.shape[1]
+    compact = [compact_buffer(chunks * ec_d, h, d, dtype=dt, device=cuda)
+               for dt in (torch.float32, torch.float32, torch.float64)]
     part = None
     twin_dwe = twin64 = 0
     for c in range(chunks):
@@ -976,35 +1017,43 @@ def test_edge_feature_kernels_match_twins(cuda, case, h, d, chunks):
         assert _close_by_row(m, w[1], rtol=1e-4, atol=1e-4)
         assert _close_f64(o, w[0], w64[0])
         emit = chunks == 1
+        rows_pk = slice(c * ec_d, (c + 1) * ec_d)
+        pk = [None] * 3 if emit else [x[rows_pk] for x in compact]
         dzd, da, c1, part = sell_bwd_dst(*tables, *lay, negative_slope=SLOPE,
-                                         emit_c1=emit, dwe_part=part, **ekw)
+                                         emit_c1=emit, dwe_part=part,
+                                         compact=pk[0], **ekw)
         wd = sell_bwd_dst_plain(*tables, *lay, negative_slope=SLOPE,
-                                emit_c1=emit, **ekw)
+                                emit_c1=emit, compact=pk[1], **ekw)
         wd64 = sell_bwd_dst_plain(*f64(tables), *lay, negative_slope=SLOPE,
                                   emit_c1=emit,
                                   edge_feat=ekw["edge_feat"].double(),
-                                  w_e=w_e.double())
+                                  w_e=w_e.double(), compact=pk[2])
         torch.cuda.synchronize()
         assert _close_f64(dzd, wd[0], wd64[0])
         assert _close_f64(da, wd[1], wd64[1])
         real = _real_slots(lay[2])
         if emit and bool(real.any()):
             assert _close_f64(c1[real], wd[2][real], wd64[2][real])
+        if not emit and bool(real.any()):
+            pre = _slot_pre64(zs, zd, w_e, ekw["edge_feat"], lay)[real]
+            assert _compact_close(*(x[real] for x in pk), pre, h, d)
         twin_dwe = twin_dwe + wd[3].sum(0)
         twin64 = twin64 + wd64[3].sum(0)
-        if chunks > 1:
-            lay = chunk(st.srcs, st.spc_src, c)
-            ekw = dict(edge_feat=st.srcs.edge_feat[c], w_e=w_e)
-            dzs = sell_bwd_src(*tables, *lay, negative_slope=SLOPE, **ekw)
-            ws = sell_bwd_src_plain(*tables, *lay, negative_slope=SLOPE,
-                                    **ekw)
-            ws64 = sell_bwd_src_plain(*f64(tables), *lay,
-                                      negative_slope=SLOPE,
-                                      edge_feat=ekw["edge_feat"].double(),
-                                      w_e=w_e.double())
-            torch.cuda.synchronize()
-            assert _close_f64(dzs, ws, ws64)
     assert _close_f64(part.sum(0), twin_dwe, twin64)
+    for c in range(chunks if chunks > 1 else 0):
+        lay = chunk(st.srcs, st.spc_src, c)
+        before = (sell_bwd_src.launches, sell_bwd_src.packet_launches)
+        dzs, ws, ws64 = (
+            fn(*ts, *lay, negative_slope=SLOPE, compact=pk,
+               ell_perm=st.ell_perm[c])
+            for fn, ts, pk in ((sell_bwd_src, tables, compact[0]),
+                               (sell_bwd_src_plain, tables, compact[1]),
+                               (sell_bwd_src_plain, f64(tables), compact[2])))
+        torch.cuda.synchronize()
+        assert (sell_bwd_src.launches - before[0],
+                sell_bwd_src.packet_launches - before[1]) == (1, 1)
+        assert _close_f64(dzs, ws, ws64)
+        assert _close_by_row(dzs, ws, rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.gpu
@@ -1041,7 +1090,13 @@ def test_edge_feature_op_matches_torch_path(cuda, chunks):
         (out * up).sum().backward()
         return [out.detach()] + [t.grad for t in x]
 
-    got, want = run("sell"), run("torch")
+    before = (sell_bwd_src.launches, sell_bwd_src.packet_launches)
+    got = run("sell")
+    # every K4 launch of the chunked op reads K2's compact packets
+    k4 = sell_bwd_src.launches - before[0]
+    assert (k4, sell_bwd_src.packet_launches - before[1]) == (
+        (chunks, chunks) if chunks > 1 else (0, 0))
+    want = run("torch")
     for name, a_, b_ in zip(("out", "dzs", "dzd", "da", "dw_e"), got, want):
         scale = float(b_.abs().max())
         assert float((a_ - b_).abs().max()) <= 1e-4 * scale + 1e-5, name
@@ -1061,13 +1116,14 @@ def _small_degrees(n=400, seed=12):
 def test_k2_edge_pairs_on_rows_of_few_edges(cuda, h, d, chunks):
     """K2's edge-feature variant, whose rows go two edges at a time, on
     rows of 0-3 edges (and longer): unchunked with packets, and on 3
-    chunks without them (c1 null). d_a and the summed dW_e partials lie
-    within 1e-4 of the row's largest value of the fp32 twin's; dzd and the
-    packets, as the other edge-feature tests hold them, within 10x the
-    twin's distance from float64: a row of one edge has a true dzd of 0
-    (its softmax has one term), and both sides round de = alpha * (dalpha -
-    r) from two equal numbers, so neither dzd has a scale of its own. A
-    second launch on the same inputs gives the same bits;
+    chunks with compact packets instead (c1 null), which K4 then reads per
+    src chunk. d_a and the summed dW_e partials lie within 1e-4 of the
+    row's largest value of the fp32 twin's; dzd, the packets and dzs, as
+    the other edge-feature tests hold them, within 10x the twin's distance
+    from float64: a row of one edge has a true dzd of 0 (its softmax has
+    one term), and both sides round de = alpha * (dalpha - r) from two
+    equal numbers, so neither dzd has a scale of its own. A second launch
+    on the same inputs gives the same bits, packets included;
     sell_bwd_dst.edge_ring_launches counts each edge-feature launch and no
     plain one."""
     row_ptr, col_idx, n = _small_degrees()
@@ -1088,29 +1144,41 @@ def test_k2_edge_pairs_on_rows_of_few_edges(cuda, h, d, chunks):
     tables = (zs, zd, g, sigma, r, a)
     emit = chunks == 1
     rows_c = st.spc_dst * TILE_N
+    ec_d = st.dst.ids_grp.shape[1]
+    compact = [compact_buffer(chunks * ec_d, h, d, dtype=dt, device=cuda)
+               for dt in (torch.float32, torch.float32, torch.float32,
+                          torch.float64)]
     dwe = twin_dwe = 0
     for c in range(chunks):
         side = st.dst
         lay = (side.perm[c * rows_c: (c + 1) * rows_c], side.ids_grp[c],
                side.cnt_grp[c], side.rel_off[c])
         ekw = dict(edge_feat=side.edge_feat[c], w_e=w_e)
+        pk = [None] * 4 if emit else [x[c * ec_d: (c + 1) * ec_d]
+                                      for x in compact]
         before = (sell_bwd_dst.launches, sell_bwd_dst.edge_ring_launches)
         got = [sell_bwd_dst(*tables, *lay, negative_slope=SLOPE,
-                            emit_c1=emit, **ekw) for _ in range(2)]
+                            emit_c1=emit, compact=pk[i], **ekw)
+               for i in range(2)]
         torch.cuda.synchronize()
         assert (sell_bwd_dst.launches - before[0],
                 sell_bwd_dst.edge_ring_launches - before[1]) == (2, 2)
         twin = sell_bwd_dst_plain(*tables, *lay, negative_slope=SLOPE,
-                                  emit_c1=emit, **ekw)
+                                  emit_c1=emit, compact=pk[2], **ekw)
         twin64 = sell_bwd_dst_plain(*(t.double() for t in tables), *lay,
                                     negative_slope=SLOPE, emit_c1=emit,
                                     edge_feat=ekw["edge_feat"].double(),
-                                    w_e=w_e.double())
+                                    w_e=w_e.double(), compact=pk[3])
         real = _real_slots(lay[2])
         for i in (0, 1, 3):  # dzd, da, the dW_e partials
             assert torch.equal(got[0][i], got[1][i])
         if emit:
             assert torch.equal(got[0][2][real], got[1][2][real])
+        else:
+            assert torch.equal(pk[0][real], pk[1][real])
+            pre = _slot_pre64(zs, zd, w_e, ekw["edge_feat"], lay)[real]
+            assert _compact_close(pk[0][real], pk[2][real], pk[3][real],
+                                  pre, h, d)
         assert _close_f64(got[0][0], twin[0], twin64[0])
         assert _close_by_row(got[0][1], twin[1], rtol=1e-4, atol=1e-5)
         if emit:
@@ -1123,5 +1191,20 @@ def test_k2_edge_pairs_on_rows_of_few_edges(cuda, h, d, chunks):
         torch.cuda.synchronize()
         assert (sell_bwd_dst.launches - before[0],
                 sell_bwd_dst.edge_ring_launches - before[1]) == (1, 0)
+    rows_s = st.spc_src * TILE_N
+    for c in range(chunks if chunks > 1 else 0):
+        side = st.srcs
+        lay = (side.perm[c * rows_s: (c + 1) * rows_s], side.ids_grp[c],
+               side.cnt_grp[c], side.rel_off[c])
+        dzs, ws, ws64 = (
+            fn(*ts, *lay, negative_slope=SLOPE, compact=pk,
+               ell_perm=st.ell_perm[c])
+            for fn, ts, pk in (
+                (sell_bwd_src, tables, compact[0]),
+                (sell_bwd_src_plain, tables, compact[2]),
+                (sell_bwd_src_plain, [t.double() for t in tables],
+                 compact[3])))
+        torch.cuda.synchronize()
+        assert _close_f64(dzs, ws, ws64)
     assert float(twin_dwe.abs().max()) > 0
     assert _close_by_row(dwe, twin_dwe, rtol=1e-4, atol=1e-5)

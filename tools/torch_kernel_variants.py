@@ -39,12 +39,29 @@ chunked backward launches it, beside a bare gather of one zs row per real
 slot; it prints ptxas's registers and spills of each variant's
 edge-feature instantiations at VEC 4, NV 5, and whether each variant's dzd,
 d_a partials and dW_e partials (and, launched with packets, its packets)
-equal the first variant's to the bit. `--against DIR` adds, as that first
-variant, K2 as built from another tree's sources (DIR/gatv2_tpu_torch/csrc,
-for instance an unpacked `git archive` of a parent commit). Needs the card
-and nvcc; the arguments pick kernels (default all but k2e):
+equal the first variant's to the bit; each variant whose source writes
+compact packets is also timed writing them, and its dzd, d_a and dW_e
+partials then must equal its own without them.
 
-    python tools/torch_kernel_variants.py [k1 k2 k2e k4 k5 k6 k7 k8]
+`k4e` times K4's compact variant on one chunk's worth of the cell's
+source rows (7,363 sources of Poisson(597) out-degree, three of them of 1,
+2 and 3 edges, destinations uniform over 132,534 nodes, rows split at 256
+edges), reading the compact packets that K2 as built writes over the
+destination side of the same edges, beside a bare gather of one g row per
+real slot and the floor of a g row and a packet per slot at peak; it
+prints the ring and block count of each variant with ptxas's registers and
+spills at VEC 4, NV 5, and whether each variant's dzs equals the first's
+to the bit.
+
+`--against DIR` adds, as the first variant of k2e and k4e, K2 and K4 as
+built from another tree's sources (DIR/gatv2_tpu_torch/csrc, for instance
+an unpacked `git archive` of a parent commit); a K4 whose source takes no
+compact packets is launched as its edge-feature variant, which rebuilds
+each score from the edge features (laid out in the source side's slot
+order) and W_e. Needs the card and nvcc; the arguments pick kernels
+(default all but k2e and k4e):
+
+    python tools/torch_kernel_variants.py [k1 k2 k2e k4 k4e k5 k6 k7 k8]
         [--against DIR]
 """
 
@@ -139,6 +156,33 @@ K2E_VARIANTS = [
     ("one edge a step", {"kEdgeStep": "1"}),
     ("three edges a step", {"kEdgeStep": "3"}),
     ("16 features held a slot", {"kNarrowEdgeDim": "16"}),
+    # the loop that turns the pre-activations into ds run from the last
+    # feature (the features are independent: the same bits)
+    ("ds loop from the last feature",
+     {"code": (r"(#pragma unroll\n            )for \(int f = 0; f < F; \+\+f\) "
+               r"\{\n              const bool pos = x\[f\] > 0.f;\n"
+               r"              const float ds = de",
+               r"\g<1>for (int f = F - 1; f >= 0; --f) {\n"
+               r"              const bool pos = x[f] > 0.f;\n"
+               r"              const float ds = de")}),
+    # the packet stored before that loop, as soon as its signs are taken
+    ("packet stored before the ds loop",
+     {"code": (r"(            unsigned sign = 0u;\n#pragma unroll\n"
+               r"            for \(int f = 0; f < F; \+\+f\) sign \|= "
+               r"[^\n]*\n)(.*?\n            \}\n)"
+               r"(            if \(compact != nullptr && own_head\) \{.*?"
+               r"\n            \}\n)",
+               r"\g<1>\g<3>\g<2>")}),
+]
+# (ring of slots in flight, blocks per SM the register budget is cut for)
+K4E_VARIANTS = [
+    ("as built", {}),
+    ("ring 1, 3 blocks", {"kRingCompact": "1", "kMinBlocksCompact": "3"}),
+    ("ring 1, 4 blocks", {"kRingCompact": "1", "kMinBlocksCompact": "4"}),
+    ("ring 2, 3 blocks", {"kRingCompact": "2", "kMinBlocksCompact": "3"}),
+    ("ring 3, 2 blocks", {"kRingCompact": "3", "kMinBlocksCompact": "2"}),
+    ("ring 4, 2 blocks", {"kRingCompact": "4", "kMinBlocksCompact": "2"}),
+    ("ring 4, 1 block", {"kRingCompact": "4", "kMinBlocksCompact": "1"}),
 ]
 K4_VARIANTS = [
     ("as built", {}),
@@ -424,23 +468,74 @@ def proteins_layout(dev):
                 real_ids=torch.as_tensor(side.ids_grp[0][real], device=dev))
 
 
-ALL = ("k1", "k2", "k2e", "k4", "k5", "k6", "k7", "k8")
+def proteins_src_layout(dev):
+    """One chunk's worth of the ogbn-proteins cell's source rows: 7,363
+    sources (132,534 / 18 chunks) of Poisson(597) out-degree, three of
+    them of 1, 2 and 3 edges, each edge's destination uniform over 132,534
+    nodes and 8 standard-normal features, laid out unchunked by
+    prepare_sell_tiles (rows split into virtual rows of at most 256
+    edges), so that ell_perm gives each source slot its destination slot,
+    the row of that edge's compact packet."""
+    from gatv2_tpu_torch.ops import sell_attention as tsa
+
+    rng = np.random.default_rng(3)
+    n_src, n_dst, k = 7_363, 132_534, 8
+    deg = rng.poisson(597, n_src)
+    deg[:3] = (1, 2, 3)
+    src = np.repeat(np.arange(n_src, dtype=np.int32), deg)
+    dst = rng.integers(0, n_dst, size=src.size)
+    order = np.argsort(dst, kind="stable")
+    row_ptr = np.zeros(n_dst + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=n_dst), out=row_ptr[1:])
+    st = tsa.prepare_sell_tiles(
+        row_ptr, src[order], n_dst, num_src_nodes=n_src,
+        edge_features=rng.standard_normal((src.size, k), dtype=np.float32))
+    ef_dst = torch.as_tensor(st.dst.edge_feat[0], device=dev)
+    ell_perm = torch.as_tensor(st.ell_perm, device=dev)
+    srcs = st.srcs
+    real = srcs.gather_ids < n_dst
+    # the source side's features in its slot order, for a K4 that rebuilds
+    # the scores; zeros in padding slots
+    ef_src = torch.cat([ef_dst, ef_dst.new_zeros(1, k)])[
+        ell_perm.long().clamp(max=ef_dst.shape[0])]
+    ef_src[~torch.as_tensor(real, device=dev)] = 0
+    return dict(n_dst=n_dst, n_src=n_src, e=int(src.size), k=k,
+                dst=tuple(torch.as_tensor(x, device=dev) for x in (
+                    st.dst.perm, st.dst.gather_ids, st.dst.cnt,
+                    st.dst.col_off)),
+                src=tuple(torch.as_tensor(x, device=dev) for x in (
+                    srcs.perm, srcs.gather_ids, srcs.cnt, srcs.col_off)),
+                ef_dst=ef_dst, ef_src=ef_src.contiguous(), ell_perm=ell_perm,
+                real_ids=torch.as_tensor(srcs.gather_ids[real], device=dev))
+
+
+ALL = ("k1", "k2", "k2e", "k4", "k4e", "k5", "k6", "k7", "k8")
 SOURCES = {"k1": ("sell_fwd", K1_VARIANTS), "k2": ("sell_bwd_dst", K2_VARIANTS),
            "k2e": ("sell_bwd_dst", K2E_VARIANTS),
            "k4": ("sell_bwd_src", K4_VARIANTS),
+           "k4e": ("sell_bwd_src", K4E_VARIANTS),
            "k5": ("pallas_fwd", K5_VARIANTS),
            "k6": ("pallas_bwd_dst", K6_VARIANTS),
            "k7": ("pallas_segsum", K7_VARIANTS),
            "k8": ("pallas_bwd_src", K8_VARIANTS)}
 
 
-def k2_fn(lib):
-    """gatv2_sell_bwd_dst of a built K2, its argument types set."""
+# the sources that take compact packets (K2 writes them, K4 reads them),
+# by library name; the others have the C interface from before them
+COMPACT: dict[str, bool] = {}
+
+
+def k2_fn(lib, compact=True):
+    """gatv2_sell_bwd_dst of a built K2, its argument types set; compact:
+    whether its source takes the compact packets' buffer (its C interface
+    has one more pointer before the stream)."""
     fn = lib.gatv2_sell_bwd_dst
     fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
                    + [ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p] * 2
-                   + [ctypes.c_int] + [ctypes.c_void_p] * 5)
+                   + [ctypes.c_int] + [ctypes.c_void_p] * (6 if compact
+                                                           else 5))
     fn.restype = ctypes.c_int
+    fn.compact = compact
     return fn
 
 
@@ -452,11 +547,14 @@ def k2_variant(name, changes):
         (build.CSRC / "sell_bwd_dst.cu").read_text(), changes)))
 
 
-def k2_edge_launch(fn, tables, layout, edge_feat, w_e, slope, c1=None):
-    """(launch, dzd, d_a partials, dW_e partials) of a built K2 with edge
-    features on a layout's rows (perm, gather ids, cnt, column offsets),
-    sized as the wrapper sizes it: launch() runs it and returns its error;
-    each run adds into the dW_e partials, zeros before the first."""
+def k2_edge_launch(fn, tables, layout, edge_feat, w_e, slope, c1=None,
+                   compact=None):
+    """(launch, dzd, d_a partials, dW_e partials) of a built K2 (k2_fn)
+    with edge features on a layout's rows (perm, gather ids, cnt, column
+    offsets), sized as the wrapper sizes it, writing c1 packets into c1 and
+    compact packets into compact where given: launch() runs it and
+    returns its error; each run adds into the dW_e partials, zeros before
+    the first."""
     zs, zd, g, sigma, r, a = tables
     heads, d = a.shape
     hd, k = heads * d, w_e.shape[-1]
@@ -471,6 +569,8 @@ def k2_edge_launch(fn, tables, layout, edge_feat, w_e, slope, c1=None):
             rows, heads, d, slope, blocks, edge_feat.data_ptr(),
             we.data_ptr(), k, dzd.data_ptr(), da_part.data_ptr(),
             None if c1 is None else c1.data_ptr(), dwe_part.data_ptr(),
+            *((None if compact is None else compact.data_ptr(),)
+              if fn.compact else ()),
             torch.cuda.current_stream().cuda_stream)
 
     def launch():
@@ -521,8 +621,9 @@ def k2e(libs, names, bare, card, dev):
           f"slot in 32-byte sectors at peak {floor:.4f} ms")
     first = None
     c1 = torch.empty(slots, hd, device=dev)
+    compact = k2.compact_buffer(slots, heads, d, device=dev)
     for i, name in enumerate(names):
-        fn = k2_fn(libs[f"k2e_{i}"])
+        fn = k2_fn(libs[f"k2e_{i}"], COMPACT[f"k2e_{i}"])
         outs = []
         for packets in (None, c1):
             launch, *res = k2_edge_launch(fn, tables, layout, lay["ef"], w_e,
@@ -542,6 +643,16 @@ def k2e(libs, names, bare, card, dev):
             for (n, nv, t), v in sorted(REGS.items())
             if n == f"k2e_{i}" and nv == 5 and t > 0)
         print(f"  K2 {name}: {ms:.4f} ms without packets ({reports})")
+        if fn.compact:
+            launch, *res = k2_edge_launch(fn, tables, layout, lay["ef"], w_e,
+                                          0.2, compact=compact)
+            assert launch() == 0, name
+            torch.cuda.synchronize()
+            same = bit_reading(
+                [("dzd", res[0]), ("d_a partials", res[1]),
+                 ("dW_e partials", res[2])], outs[:3])
+            print(f"    with compact packets {event_ms(launch):.4f} ms; "
+                  f"against itself without them: {', '.join(same)}")
         if first is None:
             first = outs
             continue
@@ -549,6 +660,86 @@ def k2e(libs, names, bare, card, dev):
               + ", ".join(bit_reading(outs, first)))
         del outs
     del tables, c1
+    torch.cuda.empty_cache()
+
+
+def k4_fn(lib, compact=True):
+    """gatv2_sell_bwd_src of a built K4, its argument types set; compact:
+    whether its source reads compact packets (else its edge-feature
+    arguments are the features, W_e and k)."""
+    fn = lib.gatv2_sell_bwd_src
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
+                   + [ctypes.c_float] + ([ctypes.c_void_p] * 4 if compact
+                                         else [ctypes.c_void_p] * 2
+                                         + [ctypes.c_int]
+                                         + [ctypes.c_void_p] * 2))
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def k4e(libs, names, bare, card, dev):
+    """K4's compact variants (and a K4 that rebuilds the scores, where
+    --against names one) on proteins_src_layout, reading the packets K2 as
+    built writes: ms, ptxas's report, and dzs against the first's."""
+    lay = proteins_src_layout(dev)
+    heads, d, k = 6, 80, lay["k"]
+    hd = heads * d
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=dev, generator=gen)
+
+    tables = (randn(lay["n_src"], hd), randn(lay["n_dst"] + 1, hd),
+              randn(lay["n_dst"] + 1, hd),
+              randn(lay["n_dst"] + 1, heads).abs() + 2,
+              randn(lay["n_dst"] + 1, heads), randn(heads, d) / d ** 0.5)
+    w_e = 0.3 * randn(heads, d, k)
+    slots_d = lay["dst"][1].numel()
+    compact = k2.compact_buffer(slots_d, heads, d, device=dev)
+    launch, *_ = k2_edge_launch(
+        k2_fn(build.load_library("sell_bwd_dst")), tables, lay["dst"],
+        lay["ef_dst"], w_e, 0.2, compact=compact)
+    assert launch() == 0
+    torch.cuda.synchronize()
+    rows = lay["src"][0].numel()
+    e = lay["e"]
+    words = compact.shape[1]
+    print(f"K4 with edge features, one chunk's worth of ogbn-proteins source "
+          f"rows: {rows} virtual rows, {e} real slots of "
+          f"{lay['src'][1].numel()}, {heads} x {d} heads, k = {k}, compact "
+          f"packets of {4 * words} bytes [{card}]")
+    sector_floats = -(-hd * 4 // 32) * 8
+    ms = event_ms(lambda: bare(lay["real_ids"], hd, tables[2]))
+    floor = 4 * e * (sector_floats + -(-words // 8) * 8) \
+        / PEAK_BYTES_PER_S * 1e3
+    print(f"  bare gather of a g row per real slot {ms:.4f} ms; a g row and "
+          f"a packet per slot in 32-byte sectors at peak {floor:.4f} ms")
+    we = w_e.reshape(-1, k).t().contiguous()
+    dzs = torch.empty(rows, hd, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    first = None
+    for i, name in enumerate(names):
+        packets = COMPACT[f"k4e_{i}"]
+        fn = k4_fn(libs[f"k4e_{i}"], packets)
+        edge = ((compact.data_ptr(), lay["ell_perm"].data_ptr()) if packets
+                else (lay["ef_src"].data_ptr(), we.data_ptr(), k))
+        args = (*(t.data_ptr() for t in tables),
+                *(t.data_ptr() for t in lay["src"]), rows, heads, d, 0.2,
+                *edge, dzs.data_ptr(), stream)
+        assert fn(*args) == 0, name
+        torch.cuda.synchronize()
+        out = [("dzs", dzs.clone())]
+        ms = event_ms(lambda: fn(*args))
+        reports = "; ".join(v for (n, nv, t), v in sorted(REGS.items())
+                            if n == f"k4e_{i}" and nv == 5 and t == 1)
+        kind = "compact packets" if packets else "rebuilt from W_e f"
+        print(f"  K4 {name} ({kind}): {ms:.4f} ms ({reports})")
+        if first is None:
+            first = out
+            continue
+        print(f"    against {names[0]}: " + ", ".join(bit_reading(out,
+                                                                 first)))
+    del tables, compact, dzs
     torch.cuda.empty_cache()
 
 
@@ -561,7 +752,7 @@ def main(argv) -> int:
         i = argv.index("--against")
         against = pathlib.Path(argv[i + 1])
         argv = argv[:i] + argv[i + 2:]
-    wanted = argv or [k for k in ALL if k != "k2e"]
+    wanted = argv or [k for k in ALL if k not in ("k2e", "k4e")]
     if set(wanted) - set(ALL):
         print(f"kernels are among {ALL}, got {wanted}", file=sys.stderr)
         return 2
@@ -571,17 +762,18 @@ def main(argv) -> int:
          "--format=csv,noheader"], capture_output=True, text=True
     ).stdout.strip()
     jobs = {"gather": (GATHER_SRC, None)}
-    k2e_names = [name for name, _ in K2E_VARIANTS]
-    if against is not None:
-        k2e_names.insert(0, f"as built from {against}")
+    names = {kern: [name for name, _ in SOURCES[kern][1]]
+             for kern in ("k2e", "k4e")}
     for kern in wanted:
         file, variants = SOURCES[kern]
         text = (build.CSRC / f"{file}.cu").read_text()
         sources = [variant_source(text, changes) for _, changes in variants]
-        if kern == "k2e" and against is not None:
+        if kern in names and against is not None:
             sources.insert(0, tree_source(against, file))
+            names[kern].insert(0, f"as built from {against}")
         for i, source in enumerate(sources):
             jobs[f"{kern}_{i}"] = source
+            COMPACT[f"{kern}_{i}"] = "compact" in source[0]
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as ex:
         libs = dict(zip(jobs, ex.map(lambda kv: compile_lib(kv[0], *kv[1]),
                                      jobs.items())))
@@ -661,7 +853,10 @@ def main(argv) -> int:
             torch.cuda.empty_cache()
 
     if "k2e" in wanted:
-        k2e(libs, k2e_names, bare, card, dev)
+        k2e(libs, names["k2e"], bare, card, dev)
+
+    if "k4e" in wanted:
+        k4e(libs, names["k4e"], bare, card, dev)
 
     if "k4" in wanted:
         lay = sell_layout(dev, ascending=True)
@@ -683,16 +878,12 @@ def main(argv) -> int:
             print(f"  H*D={hd}: bare gather of zd, g, sigma, r per slot "
                   f"{ms:.4f} ms; per-edge gather floor {floor:.4f} ms")
             for i, (name, _) in enumerate(K4_VARIANTS):
-                fn = libs[f"k4_{i}"].gatv2_sell_bwd_src
-                fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [
-                    ctypes.c_float] + [ctypes.c_void_p] * 2 + [
-                    ctypes.c_int] + [ctypes.c_void_p] * 2
-                fn.restype = ctypes.c_int
+                fn = k4_fn(libs[f"k4_{i}"])
                 args = (zs.data_ptr(), zd.data_ptr(), g.data_ptr(),
                         sig.data_ptr(), r.data_ptr(), a.data_ptr(),
                         lay["perm"].data_ptr(), lay["ids"].data_ptr(),
                         lay["cnt"].data_ptr(), lay["col_off"].data_ptr(),
-                        lay["rows"], heads, d, 0.01, None, None, 0,
+                        lay["rows"], heads, d, 0.01, None, None,
                         out.data_ptr(), stream)
                 ms = event_ms(lambda: fn(*args))
                 print(f"  H*D={hd}: K4 {name}: {ms:.4f} ms")
